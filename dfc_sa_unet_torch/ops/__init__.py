@@ -1,0 +1,22 @@
+"""Tensor ops of the port: plain PyTorch functions and the kernel wrappers.
+
+Plain ops take NCHW tensors (the model's layout, stored channels_last);
+the kernel wrappers (``pooled_attention``, ``dfc_tail``) take NHWC, the
+JAX layout, which is a contiguous ``permute(0, 2, 3, 1)`` view of a
+channels_last tensor.
+"""
+
+from dfc_sa_unet_torch.ops.dfc_tail import LAUNCHES as _TAIL_LAUNCHES
+from dfc_sa_unet_torch.ops.pooled_attention import LAUNCHES as _ATTN_LAUNCHES
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    for counts in (_ATTN_LAUNCHES, _TAIL_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def launches() -> dict:
+    """{kernel name: launches since the last reset}."""
+    return {**_ATTN_LAUNCHES, **_TAIL_LAUNCHES}

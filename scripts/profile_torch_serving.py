@@ -1,0 +1,103 @@
+#!/usr/bin/env python3
+"""Where the time of one bf16 serving forward goes, for the PyTorch port on one GPU.
+
+    python3 scripts/profile_torch_serving.py [--batch 128] [--seed 0] [--top 25] [--report FILE]
+
+Builds the flagship DFC-SA-Res-Block (224x224, features 64/128/256/512,
+pool 8) with seeded weights, then for the module path (attention kernel)
+and the folded engine path (tail, conv3x3 and attention kernels) times
+one B-image bf16 forward with CUDA events and traces two forwards with
+torch.profiler: device time by kernel, and the device's busy share of
+the traced wall time.  Prints a summary; ``--report`` also writes the
+profiler's full tables to FILE.  Needs a CUDA card.
+"""
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from dfc_sa_unet_torch.infer.engine import DFCEngine  # noqa: E402
+from dfc_sa_unet_torch.models.factory import create_model  # noqa: E402
+from dfc_sa_unet_torch.utils.weights import init_random_  # noqa: E402
+
+CONFIG = {"model": {"name": "DFC-SA-Res-Block", "features": [64, 128, 256, 512], "pool_size": 8,
+                    "use_pallas": True}}
+
+
+def _device_us(evt):
+    return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
+
+
+def _is_kernel(evt):
+    """A device-side row (a kernel or copy); operator rows repeat their time."""
+    return evt.device_type == torch.autograd.DeviceType.CUDA
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--report", type=str, default=None, help="file for the full profiler tables")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    dev = torch.device("cuda")
+    weights = init_random_(create_model(CONFIG, device="cpu"), torch.Generator().manual_seed(args.seed)).state_dict()
+    module = create_model(CONFIG, dtype=torch.bfloat16, device=dev).eval()
+    module.load_state_dict(weights, strict=True)
+    engine = DFCEngine(CONFIG, weights, dtype=torch.bfloat16, device=dev, tail_kernel_levels="auto",
+                       conv_kernel_levels="auto")
+    x = torch.randn(args.batch, 3, 224, 224, generator=torch.Generator().manual_seed(args.seed))
+    x = x.to(dev, torch.bfloat16, memory_format=torch.channels_last)
+
+    tables = []
+    print(f"card: {card}; torch {torch.__version__}; B={args.batch} bf16 224x224")
+    with torch.inference_mode():
+        for name, fwd in (("module", module), ("engine", engine)):
+            fwd(x)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                fwd(x)
+            end.record()
+            torch.cuda.synchronize()
+            fwd_ms = start.elapsed_time(end) / 3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    fwd(x)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            averages = prof.key_averages()
+            kernels = [e for e in averages if _is_kernel(e)]
+            busy_us = sum(_device_us(e) for e in kernels)
+            print(f"\n{name} path: forward {fwd_ms:.2f} ms (CUDA events, {card}); traced 2 forwards: "
+                  f"device busy {busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall "
+                  f"({100 * busy_us / wall_us:.1f}%)")
+            rows = sorted(kernels, key=_device_us, reverse=True)
+            for e in rows[: args.top]:
+                us = _device_us(e)
+                if us <= 0:
+                    break
+                print(f"  {us / 2e3:9.3f} ms/forward {100 * us / busy_us:5.1f}%  x{e.count // 2:<5d} {e.key[:90]}")
+            tables.append(f"== {name} path ({card}, B={args.batch} bf16)\n"
+                          + averages.table(sort_by="self_device_time_total", row_limit=100) + "\n")
+    if args.report:
+        os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
+        with open(args.report, "w", encoding="utf-8") as f:
+            f.writelines(tables)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,99 @@
+"""Boundaries of the PyTorch port.
+
+* No file of dfc_sa_unet_torch/ (nor chip_smoke.py) imports jax, flax or
+  dfc_sa_unet_tpu - checked on the source, and by importing every module
+  in a process where ``import jax`` fails.
+* Without CUDA every entry point raises unless it is given device="cpu".
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "dfc_sa_unet_torch"
+FORBIDDEN = ("jax", "flax", "dfc_sa_unet_tpu")
+CFG = {"model": {"name": "DFC-SA-Res-Block", "features": [8, 16, 24, 32], "pool_size": 4}}
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_imports_in_source():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = [(str(f.relative_to(ROOT)), r) for f in files for r in _imported_roots(f) if r in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_package_imports_without_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for name in ('jax', 'flax', 'dfc_sa_unet_tpu'): sys.modules[name] = None\n"
+        "import dfc_sa_unet_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(dfc_sa_unet_torch.__path__, 'dfc_sa_unet_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "print(len(mods))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 15
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    from dfc_sa_unet_torch.infer.engine import DFCEngine
+    from dfc_sa_unet_torch.infer.predictor import Predictor
+    from dfc_sa_unet_torch.inference import build_predictor, parse_args
+    from dfc_sa_unet_torch.models.factory import create_model
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_model(CFG)
+    model = create_model(CFG, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DFCEngine(CFG, model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor(model)
+    args = parse_args(["--config", "c.yaml", "--input", "d"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_predictor(CFG, model.state_dict(), device=args.device)
+    build_predictor(CFG, model.state_dict(), engine=True, device="cpu")
+
+
+def test_other_models_raise_not_implemented():
+    from dfc_sa_unet_torch.models.factory import create_model
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        create_model({"model": {"name": "TransUNet"}}, device="cpu")
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """chip_smoke.py fails and prints no result line without a card, and
+    also when it stands alone outside the repo."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"), (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env, capture_output=True,
+                             text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout

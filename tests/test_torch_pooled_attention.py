@@ -1,0 +1,64 @@
+"""The port's pooled-attention oracle against the JAX kernel and oracle, on the CPU.
+
+The JAX kernel ``fused_pooled_attention`` runs in Pallas interpret mode
+here (it picks that itself off the TPU).  f32: atol 1e-5, the same sums
+in another order.  bf16: inputs rounded to bf16 on both sides, then
+atol 2e-2 (about two bf16 ulps at |out| ~ 2): P and the output are each
+rounded once to bf16 and a one-ulp flip of P moves the output by ~1e-2.
+The CUDA kernel itself is checked against this oracle on the card by
+chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from dfc_sa_unet_tpu.ops.attention import pooled_self_attention as jax_attention
+from dfc_sa_unet_tpu.ops.pallas_attention import fused_pooled_attention
+from dfc_sa_unet_torch.ops import launches, reset_launches
+from dfc_sa_unet_torch.ops.attention import pooled_self_attention
+from dfc_sa_unet_torch.ops.pooled_attention import pooled_attention
+
+torch.set_num_threads(2)
+
+
+def _qkv(seed, b, p, c):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, p, p, c // 8)).astype(np.float32)
+    k = rng.standard_normal((b, p, p, c // 8)).astype(np.float32)
+    v = rng.standard_normal((b, p, p, c)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("p", [4, 8, 16])  # N = 16, 64, 256
+@pytest.mark.parametrize("c", [64, 256])
+def test_plain_matches_jax_f32(p, c):
+    q, k, v = _qkv(p * c, 2, p, c)
+    got = pooled_attention(*(torch.from_numpy(t) for t in (q, k, v))).numpy()
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+    np.testing.assert_allclose(got, np.asarray(fused_pooled_attention(jq, jk, jv)), atol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(jax_attention(jq, jk, jv)), atol=1e-5)
+
+
+@pytest.mark.parametrize("p", [4, 8])
+def test_plain_matches_jax_bf16(p):
+    q, k, v = _qkv(7, 2, p, 64)
+    got = pooled_self_attention(*(torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    want = fused_pooled_attention(*(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=2e-2)
+
+
+def test_cpu_wrapper_launches_nothing():
+    reset_launches()
+    q, k, v = _qkv(0, 1, 8, 64)
+    pooled_attention(*(torch.from_numpy(t) for t in (q, k, v)))
+    assert launches()["pooled_attention"] == 0
+
+
+def test_non_cpu_tensor_never_falls_back():
+    q, k, v = (torch.from_numpy(t) for t in _qkv(0, 1, 4, 64))
+    with pytest.raises(ValueError, match="pooled_attention"):
+        pooled_attention(q, k.to("meta"), v)
