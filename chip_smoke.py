@@ -10,7 +10,7 @@ any failure exits non-zero:
    for the f32 checks;
 2. build the CUDA kernels from dfc_sa_unet_torch/csrc;
 3. hold every kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it, in f32 and bf16;
+   the shapes the main paths give it and at awkward ones, in f32 and bf16;
 4. serve the flagship DFC-SA-Res-Block at full width (224x224, features
    64/128/256/512, pool 8, seeded weights, BatchNorm statistics fitted to
    a slice of the batch so that the logits spread O(1)):
@@ -20,9 +20,18 @@ any failure exits non-zero:
    all 9); the probabilities must agree, and the launch counts show that
    the kernels ran;
 5. three synthetic 512x512 requests through predict_sliding_stream(tta);
-6. time each kernel, its plain version, a library yardstick and both
-   serving paths in bf16 at B=128.
+6. serve the transformer zoo at full width and depth (224x224, ViT-B:
+   E=768, 12 heads, 12 layers, MLP 3072; TransUNet: R50 units (3,4,9), the
+   same ViT-B, DecoderCup), seeded weights with fitted BatchNorm
+   statistics: one B=128 uint8 batch through the Predictor in f32 and
+   bf16.  ViT-seg must launch the fused_mha kernel 12 times per forward
+   and TransUNet the fused_mha_sep kernel 12 times; f32 on the card must
+   agree with the same weights on the CPU, and bf16 with f32;
+7. time each kernel, its plain version, a library yardstick and every
+   serving path in bf16 at B=128.
 
+The launch counts are set to 0 before phase 4 and read after phase 5 (the
+flagship's paths), and again around phase 6 (the transformers' paths).
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -42,6 +51,16 @@ IMG = 224
 CONFIG = {"model": {"name": "DFC-SA-Res-Block", "in_channels": 3, "out_channels": 1,
                     "features": [64, 128, 256, 512], "pool_size": 8, "use_pallas": True}}
 # (block, H, Cin, C) of the flagship at 224x224
+# configs/config_vit_seg.yaml and configs/config_transunet.yaml: the model section, and the
+# dataset's image size, which sizes TransUNet
+ZOO = {
+    "ViT-seg": ({"model": {"name": "VisionTransformerSegmentation", "in_channels": 3, "out_channels": 1,
+                           "img_dim": 224, "patch_dim": 16, "embed_dim": 768, "num_layers": 12,
+                           "num_heads": 12, "mlp_dim": 3072, "dropout": 0.1}}, "fused_mha"),
+    "TransUNet": ({"model": {"name": "TransformerUNet", "in_channels": 3, "out_channels": 1},
+                   "dataset": {"img_size": [224, 224]}}, "fused_mha_sep"),
+}
+TOKENS, EMBED, HEADS, LAYERS = 196, 768, 12, 12  # ViT-B/16 at 224x224: what both models give the kernel
 BLOCK_SHAPES = [("down1", 224, 3, 64), ("down2", 112, 64, 128), ("down3", 56, 128, 256),
                 ("down4", 28, 256, 512), ("bottleneck", 14, 512, 1024),
                 ("up_conv4", 28, 1024, 512), ("up_conv3", 56, 512, 256),
@@ -56,11 +75,25 @@ PROB_TOL_F32 = 1e-3
 # places (folded weights vs f32 BatchNorm), a few bf16 ulps through 9 blocks
 DLOGIT_TOL_BF16 = {"mean": 0.05, "max": 0.5}
 MIN_LOGIT_STD = 0.1  # below this the agreement checks could not tell a constant output apart
+# transformer f32 on the card vs the same weights on the CPU (plain attention), max |dlogit| / std:
+# the same f32 arithmetic in another order through 12 layers
+DLOGIT_TOL_CPU = 1e-3
+# transformer bf16 vs f32 on the card, |dlogit| / std.  ViT-seg keeps the limits above (it read
+# mean 8.4e-3, max 7.3e-2).  TransUNet needs wider ones: with seeded weights the bf16 roundings of
+# the 48 weight-standardised convs of its R50 add up without contracting (mean 0.26 of the
+# activation std after block3 at a reduced size on the CPU, and the JAX package's own bf16 mode reads
+# the same there); the full model read mean 1.250e-01 and max 1.255 on an H100.  A constant output
+# reads about 0.8 on the mean.
+DLOGIT_TOL_BF16_ZOO = {"ViT-seg": DLOGIT_TOL_BF16, "TransUNet": {"mean": 0.25, "max": 2.5}}
 
 
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def logit_of(p):
+    return np.log(np.clip(p, 1e-7, 1 - 1e-7) / np.clip(1 - p, 1e-7, 1))
 
 
 def main():
@@ -82,7 +115,7 @@ def main():
     from dfc_sa_unet_torch.infer.predictor import Predictor
     from dfc_sa_unet_torch.models.factory import create_model
     from dfc_sa_unet_torch.ops import _build, launches, reset_launches
-    from dfc_sa_unet_torch.ops import dfc_tail as tail_ops, pooled_attention as attn_ops
+    from dfc_sa_unet_torch.ops import dfc_tail as tail_ops, mha as mha_ops, pooled_attention as attn_ops
     from dfc_sa_unet_torch.data.normalize import normalize
     from dfc_sa_unet_torch.utils.weights import calibrate_batch_stats_, init_random_
 
@@ -123,7 +156,12 @@ def main():
                 randn(c), randn(3 * c, c, dtype=dtype, scale=(3 * c) ** -0.5), randn(c),
                 randn(cin, c, dtype=dtype, scale=0.1 * cin ** -0.5))
 
-    max_err = {"pooled_attention": 0.0, "dfc_tail": 0.0, "conv3x3_bn_relu": 0.0}
+    def mha_inputs(b, n, e, dtype, packed):
+        qkv = randn(b, n, 3 * e, dtype=dtype)
+        return (qkv,) if packed else tuple(t.contiguous() for t in qkv.chunk(3, dim=-1))
+
+    max_err = {"pooled_attention": 0.0, "dfc_tail": 0.0, "conv3x3_bn_relu": 0.0, "fused_mha": 0.0,
+               "fused_mha_sep": 0.0}
     bad = []
 
     def check(name, kernel, plain, args, label):
@@ -157,6 +195,15 @@ def main():
                       tail_inputs(4, h, cin, c, dtype), label)
             check("conv3x3_bn_relu", tail_ops.conv3x3_bn_relu, tail_ops.conv3x3_bn_relu_plain,
                   conv_inputs(4, h, cin, c, dtype), label)
+        # the ViT-B shape of both models, then awkward ones: a tiny N, N not a multiple of 8,
+        # the largest N, a single image
+        for b, n, e, nh in ((BATCH, TOKENS, EMBED, HEADS), (2, 16, 32, 2), (3, 197, EMBED, HEADS),
+                            (2, 1024, 128, 4), (1, TOKENS, EMBED, HEADS)):
+            label = f"{dn} B={b} N={n} E={e} heads={nh}"
+            check("fused_mha", mha_ops.fused_mha, mha_ops.fused_mha_plain,
+                  (*mha_inputs(b, n, e, dtype, packed=True), nh), label)
+            check("fused_mha_sep", mha_ops.fused_mha_sep, mha_ops.fused_mha_sep_plain,
+                  (*mha_inputs(b, n, e, dtype, packed=False), nh), label)
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
 
@@ -178,9 +225,10 @@ def main():
             fwd.load_state_dict(weights, strict=True)
         return Predictor(fwd, compute_dtype=dtype, device=dev)
 
-    per_forward = {"module": {"pooled_attention": 9, "dfc_tail": 0, "conv3x3_bn_relu": 0},
-                   "engine": {"pooled_attention": 9, "dfc_tail": 7, "conv3x3_bn_relu": 2}}
-    reset_launches()  # the main path's run starts here (phases 4 and 5)
+    none = {name: 0 for name in max_err}
+    per_forward = {"module": {**none, "pooled_attention": 9},
+                   "engine": {**none, "pooled_attention": 9, "dfc_tail": 7, "conv3x3_bn_relu": 2}}
+    reset_launches()  # the flagship's main path starts here (phases 4 and 5)
     probs = {}
     for kind in ("module", "engine"):
         before = launches()
@@ -193,7 +241,7 @@ def main():
         if probs[kind].shape != (BATCH, IMG, IMG) or not np.isfinite(probs[kind]).all():
             fail(f"{kind} probabilities: shape {probs[kind].shape} or non-finite values")
     diff = float(np.abs(probs["module"] - probs["engine"]).max())
-    logit = {k: np.log(np.clip(p, 1e-7, 1 - 1e-7) / np.clip(1 - p, 1e-7, 1)) for k, p in probs.items()}
+    logit = {k: logit_of(p) for k, p in probs.items()}
     dlogit = float(np.abs(logit["module"] - logit["engine"]).max())
     print(f"    module vs engine (f32): max |dprob| {diff:.3e} (tol {PROB_TOL_F32}); max |dlogit| "
           f"{dlogit:.3e} against logit std {logit['module'].std():.3e}, range "
@@ -218,7 +266,7 @@ def main():
     for (key, p), (want_key, _) in zip(served, requests):
         if key != want_key or p.shape != (512, 512) or not np.isfinite(p).all() or p.min() < 0 or p.max() > 1:
             fail(f"request {want_key}: got key {key}, shape {p.shape}")
-    req_logit = [np.log(np.clip(p, 1e-7, 1 - 1e-7) / np.clip(1 - p, 1e-7, 1)) for p in (served[0][1], ref)]
+    req_logit = [logit_of(p) for p in (served[0][1], ref)]
     req_std = float(req_logit[1].std())
     req_diff = np.abs(req_logit[0] - req_logit[1]) / req_std
     print(f"    bf16 engine vs bf16 module on req0: logit std {req_std:.3e}; |dlogit| / std: max "
@@ -228,13 +276,64 @@ def main():
         fail(f"request logit std {req_std:.3e} < {MIN_LOGIT_STD}")
     if not (req_diff.max() <= DLOGIT_TOL_BF16["max"] and req_diff.mean() <= DLOGIT_TOL_BF16["mean"]):
         fail("bf16 engine and module disagree on a request")
-    main_launches = launches()  # the main path's run ends here
-    print(f"    main-path launches: {main_launches}", flush=True)
-    if min(main_launches.values()) < 1:
-        fail(f"a kernel of the main path never launched: {main_launches}")
+    main_launches = launches()  # the flagship's main path ends here
+    print(f"    flagship main-path launches: {main_launches}", flush=True)
+    if min(main_launches[k] for k in ("pooled_attention", "dfc_tail", "conv3x3_bn_relu")) < 1:
+        fail(f"a kernel of the flagship's main path never launched: {main_launches}")
 
     # ------------------------------------------------------------ phase 6
-    print(f"[6] timings, bf16, B={BATCH} ({card})", flush=True)
+    print(f"[6] transformer zoo at {IMG}x{IMG}, B={BATCH}, seed {seed}", flush=True)
+    reset_launches()  # the transformers' main path starts here
+    zoo_pred = {}
+    for label, (cfg, kernel_name) in ZOO.items():
+        zoo_model = init_random_(create_model(cfg, device="cpu"), torch.Generator().manual_seed(seed))
+        zoo_model = zoo_model.to(dev, memory_format=torch.channels_last)
+        zoo_weights = calibrate_batch_stats_(zoo_model, calib).state_dict()
+        del zoo_model
+        zoo_probs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            fwd = create_model(cfg, dtype=None if dtype == torch.float32 else dtype, device=dev)
+            fwd.load_state_dict(zoo_weights, strict=True)
+            pred = Predictor(fwd, compute_dtype=dtype, device=dev)
+            before = launches()
+            with torch.inference_mode():
+                zoo_probs[dn] = pred.predict_probs(batch)
+            delta = {k: v - before[k] for k, v in launches().items()}
+            print(f"    {label} {dn}: probs {zoo_probs[dn].shape}, launches {delta}", flush=True)
+            if delta != {**none, kernel_name: LAYERS}:
+                fail(f"{label} forward launched {delta}, expected {LAYERS} of {kernel_name} alone")
+            if zoo_probs[dn].shape != (BATCH, IMG, IMG) or not np.isfinite(zoo_probs[dn]).all():
+                fail(f"{label} {dn} probabilities: shape {zoo_probs[dn].shape} or non-finite values")
+        zoo_pred[label] = pred  # the bf16 predictor, timed in phase 7
+        cpu_fwd = create_model(cfg, device="cpu")
+        cpu_fwd.load_state_dict(zoo_weights, strict=True)
+        with torch.inference_mode():
+            cpu_probs = Predictor(cpu_fwd, device="cpu").predict_probs(batch[:4])
+        zl = {k: logit_of(p) for k, p in zoo_probs.items()}
+        zstd = float(zl["float32"].std())
+        d_cpu = float(np.abs(zl["float32"][:4] - logit_of(cpu_probs)).max()) / zstd
+        d_bf16 = np.abs(zl["bfloat16"] - zl["float32"]) / zstd
+        tol_bf16 = DLOGIT_TOL_BF16_ZOO[label]
+        print(f"    {label}: logit std {zstd:.3e}, range [{zl['float32'].min():.3f}, {zl['float32'].max():.3f}]; "
+              f"f32 card vs CPU on 4 images max |dlogit| / std {d_cpu:.3e} (tol {DLOGIT_TOL_CPU}); bf16 vs f32 "
+              f"|dlogit| / std: max {d_bf16.max():.3e} (tol {tol_bf16['max']}), mean "
+              f"{d_bf16.mean():.3e} (tol {tol_bf16['mean']})", flush=True)
+        if zstd < MIN_LOGIT_STD:
+            fail(f"{label} logit std {zstd:.3e} < {MIN_LOGIT_STD}: the output hardly depends on the input")
+        if not d_cpu <= DLOGIT_TOL_CPU:
+            fail(f"{label}: f32 on the card and on the CPU disagree")
+        if not (d_bf16.max() <= tol_bf16["max"] and d_bf16.mean() <= tol_bf16["mean"]):
+            fail(f"{label}: bf16 and f32 disagree on the card")
+        del cpu_fwd, fwd, zoo_weights
+    zoo_launches = launches()  # the transformers' main path ends here
+    print(f"    transformer main-path launches: {zoo_launches}", flush=True)
+    if min(zoo_launches[k] for k in ("fused_mha", "fused_mha_sep")) < 1:
+        fail(f"a kernel of the transformers' main path never launched: {zoo_launches}")
+    main_launches = {k: main_launches[k] + zoo_launches[k] for k in main_launches}
+
+    # ------------------------------------------------------------ phase 7
+    print(f"[7] timings, bf16, B={BATCH} ({card})", flush=True)
 
     def timed(fn, iters):
         fn()
@@ -310,8 +409,29 @@ def main():
                     2 * npix * (cin + c) + 2 * 9 * cin * c + 4 * c,
                     2 * npix * c * 9 * cin)
 
+        # one forward of either transformer launches its kernel LAYERS times at this shape
+        head_dim = EMBED // HEADS
+        mha_bytes = LAYERS * 2 * 4 * BATCH * TOKENS * EMBED
+        mha_ops_count = LAYERS * 4 * BATCH * HEADS * TOKENS * TOKENS * head_dim
+        for name, packed in (("fused_mha", True), ("fused_mha_sep", False)):
+            args = mha_inputs(BATCH, TOKENS, EMBED, bf, packed)
+            kernel, plain = ((mha_ops.fused_mha, mha_ops.fused_mha_plain) if packed
+                             else (mha_ops.fused_mha_sep, mha_ops.fused_mha_sep_plain))
+            q4, k4, v4 = (t.reshape(BATCH, TOKENS, HEADS, head_dim).transpose(1, 2)
+                          for t in (args[0].chunk(3, dim=-1) if packed else args))
+
+            def layers_of(fn):
+                for _ in range(LAYERS):
+                    fn()
+
+            add(name, f"{LAYERS} launches",
+                timed(lambda: layers_of(lambda: kernel(*args, HEADS)), 5),
+                timed(lambda: layers_of(lambda: plain(*args, HEADS)), 3),
+                timed(lambda: layers_of(lambda: F.scaled_dot_product_attention(q4, k4, v4)), 5),
+                mha_bytes, mha_ops_count)
+
         xs = torch.from_numpy(batch).to(dev)
-        for kind, pred in (("module", pred_module), ("engine", pred_engine)):
+        for kind, pred in (("module", pred_module), ("engine", pred_engine), *zoo_pred.items()):
             xn = normalize(xs, bf).permute(0, 3, 1, 2)
             fwd_ms = timed(lambda: pred.model(xn), 3)
             t0 = time.perf_counter()
@@ -324,7 +444,9 @@ def main():
     sources = {"pooled_attention": ("dfc_sa_unet_torch/csrc/pooled_attention.cu",
                                     "dfc_sa_unet_tpu/ops/pallas_attention.py:74"),
                "dfc_tail": ("dfc_sa_unet_torch/csrc/dfc_tail.cu", "dfc_sa_unet_tpu/ops/pallas_conv.py:198"),
-               "conv3x3_bn_relu": ("dfc_sa_unet_torch/csrc/dfc_tail.cu", "dfc_sa_unet_tpu/ops/pallas_conv.py:121")}
+               "conv3x3_bn_relu": ("dfc_sa_unet_torch/csrc/dfc_tail.cu", "dfc_sa_unet_tpu/ops/pallas_conv.py:121"),
+               "fused_mha": ("dfc_sa_unet_torch/csrc/mha.cu", "dfc_sa_unet_tpu/ops/pallas_attention.py:214"),
+               "fused_mha_sep": ("dfc_sa_unet_torch/csrc/mha.cu", "dfc_sa_unet_tpu/ops/pallas_attention.py:276")}
     kernels = []
     for name, r in rows.items():
         by_bytes = r["bytes"] / HBM_BYTES_PER_S >= r["ops"] / PEAK_OPS["bf16"]

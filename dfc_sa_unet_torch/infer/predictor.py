@@ -101,7 +101,8 @@ def _tile_coords(h, w, tile_size, overlap):
 class Predictor:
     """Batched forward of a model (an nn.Module or any callable, e.g. a
     DFCEngine) that takes normalised NCHW images and returns NCHW logits.
-    Runs on ``device`` (default CUDA, raising without it)."""
+    Runs on ``device`` (default CUDA, raising without it).  A model with an
+    ``img_dim`` attribute (ViT-seg, TransUNet) is served at that size only."""
 
     def __init__(self, model, compute_dtype=None, device=None):
         self.device = resolve_device(device)
@@ -137,6 +138,14 @@ class Predictor:
             return self.predict_probs(np.concatenate([np.asarray(images_u8), pad]))[:n]
         return self._forward_u8(np.asarray(images_u8))
 
+    def _check_tile(self, tile_size: int):
+        """The transformer families take one input size only (their position
+        embeddings are per patch), so sliding tiles must be that size."""
+        img_dim = getattr(self.model, "img_dim", None)
+        if img_dim is not None and tile_size != img_dim:
+            raise ValueError(f"{type(self.model).__name__} takes {img_dim}x{img_dim} inputs only: "
+                             f"use tile_size={img_dim}, not {tile_size}")
+
     def predict_single(self, image_u8: np.ndarray) -> np.ndarray:
         """One image at its own resolution (reference inference.py:93-102)."""
         return self.predict_probs(image_u8[None])[0]
@@ -144,6 +153,7 @@ class Predictor:
     def predict_sliding(self, image_u8: np.ndarray, tile_size: int = 224, overlap: int = 50,
                         batch_size: int = 128, tta: bool = False) -> np.ndarray:
         """Overlap-averaged sliding-window prediction (reference inference.py:104-153), batched."""
+        self._check_tile(tile_size)
         h, w = image_u8.shape[:2]
         if h < tile_size or w < tile_size:
             return self.predict_single(image_u8)
@@ -181,6 +191,7 @@ class Predictor:
         """Sliding-window prediction over a stream of ``(key, image_u8)``,
         batching tiles across images; yields ``(key, probs)`` in input order.
         The math is per-image ``predict_sliding``'s."""
+        self._check_tile(tile_size)
         pending: dict = {}  # key -> [canvas, counts, remaining_tiles]
         order: list = []
         done: dict = {}  # key -> probs, for images smaller than a tile

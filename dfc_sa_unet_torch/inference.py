@@ -7,7 +7,12 @@
         [--device cuda]
 
 WEIGHTS is a reference-layout PyTorch ``.pth`` (raw state dict or trainer
-checkpoint); ``model.pretrained_path`` in the config is the fallback.  If
+checkpoint); ``model.pretrained_path`` in the config is the fallback.  The
+config names ``DFC-SA-Res-Block``, ``VisionTransformerSegmentation`` or
+``TransformerUNet``; the transformer families take tiles of their own input
+size only (``--tile_size 224`` for the shipped configs), and ``--engine``
+is the DFC model's.  There is no ``--no_pallas``: on the card every
+attention core runs its hand-written kernel.  If
 DIR holds ``original/`` and ``mask/``, per-image and micro-averaged global
 metrics are printed and written to CSV.  Runs on the card; ``--device cpu``
 runs the plain PyTorch path on the CPU.
@@ -66,6 +71,9 @@ def build_predictor(config, weights, bf16=False, engine=False, device=None) -> P
     dev = resolve_device(device)
     dtype = torch.bfloat16 if bf16 else torch.float32
     if engine:
+        name = config.get("model", config)["name"]
+        if name != "DFC-SA-Res-Block":
+            raise ValueError(f"--engine folds the DFC-SA-Res-Block only; {name!r} is served as a module")
         from dfc_sa_unet_torch.infer.engine import DFCEngine
 
         model = DFCEngine(config, weights, dtype=dtype, device=dev, tail_kernel_levels="auto",

@@ -3,20 +3,23 @@
 Plain ops take NCHW tensors (the model's layout, stored channels_last);
 the kernel wrappers (``pooled_attention``, ``dfc_tail``) take NHWC, the
 JAX layout, which is a contiguous ``permute(0, 2, 3, 1)`` view of a
-channels_last tensor.
+channels_last tensor; ``mha`` takes token tensors ``[B,N,E]``.
 """
 
 from dfc_sa_unet_torch.ops.dfc_tail import LAUNCHES as _TAIL_LAUNCHES
+from dfc_sa_unet_torch.ops.mha import LAUNCHES as _MHA_LAUNCHES
 from dfc_sa_unet_torch.ops.pooled_attention import LAUNCHES as _ATTN_LAUNCHES
+
+_COUNTS = (_ATTN_LAUNCHES, _TAIL_LAUNCHES, _MHA_LAUNCHES)
 
 
 def reset_launches():
     """Set every kernel's launch count to 0."""
-    for counts in (_ATTN_LAUNCHES, _TAIL_LAUNCHES):
+    for counts in _COUNTS:
         for key in counts:
             counts[key] = 0
 
 
 def launches() -> dict:
     """{kernel name: launches since the last reset}."""
-    return {**_ATTN_LAUNCHES, **_TAIL_LAUNCHES}
+    return {name: n for counts in _COUNTS for name, n in counts.items()}

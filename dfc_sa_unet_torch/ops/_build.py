@@ -34,6 +34,8 @@ SIGNATURES = {
     "conv3x3_bn_relu_bf16": ("dfc_tail", [_P] * 4 + [_I] * 5 + [_P]),
     "dfc_tail_f32": ("dfc_tail", [_P] * 10 + [_I] * 5 + [_P]),
     "dfc_tail_bf16": ("dfc_tail", [_P] * 10 + [_I] * 5 + [_P]),
+    "mha_f32": ("mha", [_P] * 4 + [_I] * 5 + [_P]),
+    "mha_bf16": ("mha", [_P] * 4 + [_I] * 5 + [_P]),
 }
 
 _functions = None

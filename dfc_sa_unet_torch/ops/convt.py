@@ -17,5 +17,5 @@ def conv_transpose_2x2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
         raise ValueError(f"weight {tuple(weight.shape)} does not fit input {tuple(x.shape)}")
     y = F.conv_transpose2d(x, weight.to(x.dtype), stride=2)
     if bias is not None:
-        y = y + bias.float().view(-1, 1, 1)
-    return y.to(x.dtype)
+        y.add_(bias.view(-1, 1, 1))  # summed in f32, rounded to x's dtype once
+    return y

@@ -3,8 +3,9 @@
 ``adaptive_avg_pool`` is torch's own adaptive average pool: its windows
 [floor(i*H/p), ceil((i+1)*H/p)) are the ones the JAX package rebuilds as a
 matrix, including p > H (overlapping one-pixel windows).  It accumulates
-in f32 for bf16 input and rounds once.  ``max_pool`` is MaxPool2d(2) in
-floor mode, as the DFC U-Net uses between encoder levels.
+in f32 for bf16 input and rounds once.  ``max_pool`` is MaxPool2d in
+floor mode with -inf padding: window 2 between the DFC U-Net's encoder
+levels, window 3 / stride 2 / padding 1 after the TransUNet backbone's root.
 """
 
 import torch
@@ -19,6 +20,7 @@ def adaptive_avg_pool(x: torch.Tensor, output_size) -> torch.Tensor:
     return F.adaptive_avg_pool2d(x, (p_h, p_w))
 
 
-def max_pool(x: torch.Tensor, window: int = 2, stride: int | None = None) -> torch.Tensor:
-    """Max pool in floor mode (partial windows at the edge are dropped)."""
-    return F.max_pool2d(x, window, stride if stride is not None else window)
+def max_pool(x: torch.Tensor, window: int = 2, stride: int | None = None, padding: int = 0) -> torch.Tensor:
+    """Max pool in floor mode (partial windows at the edge are dropped);
+    ``padding`` pads every side with -inf, as torch.nn.MaxPool2d."""
+    return F.max_pool2d(x, window, stride if stride is not None else window, padding)

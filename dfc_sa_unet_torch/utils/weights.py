@@ -6,8 +6,12 @@ The port's modules carry the reference's state-dict keys, so loading is
 * ``from_jax_variables`` - Flax ``{'params':..,'batch_stats':..}`` (nested
   dicts of numpy arrays), by the inverse naming rule of
   torch_convert.py:179-258: a trailing ``_<digits>`` on a module name was
-  a Sequential index (``conv_branch_0`` -> ``conv_branch.0``); HWIO
-  kernels become OIHW, ``kernel_t`` becomes IOHW, ``scale`` -> ``weight``;
+  a Sequential or ModuleList index (``conv_branch_0`` -> ``conv_branch.0``,
+  ``layers_3`` -> ``layers.3``); HWIO kernels become OIHW, Dense kernels
+  [in,out] become [out,in], ``kernel_t`` becomes IOHW, ``scale`` ->
+  ``weight`` (BatchNorm, LayerNorm, GroupNorm), the packed
+  ``in_proj_weight`` (E,3E) becomes (3E,E), position embeddings pass as
+  they are;
 * ``load_state_dict_file`` - a reference ``.pth`` (a raw state dict or a
   trainer checkpoint holding ``model_state_dict``, torch_convert.py:153-161).
 
@@ -59,15 +63,15 @@ def from_jax_variables(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.
                 a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T  # HWIO -> OIHW; [in,out] -> [out,in]
                 out[f"{key}.weight"] = _leaf(a)
             elif name == "kernel_t":
-                out[f"{key}.weight"] = _leaf(a.transpose(2, 3, 0, 1))  # [2,2,I,O] -> IOHW
+                out[f"{key}.weight"] = _leaf(a.transpose(2, 3, 0, 1))  # [kh,kw,I,O] -> IOHW
             elif name == "scale":
                 out[f"{key}.weight"] = _leaf(a)
             elif name == "bias":
                 out[f"{key}.bias"] = _leaf(a)
             else:
-                # gamma, res_scale, ...: the forward converter transposes a
-                # 2-D value only when the shapes demand it, so only a
-                # non-square one is transposed back
+                # gamma, res_scale, in_proj_weight, pos_embed, ...: the forward
+                # converter transposes a 2-D value only when the shapes demand
+                # it, so only a non-square one is transposed back
                 if a.ndim == 2 and a.shape[0] != a.shape[1]:
                     a = a.T
                 out[f"{key}.{name}" if key else name] = _leaf(a)
@@ -102,46 +106,60 @@ def load_state_dict_file(path: str) -> "OrderedDict[str, torch.Tensor]":
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded weights in place, drawn on the CPU from ``generator``:
-    conv weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)) as torch's
-    default init, BatchNorm affine and running statistics jittered around
-    their defaults, attention ``gamma`` in [0.5, 1) so the attention
-    branch counts, ``res_scale`` 0.1."""
+    conv and linear weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+    as torch's default init, the affine parameters of BatchNorm, GroupNorm
+    and LayerNorm and BatchNorm's running statistics jittered around their
+    defaults, attention ``gamma`` in [0.5, 1) so the attention branch
+    counts, ``res_scale`` 0.1, the packed ``in_proj_weight`` Xavier-uniform
+    with a small non-zero ``in_proj_bias``, and position embeddings
+    N(0, 0.5^2) (TransUNet's start at zero in the reference; a seeded check
+    wants them to count)."""
     def uniform(shape, lo, hi):
         return torch.rand(shape, generator=generator) * (hi - lo) + lo
 
     for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = mod.weight
-            fan_in = w[0].numel() if isinstance(mod, nn.Conv2d) else w.shape[1] * w[0, 0].numel()
+            fan_in = w.shape[1] * w[0, 0].numel() if isinstance(mod, nn.ConvTranspose2d) else w[0].numel()
             bound = 1.0 / fan_in ** 0.5
             w.copy_(uniform(w.shape, -bound, bound))
             if mod.bias is not None:
                 mod.bias.copy_(uniform(mod.bias.shape, -bound, bound))
-        elif isinstance(mod, nn.BatchNorm2d):
-            c = mod.num_features
-            mod.weight.copy_(uniform((c,), 0.5, 1.5))
-            mod.bias.copy_(uniform((c,), -0.2, 0.2))
-            mod.running_mean.copy_(torch.randn((c,), generator=generator) * 0.3)
-            mod.running_var.copy_(uniform((c,), 0.5, 2.0))
+        elif isinstance(mod, (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)):
+            mod.weight.copy_(uniform(mod.weight.shape, 0.5, 1.5))
+            mod.bias.copy_(uniform(mod.bias.shape, -0.2, 0.2))
+            if isinstance(mod, nn.BatchNorm2d):
+                c = mod.num_features
+                mod.running_mean.copy_(torch.randn((c,), generator=generator) * 0.3)
+                mod.running_var.copy_(uniform((c,), 0.5, 2.0))
     for name, p in model.named_parameters():
         if name.endswith("gamma"):
             p.copy_(uniform(p.shape, 0.5, 1.0))
         elif name.endswith("res_scale"):
             p.fill_(0.1)
+        elif name.endswith("in_proj_weight"):
+            bound = (6.0 / (p.shape[0] + p.shape[1])) ** 0.5
+            p.copy_(uniform(p.shape, -bound, bound))
+        elif name.endswith("in_proj_bias"):
+            p.copy_(uniform(p.shape, -0.02, 0.02))
+        elif name.endswith(("pos_embed", "position_embeddings")):
+            p.copy_(torch.randn(p.shape, generator=generator) * 0.5)
     return model
 
 
 @torch.no_grad()
 def calibrate_batch_stats_(model: nn.Module, x: torch.Tensor) -> nn.Module:
-    """Set every BatchNorm's running statistics to those of one training-mode
-    forward of ``x`` (normalised NCHW images), so seeded weights carry O(1)
+    """Set every BatchNorm's running statistics to those of one forward of
+    ``x`` (normalised NCHW images) in which the BatchNorms alone are in
+    training mode (dropout stays off), so seeded weights carry O(1)
     activations through the whole depth and the logits spread O(1) instead
     of collapsing toward a constant.  Returns the model in eval mode."""
     bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
     momenta = [bn.momentum for bn in bns]
+    model.eval()
     for bn in bns:
         bn.momentum = 1.0  # running statistics := this batch's
-    model.train()
+        bn.train()
     model(x)
     model.eval()
     for bn, momentum in zip(bns, momenta):

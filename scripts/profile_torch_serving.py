@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of one bf16 serving forward goes, for the PyTorch port on one GPU.
 
-    python3 scripts/profile_torch_serving.py [--batch 128] [--seed 0] [--top 25] [--report FILE]
+    python3 scripts/profile_torch_serving.py [--model NAME] [--batch 128] [--seed 0] [--top 25]
+                                             [--report FILE]
 
-Builds the flagship DFC-SA-Res-Block (224x224, features 64/128/256/512,
-pool 8) with seeded weights, then for the module path (attention kernel)
-and the folded engine path (tail, conv3x3 and attention kernels) times
-one B-image bf16 forward with CUDA events and traces two forwards with
-torch.profiler: device time by kernel, and the device's busy share of
-the traced wall time.  Prints a summary; ``--report`` also writes the
-profiler's full tables to FILE.  Needs a CUDA card.
+Builds one served model at full width with seeded weights: the flagship
+``DFC-SA-Res-Block`` (224x224, features 64/128/256/512, pool 8; the
+default), ``VisionTransformerSegmentation`` (ViT-B/16 at 224x224) or
+``TransformerUNet`` (R50-ViT-B/16).  For each of its serving paths (the
+flagship's module path with the attention kernel and its folded engine
+path with the tail, conv3x3 and attention kernels; the one module path of
+a transformer, with the multi-head-attention kernel) it times one B-image
+bf16 forward with CUDA events and traces two forwards with torch.profiler:
+device time by kernel, and the device's busy share of the traced wall
+time.  Prints a summary; ``--report`` also writes the profiler's full
+tables to FILE.  Needs a CUDA card.
 """
 
 import argparse
@@ -27,8 +32,17 @@ from dfc_sa_unet_torch.infer.engine import DFCEngine  # noqa: E402
 from dfc_sa_unet_torch.models.factory import create_model  # noqa: E402
 from dfc_sa_unet_torch.utils.weights import init_random_  # noqa: E402
 
-CONFIG = {"model": {"name": "DFC-SA-Res-Block", "features": [64, 128, 256, 512], "pool_size": 8,
-                    "use_pallas": True}}
+# the model sections of configs/config_dfc-sa-res-block.yaml, config_vit_seg.yaml and
+# config_transunet.yaml (with the dataset's image size, which sizes TransUNet)
+CONFIGS = {
+    "DFC-SA-Res-Block": {"model": {"name": "DFC-SA-Res-Block", "features": [64, 128, 256, 512], "pool_size": 8,
+                                   "use_pallas": True}},
+    "VisionTransformerSegmentation": {"model": {"name": "VisionTransformerSegmentation", "img_dim": 224,
+                                                "patch_dim": 16, "embed_dim": 768, "num_layers": 12,
+                                                "num_heads": 12, "mlp_dim": 3072, "dropout": 0.1}},
+    "TransformerUNet": {"model": {"name": "TransformerUNet", "in_channels": 3, "out_channels": 1},
+                        "dataset": {"img_size": [224, 224]}},
+}
 
 
 def _device_us(evt):
@@ -42,6 +56,7 @@ def _is_kernel(evt):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=sorted(CONFIGS), default="DFC-SA-Res-Block")
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=25)
@@ -52,18 +67,21 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     dev = torch.device("cuda")
-    weights = init_random_(create_model(CONFIG, device="cpu"), torch.Generator().manual_seed(args.seed)).state_dict()
-    module = create_model(CONFIG, dtype=torch.bfloat16, device=dev).eval()
+    config = CONFIGS[args.model]
+    weights = init_random_(create_model(config, device="cpu"), torch.Generator().manual_seed(args.seed)).state_dict()
+    module = create_model(config, dtype=torch.bfloat16, device=dev).eval()
     module.load_state_dict(weights, strict=True)
-    engine = DFCEngine(CONFIG, weights, dtype=torch.bfloat16, device=dev, tail_kernel_levels="auto",
-                       conv_kernel_levels="auto")
+    paths = [("module", module)]
+    if args.model == "DFC-SA-Res-Block":
+        paths.append(("engine", DFCEngine(config, weights, dtype=torch.bfloat16, device=dev,
+                                          tail_kernel_levels="auto", conv_kernel_levels="auto")))
     x = torch.randn(args.batch, 3, 224, 224, generator=torch.Generator().manual_seed(args.seed))
     x = x.to(dev, torch.bfloat16, memory_format=torch.channels_last)
 
     tables = []
-    print(f"card: {card}; torch {torch.__version__}; B={args.batch} bf16 224x224")
+    print(f"card: {card}; torch {torch.__version__}; {args.model}, B={args.batch} bf16 224x224")
     with torch.inference_mode():
-        for name, fwd in (("module", module), ("engine", engine)):
+        for name, fwd in paths:
             fwd(x)
             torch.cuda.synchronize()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -90,8 +108,8 @@ def main():
                 us = _device_us(e)
                 if us <= 0:
                     break
-                print(f"  {us / 2e3:9.3f} ms/forward {100 * us / busy_us:5.1f}%  x{e.count // 2:<5d} {e.key[:90]}")
-            tables.append(f"== {name} path ({card}, B={args.batch} bf16)\n"
+                print(f"  {us / 2e3:9.3f} ms/forward {100 * us / busy_us:5.1f}%  x{e.count // 2:<5d} {e.key[:160]}")
+            tables.append(f"== {args.model} {name} path ({card}, B={args.batch} bf16)\n"
                           + averages.table(sort_by="self_device_time_total", row_limit=100) + "\n")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

@@ -20,6 +20,11 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "dfc_sa_unet_torch"
 FORBIDDEN = ("jax", "flax", "dfc_sa_unet_tpu")
 CFG = {"model": {"name": "DFC-SA-Res-Block", "features": [8, 16, 24, 32], "pool_size": 4}}
+# the transformer families at toy sizes: one ViT layer; the R50-ViT-B/16 widths are fixed by the
+# factory, so TransUNet is built on the meta device (no storage) where only construction matters
+VIT_CFG = {"model": {"name": "VisionTransformerSegmentation", "img_dim": 32, "patch_dim": 8, "embed_dim": 32,
+                     "num_layers": 1, "num_heads": 2, "mlp_dim": 64}}
+TRANSUNET_CFG = {"model": {"name": "TransUNet"}, "dataset": {"img_size": [32, 32]}}
 
 
 def _imported_roots(path):
@@ -34,6 +39,8 @@ def _imported_roots(path):
 def test_no_jax_imports_in_source():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    names = {f.name for f in files}
+    assert {"mha.py", "vit_seg.py", "transunet.py", "layers.py", "chip_smoke.py"} <= names
     bad = [(str(f.relative_to(ROOT)), r) for f in files for r in _imported_roots(f) if r in FORBIDDEN]
     assert not bad, bad
 
@@ -51,7 +58,7 @@ def test_package_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 18  # mha, vit_seg and transunet among them
 
 
 @pytest.fixture
@@ -77,13 +84,28 @@ def test_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_predictor(CFG, model.state_dict(), device=args.device)
     build_predictor(CFG, model.state_dict(), engine=True, device="cpu")
+    for cfg in (VIT_CFG, TRANSUNET_CFG):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            create_model(cfg)
+    vit = create_model(VIT_CFG, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor(vit)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_predictor(VIT_CFG, vit.state_dict(), device=args.device)
+    build_predictor(VIT_CFG, vit.state_dict(), device="cpu")
+    with torch.device("meta"):
+        transunet = create_model(TRANSUNET_CFG, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor(transunet)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_predictor(TRANSUNET_CFG, {}, device=args.device)
 
 
 def test_other_models_raise_not_implemented():
     from dfc_sa_unet_torch.models.factory import create_model
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_model({"model": {"name": "TransUNet"}}, device="cpu")
+        create_model({"model": {"name": "UNet"}}, device="cpu")
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
