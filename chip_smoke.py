@@ -10,7 +10,9 @@ any failure exits non-zero:
    for the f32 checks;
 2. build the CUDA kernels from dfc_sa_unet_torch/csrc;
 3. hold every kernel against its plain PyTorch version on the card, at
-   the shapes the main paths give it and at awkward ones, in f32 and bf16;
+   the shapes the main paths give it and at awkward ones, in f32 and bf16,
+   and the backward of the three attention wrappers against autograd
+   through their plain versions;
 4. serve the flagship DFC-SA-Res-Block at full width (224x224, features
    64/128/256/512, pool 8, seeded weights, BatchNorm statistics fitted to
    a slice of the batch so that the logits spread O(1)):
@@ -28,11 +30,28 @@ any failure exits non-zero:
    and TransUNet the fused_mha_sep kernel 12 times; f32 on the card must
    agree with the same weights on the CPU, and bf16 with f32;
 7. time each kernel, its plain version, a library yardstick and every
-   serving path in bf16 at B=128.
+   serving path in bf16 at B=128;
+8. train at full width through the port's Trainer (train_epoch and
+   validate_epoch) on synthetic ellipses made in memory, bce_dice 0.5/0.5
+   and SGD as configs/config_dfc-sa-res-block.yaml: the flagship for 16
+   steps in f32 at B=2 (the first 3 against the same steps on the CPU; a
+   checkpoint after epoch 1 restored into a fresh trainer must repeat
+   epoch 2's losses; the best_model it writes is served through the
+   Predictor) and for 20 steps in bf16 at the largest of B=128/64/32 that
+   fits without rematerialisation (the loss must fall), every step finite
+   and applied, 9 pooled-attention launches per step; the same step with
+   ``remat='l12'`` for its time and memory (13 launches: four blocks run
+   their forward twice); then 3 bf16 steps each of
+   ViT-seg (attention dropout 0, so the kernel runs: 12 fused_mha launches
+   per step; one more step at the YAML's 0.1 must launch none) and
+   TransUNet (12 fused_mha_sep launches per step);
+9. run the BatchNorm-statistics probe (the conv3x3_bias_stats kernel's own
+   path, scripts/bench_torch_bn_stats.py) at its four levels, B=128, bf16.
 
 The launch counts are set to 0 before phase 4 and read after phase 5 (the
-flagship's paths), and again around phase 6 (the transformers' paths).
-The line before the last is a JSON object of the kernels; the last line is
+flagship's serving paths), and again around phase 6 (the transformers'),
+around each training run of phase 8 and around phase 9.  The line before
+the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -41,6 +60,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -74,6 +94,20 @@ PROB_TOL_F32 = 1e-3
 # bf16 engine vs bf16 module on a request, in units of std(logit): the two round at different
 # places (folded weights vs f32 BatchNorm), a few bf16 ulps through 9 blocks
 DLOGIT_TOL_BF16 = {"mean": 0.05, "max": 0.5}
+# training (phase 8): configs/config_dfc-sa-res-block.yaml's training section
+TRAINING = {"num_epochs": 1, "learning_rate": 0.01, "momentum": 0.9, "weight_decay": 1e-4, "num_workers": 2,
+            "loss": {"type": "bce_dice", "params": {"bce_weight": 0.5, "dice_weight": 0.5}}}
+TRAIN_BATCHES = (128, 64, 32)  # bf16, without rematerialisation: the largest that fits is used
+F32_TRAIN_BATCH = 2
+ZOO_TRAIN_BATCH = 32
+# f32 training on the card vs the CPU, relative loss difference of the first 3 steps: the same f32
+# arithmetic in another order (cuDNN and cuBLAS without TF32), amplified by two updates
+TRAIN_LOSS_TOL_CPU = 1e-3
+# a resumed trainer against the one that went on, relative loss difference over the next epoch:
+# the same state and batches; cuDNN's backward sums in an order that changes from run to run
+TRAIN_LOSS_TOL_RESUME = 1e-4
+# attention backward on the card vs autograd through the plain version, of max|reference|
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 MIN_LOGIT_STD = 0.1  # below this the agreement checks could not tell a constant output apart
 # transformer f32 on the card vs the same weights on the CPU (plain attention), max |dlogit| / std:
 # the same f32 arithmetic in another order through 12 layers
@@ -115,9 +149,15 @@ def main():
     from dfc_sa_unet_torch.infer.predictor import Predictor
     from dfc_sa_unet_torch.models.factory import create_model
     from dfc_sa_unet_torch.ops import _build, launches, reset_launches
+    from dfc_sa_unet_torch.ops import conv_bn_stats as stats_ops
     from dfc_sa_unet_torch.ops import dfc_tail as tail_ops, mha as mha_ops, pooled_attention as attn_ops
+    from dfc_sa_unet_torch.data.dataset import ArrayDataset
+    from dfc_sa_unet_torch.data.loader import BatchLoader
     from dfc_sa_unet_torch.data.normalize import normalize
-    from dfc_sa_unet_torch.utils.weights import calibrate_batch_stats_, init_random_
+    from dfc_sa_unet_torch.data.synthetic import samples
+    from dfc_sa_unet_torch.train.trainer import Trainer
+    from dfc_sa_unet_torch.utils.weights import calibrate_batch_stats_, init_random_, load_state_dict_file
+    from scripts import bench_torch_bn_stats as probe
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
@@ -161,7 +201,7 @@ def main():
         return (qkv,) if packed else tuple(t.contiguous() for t in qkv.chunk(3, dim=-1))
 
     max_err = {"pooled_attention": 0.0, "dfc_tail": 0.0, "conv3x3_bn_relu": 0.0, "fused_mha": 0.0,
-               "fused_mha_sep": 0.0}
+               "fused_mha_sep": 0.0, "conv3x3_bias_stats": 0.0}
     bad = []
 
     def check(name, kernel, plain, args, label):
@@ -178,6 +218,47 @@ def main():
               f"tol {tol:.2e} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             bad.append(f"{name} {label}")
+
+    def check_stats(args, label):
+        """y to TOL of max(1, max|y|); mean and mean2 to TOL of max(1, max|plain|) each."""
+        got = stats_ops.conv3x3_bias_stats(*args)
+        torch.cuda.synchronize()
+        want = stats_ops.conv3x3_bias_stats_plain(*args)
+        torch.cuda.synchronize()
+        rel = []
+        for g, w in zip(got, want):
+            err = (g.float() - w.float()).abs().max().item()
+            rel.append(err / max(1.0, w.float().abs().max().item()))
+            max_err["conv3x3_bias_stats"] = max(max_err["conv3x3_bias_stats"], err)
+        tol = TOL[str(args[0].dtype).split(".")[-1]]
+        ok = all(np.isfinite(r) and r <= tol for r in rel) and all(g.shape == w.shape for g, w in zip(got, want))
+        print(f"    {'conv3x3_bias_stats':16s} {label:38s} rel err y {rel[0]:.2e} mean {rel[1]:.2e} mean2 {rel[2]:.2e} "
+              f"tol {tol:.0e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(f"conv3x3_bias_stats {label}")
+
+    def check_backward(name, kernel, plain, args, extra, label):
+        """Gradients through the wrapper (forward: the kernel; backward: its autograd Function)
+        against autograd through the plain version, of the same random output weights."""
+        grads = []
+        for fn in (kernel, plain):
+            leaves = [a.detach().clone().requires_grad_(True) for a in args]
+            out = fn(*leaves, *extra)
+            if fn is kernel and out.grad_fn is None:
+                bad.append(f"{name} {label}: no gradient graph")
+                return
+            weights = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+            (out.float() * weights).sum().backward()
+            grads.append([leaf.grad for leaf in leaves])
+        torch.cuda.synchronize()
+        tol = GRAD_TOL[str(args[0].dtype).split(".")[-1]]
+        rel = max((g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+                  for g, w in zip(*grads))
+        ok = bool(np.isfinite(rel)) and rel <= tol and all(g.is_contiguous() for g in grads[0])
+        print(f"    {name + ' backward':24s} {label:30s} max rel err {rel:.2e} tol {tol:.0e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(f"{name} backward {label}")
 
     print("[3] kernels vs plain PyTorch on the card", flush=True)
     for dtype in (torch.float32, torch.bfloat16):
@@ -204,6 +285,20 @@ def main():
                   (*mha_inputs(b, n, e, dtype, packed=True), nh), label)
             check("fused_mha_sep", mha_ops.fused_mha_sep, mha_ops.fused_mha_sep_plain,
                   (*mha_inputs(b, n, e, dtype, packed=False), nh), label)
+        for name, h, cin, c in probe.LEVELS:
+            check_stats(conv_inputs(4, h, cin, c, dtype), f"{dn} {name} B=4 {h}x{h} {cin}->{c}")
+        check_stats((randn(3, 13, 17, 24, dtype=dtype), randn(3, 3, 24, 40, dtype=dtype, scale=216 ** -0.5), randn(40)),
+                    f"{dn} B=3 13x17 24->40")
+        before = launches()
+        check_backward("pooled_attention", attn_ops.pooled_attention, attn_ops.pooled_attention_plain,
+                       attn_inputs(8, 64, 256, dtype), (), f"{dn} B=8 N=64 C=256")
+        check_backward("fused_mha", mha_ops.fused_mha, mha_ops.fused_mha_plain,
+                       mha_inputs(4, TOKENS, EMBED, dtype, packed=True), (HEADS,), f"{dn} B=4 N={TOKENS} E={EMBED}")
+        check_backward("fused_mha_sep", mha_ops.fused_mha_sep, mha_ops.fused_mha_sep_plain,
+                       mha_inputs(4, TOKENS, EMBED, dtype, packed=False), (HEADS,), f"{dn} B=4 N={TOKENS} E={EMBED}")
+        delta = {k: v - before[k] for k, v in launches().items() if v != before[k]}
+        if delta != {"pooled_attention": 1, "fused_mha": 1, "fused_mha_sep": 1}:
+            fail(f"the wrappers' forwards under autograd launched {delta}, expected one launch of each kernel")
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
 
@@ -349,7 +444,7 @@ def main():
     import torch.nn.functional as F
 
     bf = torch.bfloat16
-    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0}
             for k in max_err}
 
     def add(name, level, ms, plain_ms, lib_ms, nbytes, ops):
@@ -360,6 +455,7 @@ def main():
         r["bytes"] += nbytes
         r["ops"] += ops
         bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bf16"]) * 1e3
+        r["bound_ms"] += bound  # each launch has its own bound: a kernel's is their sum
         print(f"    {name:16s} {level:10s} kernel {ms:8.3f} ms  plain {plain_ms:8.3f} ms  "
               f"library {lib_ms:8.3f} ms  bound {bound:7.3f} ms", flush=True)
 
@@ -430,6 +526,19 @@ def main():
                 timed(lambda: layers_of(lambda: F.scaled_dot_product_attention(q4, k4, v4)), 5),
                 mha_bytes, mha_ops_count)
 
+        # the probe's own shapes: B=128 at the four encoder levels (scripts/bench_torch_bn_stats.py)
+        for name, h, cin, c in probe.LEVELS:
+            x, w, b = probe.inputs(BATCH, h, cin, c, gen)
+            kc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            npix = BATCH * h * h
+            add("conv3x3_bias_stats", name,
+                timed(lambda: stats_ops.conv3x3_bias_stats(x, w, b), 3),
+                timed(lambda: stats_ops.conv3x3_bias_stats_plain(x, w, b), 2),
+                timed(lambda: probe.library(x, kc, b), 3),
+                2 * npix * (cin + c) + 2 * 9 * cin * c + 4 * c,
+                2 * npix * c * 9 * cin)
+            del x, w, b, kc
+
         xs = torch.from_numpy(batch).to(dev)
         for kind, pred in (("module", pred_module), ("engine", pred_engine), *zoo_pred.items()):
             xn = normalize(xs, bf).permute(0, 3, 1, 2)
@@ -441,12 +550,202 @@ def main():
             print(f"    {kind} path bf16: forward {fwd_ms:.2f} ms = {BATCH / fwd_ms * 1e3:.1f} img/s on device; "
                   f"predict_probs (uint8 in, probs out) {BATCH / serve_s:.1f} img/s ({card})", flush=True)
 
+
+    # ------------------------------------------------------------ phase 8
+    del pred, pred_module, pred_engine, zoo_pred, xs, xn, model, weights, served, ref, probs, calib
+    del args, q, k, v, qs, ks, vs, q4, k4, v4, a, xc, ac, kg, kf, kr  # phase 7's last inputs
+    torch.cuda.empty_cache()
+    print(f"    device memory still allocated before training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    print(f"[8] training at {IMG}x{IMG} through the Trainer, seed {seed} ({card})", flush=True)
+    items = list(samples(n=2 * max(TRAIN_BATCHES), size=IMG, seed=seed))
+    tmp = tempfile.TemporaryDirectory()
+
+    def make_trainer(cfg, batch, n, bf16, device, tag, remat=False, weight_seed=seed):
+        """A Trainer of ``cfg`` with seeded weights over the first ``n`` synthetic samples."""
+        dtype = torch.bfloat16 if bf16 else None
+        log_dir = os.path.join(tmp.name, tag)
+        config = {**cfg, "training": {**TRAINING, "batch_size": batch},
+                  "logging": {"log_dir": log_dir, "images_dir": os.path.join(log_dir, "images")}}
+        net = init_random_(create_model(config, dtype=dtype, device="cpu", remat=remat),
+                           torch.Generator().manual_seed(weight_seed))
+        train = BatchLoader(ArrayDataset(items[:n]), batch, shuffle=True, num_workers=2, seed=seed)
+        val = BatchLoader(ArrayDataset(items[:min(n, 2 * batch)]), batch, shuffle=False, num_workers=2, seed=seed)
+        trainer = Trainer(net, train, val, config, seed=seed, compute_dtype=dtype, device=device, progress=False)
+        trainer.step_log = []  # each step's metrics and its time: train_step ends on a read of the loss
+        step = trainer.train_step
+
+        def logged_step(*batch_tensors):
+            t0 = time.perf_counter()
+            metrics = step(*batch_tensors)
+            trainer.step_log.append({**metrics, "ms": (time.perf_counter() - t0) * 1e3})
+            return metrics
+
+        trainer.train_step = logged_step
+        return trainer
+
+    def run_epochs(trainer, epochs, kernel_name, per_step, label):
+        """train_epoch over ``epochs``: every step finite and applied, ``per_step`` launches of
+        ``kernel_name`` a step and of nothing else."""
+        for epoch in epochs:
+            before, n0 = launches(), len(trainer.step_log)
+            trainer.train_epoch(epoch)
+            steps = len(trainer.step_log) - n0
+            delta = {k: v - before[k] for k, v in launches().items() if v != before[k]}
+            if steps != len(trainer.train_loader) or trainer.last_epoch_applied != steps:
+                fail(f"{label}: epoch {epoch} applied {trainer.last_epoch_applied} of {steps} steps")
+            if not all(m["finite"] and np.isfinite(m["loss"]) for m in trainer.step_log[n0:]):
+                fail(f"{label}: a step of epoch {epoch} was not finite")
+            if delta != ({kernel_name: per_step * steps} if per_step else {}):
+                fail(f"{label}: {steps} steps launched {delta}, expected {per_step} of {kernel_name} a step")
+
+    train_launches = {k: 0 for k in max_err}
+
+    def close_run():
+        """Add this training run's launch counts to the training path's and start the next at 0."""
+        for k, v in launches().items():
+            train_launches[k] += v
+        reset_launches()
+
+    # f32, B=2: 8 steps an epoch
+    reset_launches()  # the training main path starts here
+    n32 = 8 * F32_TRAIN_BATCH
+    t32 = make_trainer(CONFIG, F32_TRAIN_BATCH, n32, False, dev, "f32")
+    run_epochs(t32, [0], "pooled_attention", 9, "flagship f32")
+    cpu = make_trainer(CONFIG, F32_TRAIN_BATCH, n32, False, "cpu", "cpu")
+    cpu.train_loader.set_epoch(0)
+    for i, cpu_batch in zip(range(3), cpu.train_loader):
+        cpu.train_step(cpu_batch["image"], cpu_batch["mask"])
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(t32.step_log, cpu.step_log)]
+    print(f"    flagship f32 B={F32_TRAIN_BATCH}: losses of steps 1-3 on the card "
+          f"{[round(m['loss'], 6) for m in t32.step_log[:3]]}, on the CPU {[round(m['loss'], 6) for m in cpu.step_log]}; "
+          f"relative difference {max(rel):.2e} (tol {TRAIN_LOSS_TOL_CPU})", flush=True)
+    if not max(rel) <= TRAIN_LOSS_TOL_CPU:
+        fail("f32 training on the card and on the CPU disagree")
+    del cpu
+    val = t32.validate_epoch()
+    ckpt = t32.save_checkpoint(0, is_best=True)
+    run_epochs(t32, [1], "pooled_attention", 9, "flagship f32")
+    resumed = make_trainer(CONFIG, F32_TRAIN_BATCH, n32, False, dev, "f32", weight_seed=seed + 1)
+    resumed.load_checkpoint(ckpt)
+    if resumed.start_epoch != 1 or resumed.step != 8:
+        fail(f"the restored trainer starts at epoch {resumed.start_epoch}, step {resumed.step}; expected 1 and 8")
+    run_epochs(resumed, [1], "pooled_attention", 9, "flagship f32 resumed")
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(resumed.step_log, t32.step_log[8:])]
+    print(f"    checkpoint after step 8, restored into a fresh trainer: step 9 loss {resumed.step_log[0]['loss']:.6f} "
+          f"against {t32.step_log[8]['loss']:.6f}; steps 9-16 relative difference {max(rel):.2e} "
+          f"(tol {TRAIN_LOSS_TOL_RESUME}); validation after epoch 1: loss {val['loss']:.4f} dice {val['dice']:.4f}",
+          flush=True)
+    if not (len(rel) == 8 and max(rel) <= TRAIN_LOSS_TOL_RESUME):
+        fail("a restored checkpoint does not reproduce the next steps")
+    # the best_model it wrote (the weights after epoch 1), served on the module path
+    served_model = create_model(CONFIG, device=dev)
+    served_model.load_state_dict(load_state_dict_file(t32.best_model_path), strict=True)
+    request = np.stack([img for _, img, _ in items[:4]])
+    with torch.inference_mode():
+        best_probs = Predictor(served_model, device=dev).predict_probs(request)
+        resumed.model.load_state_dict(load_state_dict_file(ckpt), strict=True)
+        want = torch.sigmoid(resumed.model.eval()(normalize(torch.from_numpy(request).to(dev)).permute(0, 3, 1, 2)).float())
+    d_served = float(np.abs(best_probs - want[:, 0].cpu().numpy()).max())
+    print(f"    best_model served through the Predictor: probs {best_probs.shape}, max |dprob| against the "
+          f"checkpoint's weights in the trainer's model {d_served:.2e}", flush=True)
+    if best_probs.shape != (4, IMG, IMG) or not np.isfinite(best_probs).all() or d_served > 1e-5:
+        fail("the served best_model disagrees with the trained weights")
+    del t32, resumed, served_model, want
+    torch.cuda.empty_cache()
+    close_run()
+
+    # bf16: the largest batch that fits without rematerialisation
+    fits = None
+    for b in TRAIN_BATCHES:
+        torch.cuda.reset_peak_memory_stats()
+        probe_trainer = make_trainer(CONFIG, b, b, True, dev, f"probe{b}")
+        try:
+            run_epochs(probe_trainer, [0], "pooled_attention", 9, f"flagship bf16 B={b}")
+            fits = b
+        except torch.cuda.OutOfMemoryError:
+            print(f"    flagship bf16 B={b} without remat: out of device memory", flush=True)
+        del probe_trainer
+        torch.cuda.empty_cache()
+        if fits:
+            break
+    if fits is None:
+        fail(f"no batch of {TRAIN_BATCHES} trains in bf16 without rematerialisation")
+    close_run()
+    train_ms = {}
+    for remat in (False, "l12"):
+        torch.cuda.reset_peak_memory_stats()
+        t16 = make_trainer(CONFIG, fits, 2 * fits, True, dev, f"bf16{remat}", remat=remat)
+        epochs = range(10) if not remat else range(3)
+        # a rematerialised block runs its forward, and so its attention kernel, a second time
+        run_epochs(t16, epochs, "pooled_attention", 13 if remat else 9, f"flagship bf16 B={fits} remat={remat}")
+        timer, peak = t16.last_epoch_timer, torch.cuda.max_memory_allocated() / 2**30
+        train_ms[remat] = float(np.median([m["ms"] for m in t16.step_log[2:]]))
+        losses = [m["loss"] for m in t16.step_log]
+        print(f"    flagship bf16 B={fits} remat={remat}: {len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"train_step median {train_ms[remat]:.1f} ms = {fits / train_ms[remat] * 1e3:.1f} img/s; last epoch with "
+              f"its loader {timer.ms_per_step:.1f} ms/step = {timer.items_per_sec:.1f} img/s; "
+              f"peak allocated {peak:.2f} GiB ({card})", flush=True)
+        if not remat and not (len(losses) == 20 and losses[-1] < losses[0]):
+            fail(f"the bf16 loss did not fall over 20 steps: {losses[0]:.4f} -> {losses[-1]:.4f}")
+        del t16
+        torch.cuda.empty_cache()
+    close_run()
+
+    # the transformers, bf16; ViT-seg without attention dropout so that its kernel runs
+    vit_cfg, tu_cfg = ZOO["ViT-seg"][0], ZOO["TransUNet"][0]
+    dry_vit = {"model": {**vit_cfg["model"], "dropout": 0.0}}
+    for label, cfg, kernel_name, per_step in (("ViT-seg dropout 0.0", dry_vit, "fused_mha", LAYERS),
+                                              ("ViT-seg dropout 0.1", vit_cfg, None, 0),
+                                              ("TransUNet", tu_cfg, "fused_mha_sep", LAYERS)):
+        torch.cuda.reset_peak_memory_stats()
+        steps = 3 if per_step else 1
+        tz = make_trainer(cfg, ZOO_TRAIN_BATCH, steps * ZOO_TRAIN_BATCH, True, dev, label.replace(" ", "_"))
+        run_epochs(tz, [0], kernel_name, per_step, label)
+        losses = [m["loss"] for m in tz.step_log]
+        print(f"    {label} bf16 B={ZOO_TRAIN_BATCH}: {len(losses)} steps, losses {[round(v, 4) for v in losses]}; "
+              f"train_step {tz.step_log[-1]['ms']:.1f} ms (the last step); peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})", flush=True)
+        del tz
+        torch.cuda.empty_cache()
+    close_run()  # the training main path ends here
+    print(f"    training main-path launches: {train_launches}", flush=True)
+    if min(train_launches[k] for k in ("pooled_attention", "fused_mha", "fused_mha_sep")) < 1:
+        fail(f"a kernel of the training path never launched: {train_launches}")
+    main_launches = {k: main_launches[k] + train_launches[k] for k in main_launches}
+    tmp.cleanup()
+
+    # ------------------------------------------------------------ phase 9
+    print(f"[9] BatchNorm-statistics probe, bf16, B={BATCH} ({card})", flush=True)
+    reset_launches()  # the probe's path starts here
+    with torch.inference_mode():
+        for name, h, cin, c in probe.LEVELS:
+            x, w, b = probe.inputs(BATCH, h, cin, c, gen)
+            y, mean, mean2 = stats_ops.conv3x3_bias_stats(x, w, b)
+            var = mean2 - mean * mean
+            ok = (y.shape == (BATCH, h, h, c) and mean.shape == var.shape == (c,) and bool(torch.isfinite(y).all())
+                  and bool((var > 0).all()))
+            # BatchNorm with these statistics gives unit variance: the use the sums are for
+            normed = ((y.float() - mean) * torch.rsqrt(var + 1e-5)).var(dim=(0, 1, 2), unbiased=False)
+            print(f"    {name}: y {tuple(y.shape)}, batch variance {var.min().item():.3e} .. {var.max().item():.3e}, "
+                  f"variance after normalising {normed.min().item():.4f} .. {normed.max().item():.4f}", flush=True)
+            if not ok or not bool(((normed - 1).abs() < 2e-2).all()):
+                fail(f"probe level {name}: the statistics do not normalise y")
+            del x, w, b, y
+    probe_launches = launches()  # the probe's path ends here
+    if probe_launches["conv3x3_bias_stats"] != len(probe.LEVELS):
+        fail(f"the probe launched {probe_launches}")
+    main_launches = {k: main_launches[k] + probe_launches[k] for k in main_launches}
+    print(f"    flagship training step bf16 B={fits}: {train_ms[False]:.1f} ms/step = "
+          f"{fits / train_ms[False] * 1e3:.1f} img/s; with remat l12 {train_ms['l12']:.1f} ms/step = "
+          f"{fits / train_ms['l12'] * 1e3:.1f} img/s ({card})", flush=True)
+
     sources = {"pooled_attention": ("dfc_sa_unet_torch/csrc/pooled_attention.cu",
                                     "dfc_sa_unet_tpu/ops/pallas_attention.py:74"),
                "dfc_tail": ("dfc_sa_unet_torch/csrc/dfc_tail.cu", "dfc_sa_unet_tpu/ops/pallas_conv.py:198"),
                "conv3x3_bn_relu": ("dfc_sa_unet_torch/csrc/dfc_tail.cu", "dfc_sa_unet_tpu/ops/pallas_conv.py:121"),
                "fused_mha": ("dfc_sa_unet_torch/csrc/mha.cu", "dfc_sa_unet_tpu/ops/pallas_attention.py:214"),
-               "fused_mha_sep": ("dfc_sa_unet_torch/csrc/mha.cu", "dfc_sa_unet_tpu/ops/pallas_attention.py:276")}
+               "fused_mha_sep": ("dfc_sa_unet_torch/csrc/mha.cu", "dfc_sa_unet_tpu/ops/pallas_attention.py:276"),
+               "conv3x3_bias_stats": ("dfc_sa_unet_torch/csrc/conv_bn_stats.cu", "scripts/bench_bn_stats.py:80")}
     kernels = []
     for name, r in rows.items():
         by_bytes = r["bytes"] / HBM_BYTES_PER_S >= r["ops"] / PEAK_OPS["bf16"]
@@ -454,7 +753,7 @@ def main():
             "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
             "launches": main_launches[name], "max_abs_err": max_err[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": max(r["bytes"] / HBM_BYTES_PER_S, r["ops"] / PEAK_OPS["bf16"]) * 1e3,
+            "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if by_bytes else "operations", "library_ms": r["library_ms"],
         })
     print(f"card: {card}")

@@ -7,7 +7,9 @@
         [--device cuda]
 
 WEIGHTS is a reference-layout PyTorch ``.pth`` (raw state dict or trainer
-checkpoint); ``model.pretrained_path`` in the config is the fallback.  The
+checkpoint), or the ``best_model`` or a checkpoint that
+``python -m dfc_sa_unet_torch.train`` wrote; ``model.pretrained_path`` in the
+config is the fallback.  The
 config names ``DFC-SA-Res-Block``, ``VisionTransformerSegmentation`` or
 ``TransformerUNet``; the transformer families take tiles of their own input
 size only (``--tile_size 224`` for the shipped configs), and ``--engine``
@@ -92,8 +94,9 @@ def main(args):
     if not model_path:
         raise SystemExit("no weights: pass --model or set model.pretrained_path in the config")
     model_path = _norm(model_path)
-    if not model_path.endswith((".pth", ".pt")):
-        raise SystemExit(f"{model_path}: the port loads PyTorch .pth weights only (ROADMAP.md)")
+    if os.path.isdir(model_path):
+        raise SystemExit(f"{model_path}: the port loads torch.save files only (a reference .pth, or the "
+                         f"best_model or a checkpoint of dfc_sa_unet_torch.train), not an Orbax directory (ROADMAP.md)")
     predictor = build_predictor(config, load_state_dict_file(model_path), bf16=args.bf16,
                                 engine=args.engine, device=args.device)
     print(f"Loaded {model_path}; model {config['model']['name']} on {predictor.device}"

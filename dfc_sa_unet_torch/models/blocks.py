@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from dfc_sa_unet_torch.nn.layers import BatchNorm, Conv
+from dfc_sa_unet_torch.ops.dropout import call_block
 from dfc_sa_unet_torch.ops.pooled_attention import pooled_attention
 from dfc_sa_unet_torch.ops.pooling import adaptive_avg_pool, max_pool
 from dfc_sa_unet_torch.ops.resize import resize_bilinear
@@ -98,26 +99,49 @@ class DFCBlock(nn.Module):
         return (out.float() + self.res_scale * res.float()).to(out.dtype)
 
 
-def unet_forward(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+# which blocks are recomputed in the backward pass, per ``remat`` mode
+# (dfc_sa_unet_tpu/models/blocks.py:270-282): 'l12' the four blocks with the
+# largest activations, 'deep' the five whose recompute is mostly matrix work
+REMAT_BLOCKS = {
+    False: frozenset(),
+    None: frozenset(),
+    "all": frozenset({"down1", "down2", "down3", "down4", "bottleneck",
+                      "up_conv1", "up_conv2", "up_conv3", "up_conv4"}),
+    "l12": frozenset({"down1", "down2", "up_conv1", "up_conv2"}),
+    "deep": frozenset({"down3", "down4", "bottleneck", "up_conv3", "up_conv4"}),
+}
+REMAT_BLOCKS[True] = REMAT_BLOCKS["all"]
+
+
+def unet_forward(model: nn.Module, x: torch.Tensor, remat=False) -> torch.Tensor:
     """The 4-level U-Net wiring (reference models/unet_dfc_sa_res.py:161-204):
     encoder blocks + MaxPool(2), bottleneck, ConvTranspose(2,2) decoder with a
     bilinear shape fix and the skip concat, final 1x1 conv.  ``model`` holds
-    down1..4, bottleneck, up1..4, up_conv1..4 and final_conv."""
+    down1..4, bottleneck, up1..4, up_conv1..4 and final_conv.  ``remat``
+    (False, 'all', 'l12' or 'deep') names the blocks whose activations are
+    recomputed in the backward pass instead of kept."""
+    if remat not in REMAT_BLOCKS:
+        raise ValueError(f"remat must be one of False, 'all', 'l12', 'deep'; got {remat!r}")
+    names = REMAT_BLOCKS[remat]
+
+    def block(name, h):
+        return call_block(model, name in names, getattr(model, name), h)
+
     skips = []
     h = x
     for i in range(1, 5):
-        h = getattr(model, f"down{i}")(h)
+        h = block(f"down{i}", h)
         skips.append(h)
         h = max_pool(h, 2, 2)
-    h = model.bottleneck(h)
+    h = block("bottleneck", h)
     for i in range(4, 0, -1):
         skip = skips[i - 1]
         h = getattr(model, f"up{i}")(h)
         if h.shape[2:] != skip.shape[2:]:
             h = resize_bilinear(h, skip.shape[2:])
-        h = getattr(model, f"up_conv{i}")(torch.cat([h, skip], 1))
+        h = block(f"up_conv{i}", torch.cat([h, skip], 1))
     return model.final_conv(h)
 
 
-__all__ = ["DFCBlock", "LightSelfAttention", "conv_bn_relu", "nchw",
+__all__ = ["DFCBlock", "LightSelfAttention", "REMAT_BLOCKS", "conv_bn_relu", "nchw",
            "nhwc", "unet_forward"]

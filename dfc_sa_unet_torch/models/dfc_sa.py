@@ -17,8 +17,9 @@ class UNetDFCSA(nn.Module):
     """4-level U-Net of DFC-SA blocks (encoder, bottleneck and decoder)."""
 
     def __init__(self, in_channels=3, out_channels=1, features=(64, 128, 256, 512), pool_size=8,
-                 qk_div=8, compute_dtype=None):
+                 qk_div=8, compute_dtype=None, remat=False):
         super().__init__()
+        self.remat = remat
         f = list(features)
         block = partial(DFCBlock, pool_size=pool_size, qk_div=qk_div, compute_dtype=compute_dtype)
         cins = [in_channels] + f[:3]
@@ -32,7 +33,7 @@ class UNetDFCSA(nn.Module):
         self.final_conv = Conv(f[0], out_channels, 1, compute_dtype=compute_dtype)
 
     def forward(self, x):
-        return unet_forward(self, x)
+        return unet_forward(self, x, self.remat)
 
 
 class UNetDFCSARes(UNetDFCSA):

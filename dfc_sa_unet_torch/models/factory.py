@@ -18,20 +18,27 @@ def _model_cfg(config: Mapping[str, Any]) -> Mapping[str, Any]:
     return config.get("model", config)
 
 
-def create_model(config: Mapping[str, Any], dtype=None, use_pallas: bool = False, device=None) -> nn.Module:
+def create_model(config: Mapping[str, Any], dtype=None, use_pallas: bool = False, device=None,
+                 remat=False) -> nn.Module:
     """The module named by ``config['model']['name']``, on ``device`` (default
     CUDA, raising without it) in channels_last storage.
 
     The port's attention cores always run their CUDA kernels on the card
     (and their plain versions on CPU tensors), so ``model.use_pallas`` in
     the config, and ``use_pallas``, are only checked to be booleans:
-    neither value sends CUDA tensors to a plain version."""
+    neither value sends CUDA tensors to a plain version.
+
+    ``remat`` (or ``model.remat`` in the config) recomputes activations in
+    the backward pass: False, 'all', 'l12' or 'deep' for the flagship (the
+    block sets of ``models.blocks.REMAT_BLOCKS``); the transformers take
+    any of them as "every encoder layer, ResNet unit and decoder block"."""
     dev = resolve_device(device)
     m = _model_cfg(config)
     name = m["name"]
     for flag in (use_pallas, m.get("use_pallas", False)):
         if not isinstance(flag, bool):
             raise TypeError(f"use_pallas must be true or false, not {flag!r}")
+    remat = remat or m.get("remat", False)
     in_channels = m.get("in_channels", 3)
     out_channels = m.get("out_channels", 1)
     if name == "DFC-SA-Res-Block":
@@ -44,6 +51,7 @@ def create_model(config: Mapping[str, Any], dtype=None, use_pallas: bool = False
             pool_size=m.get("pool_size", 8),
             qk_div=m.get("ablation_on_qk_channels", 8),
             compute_dtype=dtype,
+            remat=remat,
         )
     elif name in ("TransformerUNet", "TransUNet"):
         from dfc_sa_unet_torch.models.transunet import TransUNet, get_r50_b16_config
@@ -53,7 +61,8 @@ def create_model(config: Mapping[str, Any], dtype=None, use_pallas: bool = False
         vit_config = get_r50_b16_config()
         vit_config["n_classes"] = out_channels
         vit_config["patches_grid"] = (img_size // 16, img_size // 16)
-        model = TransUNet(config=vit_config, img_size=img_size, num_classes=out_channels, compute_dtype=dtype)
+        model = TransUNet(config=vit_config, img_size=img_size, num_classes=out_channels, compute_dtype=dtype,
+                          remat=bool(remat))
     elif name == "VisionTransformerSegmentation":
         from dfc_sa_unet_torch.models.vit_seg import VisionTransformerForSegmentation
 
@@ -71,6 +80,7 @@ def create_model(config: Mapping[str, Any], dtype=None, use_pallas: bool = False
             dropout=m.get("dropout", 0.1),
             upsample_layers=m.get("segmentation_head_upsample_layers", default_layers),
             compute_dtype=dtype,
+            remat=bool(remat),
         )
     else:
         raise NotImplementedError(

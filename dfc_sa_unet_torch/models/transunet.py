@@ -9,7 +9,11 @@ One-channel inputs are repeated to 3 channels like the reference.
 
 Takes normalised NCHW images (stored channels_last) and returns NCHW
 logits in the compute dtype.  Token tensors are ``[B,N,E]``.  The
-attention core of every block is the ``fused_mha_sep`` kernel wrapper.
+attention core of every block is the ``fused_mha_sep`` kernel wrapper; in
+training with dropout on the attention weights (0 in the R50-ViT-B/16
+config) it takes the plain path, as the JAX model does (transunet.py:174-206).
+``remat`` recomputes every ResNet unit, encoder block and decoder block in
+the backward pass.
 """
 
 from typing import Any, Dict
@@ -20,7 +24,8 @@ from torch import nn
 
 from dfc_sa_unet_torch.models.vit_seg import gelu, map_from_tokens, tokens_from_map
 from dfc_sa_unet_torch.nn.layers import BatchNorm, Conv, Dense, GroupNorm, LayerNorm, WSConv
-from dfc_sa_unet_torch.ops.mha import fused_mha_sep
+from dfc_sa_unet_torch.ops.dropout import call_block, dropout, dropout_generator
+from dfc_sa_unet_torch.ops.mha import fused_mha_sep, fused_mha_sep_plain
 from dfc_sa_unet_torch.ops.pooling import max_pool
 from dfc_sa_unet_torch.ops.resize import resize_bilinear
 
@@ -83,24 +88,31 @@ class _Root(nn.Module):
         return F.relu(self.gn(self.conv(x)))
 
 
-def _res_block(units, cin, cout, cmid, first_stride, compute_dtype):
+class _ResBlock(nn.Sequential):
     """``unit1`` .. ``unitN``, the first one strided and widening."""
-    block = nn.Sequential()
-    for i in range(1, units + 1):
-        block.add_module(f"unit{i}", PreActBottleneck(cin if i == 1 else cout, cout, cmid,
-                                                      first_stride if i == 1 else 1, compute_dtype))
-    return block
+
+    def __init__(self, units, cin, cout, cmid, first_stride, compute_dtype, remat=False):
+        super().__init__()
+        self.remat = remat
+        for i in range(1, units + 1):
+            self.add_module(f"unit{i}", PreActBottleneck(cin if i == 1 else cout, cout, cmid,
+                                                         first_stride if i == 1 else 1, compute_dtype))
+
+    def forward(self, x):
+        for unit in self:
+            x = call_block(self, self.remat, unit, x)
+        return x
 
 
 class _Body(nn.Module):
     """The three bottleneck stages, ``block1`` .. ``block3``."""
 
-    def __init__(self, block_units, width, compute_dtype=None):
+    def __init__(self, block_units, width, compute_dtype=None, remat=False):
         super().__init__()
         w = width
-        self.block1 = _res_block(block_units[0], w, w * 4, w, 1, compute_dtype)
-        self.block2 = _res_block(block_units[1], w * 4, w * 8, w * 2, 2, compute_dtype)
-        self.block3 = _res_block(block_units[2], w * 8, w * 16, w * 4, 2, compute_dtype)
+        self.block1 = _ResBlock(block_units[0], w, w * 4, w, 1, compute_dtype, remat)
+        self.block2 = _ResBlock(block_units[1], w * 4, w * 8, w * 2, 2, compute_dtype, remat)
+        self.block3 = _ResBlock(block_units[2], w * 8, w * 16, w * 4, 2, compute_dtype, remat)
 
     def forward(self, x):
         b1 = self.block1(x)
@@ -112,11 +124,11 @@ class ResNetV2(nn.Module):
     """Hybrid backbone (reference models/transformer_unet.py:70-106).  Returns
     (x, [block2_out, block1_out, root_out]): the skips, highest resolution last."""
 
-    def __init__(self, block_units=(3, 4, 9), width_factor=1, in_channels=3, compute_dtype=None):
+    def __init__(self, block_units=(3, 4, 9), width_factor=1, in_channels=3, compute_dtype=None, remat=False):
         super().__init__()
         self.width = int(64 * width_factor)
         self.root = _Root(in_channels, self.width, compute_dtype)
-        self.body = _Body(block_units, self.width, compute_dtype)
+        self.body = _Body(block_units, self.width, compute_dtype, remat)
 
     def forward(self, x):
         root_out = self.root(x)
@@ -128,7 +140,8 @@ class _Attention(nn.Module):
     """TransUNet attention (reference models/transformer_unet.py:116-157):
     separate query / key / value / out Linears around fused_mha_sep.
     ``attn_dropout`` (0 in the R50-ViT-B/16 config) applies to the attention
-    weights, which the kernel never materialises, so training with it raises."""
+    weights, which the kernel never materialises, so training with it takes
+    the plain path; it also applies to the projected output, as in the reference."""
 
     def __init__(self, hidden, num_heads, attn_dropout=0.0, compute_dtype=None):
         super().__init__()
@@ -139,10 +152,13 @@ class _Attention(nn.Module):
         self.out = Dense(hidden, hidden, compute_dtype=compute_dtype)
 
     def forward(self, x):
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        gen = dropout_generator(self)
         if self.training and self.attn_dropout > 0.0:
-            raise NotImplementedError("attention-weight dropout in training is not ported yet (ROADMAP.md)")
-        out = fused_mha_sep(self.query(x), self.key(x), self.value(x), self.num_heads)
-        return self.out(out)
+            out = fused_mha_sep_plain(q, k, v, self.num_heads, self.attn_dropout, gen)
+        else:
+            out = fused_mha_sep(q, k, v, self.num_heads)
+        return dropout(self.out(out), self.attn_dropout, self.training, gen)
 
 
 class _Mlp(nn.Module):
@@ -153,8 +169,9 @@ class _Mlp(nn.Module):
         self.fc2 = Dense(mlp_dim, hidden, compute_dtype=compute_dtype)
 
     def forward(self, x):
-        y = F.dropout(gelu(self.fc1(x)), self.dropout, self.training)
-        return F.dropout(self.fc2(y), self.dropout, self.training)
+        gen = dropout_generator(self)
+        y = dropout(gelu(self.fc1(x)), self.dropout, self.training, gen)
+        return dropout(self.fc2(y), self.dropout, self.training, gen)
 
 
 class _VitBlock(nn.Module):
@@ -174,26 +191,27 @@ class _VitBlock(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, cfg, compute_dtype=None):
+    def __init__(self, cfg, compute_dtype=None, remat=False):
         super().__init__()
+        self.remat = remat
         self.layer = nn.ModuleList(_VitBlock(cfg, compute_dtype) for _ in range(cfg["num_layers"]))
         self.encoder_norm = LayerNorm(cfg["hidden_size"], eps=1e-6)
 
     def forward(self, x):
         for block in self.layer:
-            x = block(x)
+            x = call_block(self, self.remat, block, x)
         return self.encoder_norm(x)
 
 
 class _Embeddings(nn.Module):
-    def __init__(self, cfg, img_size, compute_dtype=None):
+    def __init__(self, cfg, img_size, compute_dtype=None, remat=False):
         super().__init__()
         grid = cfg["patches_grid"]
         patch = (img_size // 16 // grid[0], img_size // 16 // grid[1])
         self.n_patches = (img_size // 16) * (img_size // 16)
         self.dropout = cfg["dropout_rate"]
         self.hybrid_model = ResNetV2(cfg["resnet_num_layers"], cfg["resnet_width_factor"],
-                                     compute_dtype=compute_dtype)
+                                     compute_dtype=compute_dtype, remat=remat)
         self.patch_embeddings = Conv(self.hybrid_model.width * 16, cfg["hidden_size"], patch, stride=patch,
                                      compute_dtype=compute_dtype)
         self.position_embeddings = nn.Parameter(torch.zeros(1, self.n_patches, cfg["hidden_size"]))
@@ -204,14 +222,14 @@ class _Embeddings(nn.Module):
         if y.shape[1] != self.n_patches:
             raise ValueError(f"an input of {tuple(x.shape[2:])} gives {y.shape[1]} tokens; the model's "
                              f"position embeddings hold {self.n_patches}")
-        return F.dropout(y + self.position_embeddings, self.dropout, self.training), features
+        return dropout(y + self.position_embeddings, self.dropout, self.training, dropout_generator(self)), features
 
 
 class _Transformer(nn.Module):
-    def __init__(self, cfg, img_size, compute_dtype=None):
+    def __init__(self, cfg, img_size, compute_dtype=None, remat=False):
         super().__init__()
-        self.embeddings = _Embeddings(cfg, img_size, compute_dtype)
-        self.encoder = _Encoder(cfg, compute_dtype)
+        self.embeddings = _Embeddings(cfg, img_size, compute_dtype, remat)
+        self.encoder = _Encoder(cfg, compute_dtype, remat)
 
     def forward(self, x):
         y, features = self.embeddings(x)
@@ -238,8 +256,9 @@ class _DecoderBlock(nn.Module):
 
 
 class _DecoderCup(nn.Module):
-    def __init__(self, cfg, width, compute_dtype=None):
+    def __init__(self, cfg, width, compute_dtype=None, remat=False):
         super().__init__()
+        self.remat = remat
         self.n_skip = cfg["n_skip"]
         self.conv_more = _conv2d_relu(cfg["hidden_size"], HEAD_CHANNELS, 3, 1, compute_dtype)
         outs = list(cfg["decoder_channels"])
@@ -254,18 +273,18 @@ class _DecoderCup(nn.Module):
         side = int(n_patch ** 0.5)
         x = self.conv_more(map_from_tokens(hidden_states, side, side))
         for i, block in enumerate(self.blocks):
-            x = block(x, features[i] if i < min(self.n_skip, len(features)) else None)
+            x = call_block(self, self.remat, block, x, features[i] if i < min(self.n_skip, len(features)) else None)
         return x
 
 
 class TransUNet(nn.Module):
     """Factory names 'TransformerUNet' / 'TransUNet'."""
 
-    def __init__(self, config, img_size=224, num_classes=9, compute_dtype=None):
+    def __init__(self, config, img_size=224, num_classes=9, compute_dtype=None, remat=False):
         super().__init__()
         self.config, self.img_dim, self.num_classes = dict(config), img_size, num_classes
-        self.transformer = _Transformer(config, img_size, compute_dtype)
-        self.decoder = _DecoderCup(config, self.transformer.embeddings.hybrid_model.width, compute_dtype)
+        self.transformer = _Transformer(config, img_size, compute_dtype, remat)
+        self.decoder = _DecoderCup(config, self.transformer.embeddings.hybrid_model.width, compute_dtype, remat)
         self.segmentation_head = nn.Sequential(
             Conv(config["decoder_channels"][-1], config["n_classes"], 3, padding=1, compute_dtype=compute_dtype))
 

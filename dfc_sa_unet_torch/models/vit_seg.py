@@ -10,7 +10,10 @@ Takes normalised NCHW images (stored channels_last) of exactly
 ``img_dim`` x ``img_dim`` and returns NCHW logits in the compute dtype.
 Token tensors are ``[B,N,E]``.  The attention core of every layer is the
 ``fused_mha`` kernel wrapper: scaled by 1/sqrt(head_dim), unlike the DFC
-pooled attention.
+pooled attention.  In training with dropout on the attention weights the
+core takes the plain path instead, as the JAX model does (vit_seg.py:84-105):
+the kernel never materialises the weights.  Dropout masks come from the
+generator set by ``ops.dropout.set_dropout_generator``.
 """
 
 import torch
@@ -18,7 +21,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from dfc_sa_unet_torch.nn.layers import BatchNorm, Conv, ConvTranspose, Dense, LayerNorm, add_bias_
-from dfc_sa_unet_torch.ops.mha import fused_mha
+from dfc_sa_unet_torch.ops.dropout import call_block, dropout, dropout_generator
+from dfc_sa_unet_torch.ops.mha import fused_mha, fused_mha_plain
 from dfc_sa_unet_torch.ops.resize import resize_bilinear
 
 
@@ -53,7 +57,7 @@ class TorchMultiheadAttention(nn.Module):
     (``in_proj_weight`` [3E,E], ``in_proj_bias``, ``out_proj``), so the
     reference's checkpoints load key for key: in_proj -> fused_mha ->
     out_proj.  ``dropout`` is the rate on the attention weights; the
-    kernel has none, so training with it raises."""
+    kernel has none, so training with it takes the plain path."""
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, compute_dtype=None):
         super().__init__()
@@ -66,11 +70,13 @@ class TorchMultiheadAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, x):
-        if self.training and self.dropout > 0.0:
-            raise NotImplementedError("attention-weight dropout in training is not ported yet (ROADMAP.md)")
         dtype = self.compute_dtype or x.dtype
         qkv = add_bias_(F.linear(x.to(dtype), self.in_proj_weight.to(dtype)), self.in_proj_bias)
-        return self.out_proj(fused_mha(qkv, self.num_heads))
+        if self.training and self.dropout > 0.0:
+            out = fused_mha_plain(qkv, self.num_heads, self.dropout, dropout_generator(self))
+        else:
+            out = fused_mha(qkv, self.num_heads)
+        return self.out_proj(out)
 
 
 class TorchEncoderLayer(nn.Module):
@@ -87,7 +93,7 @@ class TorchEncoderLayer(nn.Module):
         self.norm2 = LayerNorm(embed_dim, eps=1e-5)
 
     def _drop(self, x):
-        return F.dropout(x, self.dropout, self.training)
+        return dropout(x, self.dropout, self.training, dropout_generator(self))
 
     def forward(self, x):
         x = self.norm1(x + self._drop(self.self_attn(x)))
@@ -96,14 +102,15 @@ class TorchEncoderLayer(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
-    def __init__(self, num_layers, embed_dim, num_heads, mlp_dim, dropout, compute_dtype=None):
+    def __init__(self, num_layers, embed_dim, num_heads, mlp_dim, dropout, compute_dtype=None, remat=False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             TorchEncoderLayer(embed_dim, num_heads, mlp_dim, dropout, compute_dtype) for _ in range(num_layers))
 
     def forward(self, x):
         for layer in self.layers:
-            x = layer(x)
+            x = call_block(self, self.remat, layer, x)
         return x
 
 
@@ -112,14 +119,14 @@ class VisionTransformerForSegmentation(nn.Module):
 
     def __init__(self, img_dim=224, patch_dim=16, in_channels=3, num_classes=1, embed_dim=768,
                  num_layers=12, num_heads=12, mlp_dim=3072, dropout=0.1, upsample_layers=4,
-                 compute_dtype=None):
+                 compute_dtype=None, remat=False):
         super().__init__()
         self.img_dim, self.patch_dim, self.dropout = img_dim, patch_dim, dropout
         feat = img_dim // patch_dim
         self.patch_embed = PatchEmbedding(in_channels, patch_dim, embed_dim, compute_dtype)
         self.pos_embed = nn.Parameter(torch.randn(1, feat * feat, embed_dim))
         self.transformer_encoder = TransformerEncoder(num_layers, embed_dim, num_heads, mlp_dim, dropout,
-                                                      compute_dtype)
+                                                      compute_dtype, remat)
         # channel schedule of reference models/vision_transformer.py:107-123
         head, current = [], embed_dim
         for i in range(upsample_layers):
@@ -138,7 +145,7 @@ class VisionTransformerForSegmentation(nn.Module):
             raise ValueError(f"input image size ({h}x{w}) doesn't match the model's ({self.img_dim}x{self.img_dim})")
         feat = self.img_dim // self.patch_dim
         y = self.patch_embed(x)
-        y = F.dropout(y + self.pos_embed, self.dropout, self.training)
+        y = dropout(y + self.pos_embed, self.dropout, self.training, dropout_generator(self))
         y = self.transformer_encoder(y)
         logits = self.segmentation_head(map_from_tokens(y, feat, feat))
         return resize_bilinear(logits, (h, w), align_corners=False)

@@ -14,13 +14,39 @@ import torch.nn.functional as F
 from torch import nn
 
 from dfc_sa_unet_torch.ops.convt import conv_transpose_2x2
+from dfc_sa_unet_torch.ops.dropout import recomputing
+
+
+class _AddBias(torch.autograd.Function):
+    """``y.add_(bias)`` whose backward sums the bias gradient in f32: plain
+    autograd would reduce a bf16 ``grad_y`` to a bf16 sum before the cast."""
+
+    @staticmethod
+    def forward(ctx, y, bias):
+        ctx.mark_dirty(y)
+        ctx.bias_shape = bias.shape
+        return y.add_(bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        shape = (1,) * (grad.dim() - len(ctx.bias_shape)) + tuple(ctx.bias_shape)
+        dims = [d for d, n in enumerate(shape) if n == 1 and grad.shape[d] != 1]
+        grad_bias = grad.sum(dim=dims, dtype=torch.float32) if dims else grad.float()
+        return grad, grad_bias.reshape(ctx.bias_shape)
 
 
 def add_bias_(y, bias):
     """The f32 bias added to a fresh product ``y`` in place: the sum is taken
     in f32 and rounded to y's dtype once, in one pass over y (the same values
-    as ``(y + bias).to(y.dtype)``, which takes two passes and an f32 copy)."""
-    return y if bias is None else y.add_(bias)
+    as ``(y + bias).to(y.dtype)``, which takes two passes and an f32 copy).
+    Safe under autograd: a conv or a matrix product saves its inputs, not
+    its output, and the bias gradient is summed in f32 as it would be for the
+    out-of-place sum."""
+    if bias is None:
+        return y
+    if torch.is_grad_enabled() and (y.requires_grad or bias.requires_grad):
+        return _AddBias.apply(y, bias)
+    return y.add_(bias)
 
 
 class Conv(nn.Conv2d):
@@ -54,11 +80,22 @@ class WSConv(nn.Conv2d):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """nn.BatchNorm2d (eps 1e-5) that normalises in f32 and returns the input dtype."""
+    """nn.BatchNorm2d (eps 1e-5, momentum 0.1) that normalises in f32 and
+    returns the input dtype.  In training it normalises with the batch's
+    biased variance and moves the running statistics with the unbiased one,
+    as the JAX layer does (dfc_sa_unet_tpu/nn/layers.py:273-294), and counts
+    ``num_batches_tracked``; the second run of a rematerialised block
+    (ops/dropout.py::remat_call) leaves the running statistics alone: it
+    moves throwaway copies, so autograd saves the same set of tensors."""
 
     def forward(self, x):
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight, self.bias,
-                         self.training, self.momentum, self.eps)
+        mean, var = self.running_mean, self.running_var
+        if self.training:
+            if recomputing():
+                mean, var = mean.clone(), var.clone()
+            else:
+                self.num_batches_tracked.add_(1)
+        y = F.batch_norm(x.float(), mean, var, self.weight, self.bias, self.training, self.momentum, self.eps)
         return y.to(x.dtype)
 
 

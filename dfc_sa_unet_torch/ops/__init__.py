@@ -1,16 +1,17 @@
 """Tensor ops of the port: plain PyTorch functions and the kernel wrappers.
 
 Plain ops take NCHW tensors (the model's layout, stored channels_last);
-the kernel wrappers (``pooled_attention``, ``dfc_tail``) take NHWC, the
+the kernel wrappers (``pooled_attention``, ``dfc_tail``, ``conv_bn_stats``) take NHWC, the
 JAX layout, which is a contiguous ``permute(0, 2, 3, 1)`` view of a
 channels_last tensor; ``mha`` takes token tensors ``[B,N,E]``.
 """
 
+from dfc_sa_unet_torch.ops.conv_bn_stats import LAUNCHES as _STATS_LAUNCHES
 from dfc_sa_unet_torch.ops.dfc_tail import LAUNCHES as _TAIL_LAUNCHES
 from dfc_sa_unet_torch.ops.mha import LAUNCHES as _MHA_LAUNCHES
 from dfc_sa_unet_torch.ops.pooled_attention import LAUNCHES as _ATTN_LAUNCHES
 
-_COUNTS = (_ATTN_LAUNCHES, _TAIL_LAUNCHES, _MHA_LAUNCHES)
+_COUNTS = (_ATTN_LAUNCHES, _TAIL_LAUNCHES, _MHA_LAUNCHES, _STATS_LAUNCHES)
 
 
 def reset_launches():

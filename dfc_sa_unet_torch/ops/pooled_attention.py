@@ -4,6 +4,11 @@ Counterpart of dfc_sa_unet_tpu/ops/pallas_attention.py::fused_pooled_attention;
 the kernel is csrc/pooled_attention.cu.  On a CPU tensor the wrapper runs
 the plain version (ops/attention.py::pooled_self_attention); on a CUDA
 tensor it launches the kernel or raises.  Layout NHWC, as in JAX.
+
+Under autograd the forward still launches the kernel; the backward
+recomputes through the plain version and returns its gradients, which is
+what the JAX custom VJP does (pallas_attention.py:98-106): the TPU package
+has no backward kernel either.
 """
 
 import torch
@@ -40,7 +45,14 @@ def pooled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
         raise ValueError(f"pooled_attention: N={n} (max {MAX_TOKENS}), C'={cq} (max "
                          f"{MAX_QK_CHANNELS}), B={b} (max 65535) not supported by the kernel")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError("pooled_attention: the kernel has no backward yet (ROADMAP.md)")
+        return _PooledAttention.apply(q, k, v)
+    return _launch(q, k, v)
+
+
+def _launch(q, k, v):
+    """One launch on checked, contiguous CUDA tensors."""
+    b, ph, pw, cq = q.shape
+    c, n = v.shape[-1], ph * pw
     out = torch.empty_like(v)
     if out.numel():
         name = _KERNELS[v.dtype]
@@ -49,3 +61,27 @@ def pooled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
         _build.check(err, name)
         LAUNCHES["pooled_attention"] += 1
     return out
+
+
+def plain_vjp(plain, inputs, grad_out):
+    """Gradients of ``plain(*inputs)`` w.r.t. the inputs that need one, for
+    the backward of a kernel's autograd.Function: the forward is recomputed
+    through the plain version on detached copies, so nothing but the inputs
+    was saved.  Gradients come back contiguous, in the inputs' layout."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(t.requires_grad) for t in inputs]
+        out = plain(*leaves)
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    return tuple(next(grads).contiguous() if t.requires_grad else None for t in leaves)
+
+
+class _PooledAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return plain_vjp(pooled_attention_plain, ctx.saved_tensors, grad_out)

@@ -15,6 +15,11 @@ The port's modules carry the reference's state-dict keys, so loading is
 * ``load_state_dict_file`` - a reference ``.pth`` (a raw state dict or a
   trainer checkpoint holding ``model_state_dict``, torch_convert.py:153-161).
 
+``load_jax_train_state_`` carries a whole training state across: weights,
+BatchNorm statistics and the optimiser's momentum from the JAX trainer's
+``TrainState`` as numpy, so both trainers can start from one mid-training
+state.
+
 ``init_random_`` fills a model with seeded weights and BatchNorm
 statistics for checks that need no trained checkpoint;
 ``calibrate_batch_stats_`` then fits the statistics to a batch.
@@ -95,11 +100,52 @@ def from_jax_variables(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.
     return out
 
 
+def _like_tree(template: Mapping[str, Any], leaves):
+    """``leaves`` (in the order jax flattens a dict: keys sorted at every
+    level) hung back into the shape of the nested dict ``template``."""
+    it = iter(leaves)
+
+    def build(node):
+        return {k: build(node[k]) if isinstance(node[k], Mapping) else next(it) for k in sorted(node)}
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more momentum leaves than parameters")
+    return out
+
+
+def load_jax_train_state_(model: nn.Module, optimizer, params: Mapping[str, Any],
+                          batch_stats: Mapping[str, Any], opt_leaves=None, step: int = 0) -> int:
+    """The JAX trainer's state into ``model`` and ``optimizer`` (in place).
+
+    ``params`` and ``batch_stats`` are the TrainState's nested dicts as
+    numpy; ``opt_leaves`` is what the JAX trainer saves of its optimiser
+    (trainer.py:667-673): the leaves of the optax state, of which only the
+    momentum trace has any, one per parameter in the parameters' flattened
+    order.  ``num_batches_tracked`` is set to ``step``.  Returns ``step``
+    for the caller's own counter."""
+    sd = from_jax_variables({"params": params, "batch_stats": batch_stats})
+    for key in sd:
+        if key.endswith("num_batches_tracked"):
+            sd[key] = torch.tensor(int(step), dtype=torch.int64)
+    model.load_state_dict(sd, strict=True)
+    if opt_leaves is not None and len(opt_leaves):
+        momentum = from_jax_variables({"params": _like_tree(params, opt_leaves)})
+        optimizer.load_state_dict({"momentum_buffers": momentum})
+    else:
+        optimizer.load_state_dict({"momentum_buffers": {}})
+    return int(step)
+
+
 def load_state_dict_file(path: str) -> "OrderedDict[str, torch.Tensor]":
-    """A reference ``.pth``: raw state dict or trainer checkpoint."""
+    """A reference ``.pth`` (raw state dict or trainer checkpoint), or what
+    the port's trainer writes: its ``best_model`` (a raw state dict) or one
+    of its checkpoints (weights under ``model``)."""
     ckpt = torch.load(str(path).replace("\\", "/"), map_location="cpu", weights_only=False)
-    if isinstance(ckpt, dict) and "model_state_dict" in ckpt:
-        ckpt = ckpt["model_state_dict"]
+    for key in ("model_state_dict", "model"):
+        if isinstance(ckpt, dict) and isinstance(ckpt.get(key), Mapping):
+            ckpt = ckpt[key]
+            break
     return OrderedDict((k, torch.as_tensor(v)) for k, v in ckpt.items())
 
 

@@ -93,3 +93,81 @@ def to_nchw(x_nhwc: np.ndarray) -> torch.Tensor:
 
 def to_nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).float().numpy()
+
+
+# ---------------------------------------------------------------- training
+
+def train_config(tmp_path, model_cfg=None, **training):
+    """A config for the small trainers of the tests: bce_dice 0.5/0.5 and the
+    SGD settings of configs/config_dfc-sa-res-block.yaml."""
+    log_dir = str(tmp_path / "logs")
+    return {
+        "training": {"num_epochs": 1, "batch_size": 4, "learning_rate": 0.01, "momentum": 0.9,
+                     "weight_decay": 1e-4, "num_workers": 1, "save_checkpoint_freq": 100,
+                     "loss": {"type": "bce_dice", "params": {"bce_weight": 0.5, "dice_weight": 0.5}},
+                     **training},
+        "model": dict(model_cfg or SMALL),
+        "dataset": {"img_size": [32, 32], "augmentation": False},
+        "logging": {"log_dir": log_dir, "images_dir": log_dir + "/images", "save_best_worst_samples": 0},
+    }
+
+
+def uint8_batches(seed, n, b, hw):
+    """n batches of uint8 images [b,H,W,3] and blob-like masks [b,H,W]."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        img = rng.integers(0, 256, (b, *hw, 3), dtype=np.uint8)
+        mask = ((img[..., 0].astype(np.int32) + img[..., 1]) > 255).astype(np.uint8) * 255
+        out.append((img, mask))
+    return out
+
+
+def state_dict_of_jax_state(state):
+    """The JAX TrainState's weights and BatchNorm statistics under the port's names, as numpy."""
+    from dfc_sa_unet_torch.utils.weights import from_jax_variables
+
+    sd = from_jax_variables({"params": jax.tree.map(np.asarray, state.params),
+                             "batch_stats": jax.tree.map(np.asarray, state.batch_stats)})
+    return {k: v.numpy() for k, v in sd.items()}
+
+
+def run_both_trainers(cfg, model, jmodel, image_hw, batches):
+    """The same uint8 batches through the port's Trainer.train_step and the JAX
+    Trainer's jitted ``_step_impl``, both started from ``model``'s weights.
+    Returns per step (port metrics, JAX metrics, port state dict, JAX state dict)
+    and the initial state dict."""
+    from dfc_sa_unet_tpu.train.trainer import Trainer as JaxTrainer
+    from dfc_sa_unet_torch.train.trainer import Trainer
+
+    variables = variables_from_port(jmodel, model, image_hw)
+    jt = JaxTrainer(jmodel, None, None, cfg, seed=0, init_variables=variables)
+    state = jt.init_state(None)
+    trainer = Trainer(model, None, None, cfg, seed=0, device="cpu", progress=False)
+    init = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
+    steps = []
+    for img, mask in batches:
+        state, jm = jt._train_step_jit(state, jnp.asarray(img), jnp.asarray(mask))
+        tm = trainer.train_step(torch.from_numpy(img), torch.from_numpy(mask))
+        steps.append((tm, {k: float(v) for k, v in jm.items()},
+                      {k: v.detach().numpy().copy() for k, v in model.state_dict().items()},
+                      state_dict_of_jax_state(state)))
+    return steps, init
+
+
+def assert_step_matches(tm, jm, port_sd, jax_sd, init):
+    """Loss, IoU, Dice 1e-5; parameter updates |d_port - d_jax| <= 1e-3 max|d_jax| + 1e-7 per
+    tensor; BatchNorm running statistics 1e-5."""
+    assert tm["finite"] and jm["finite"]
+    for k in ("loss", "iou", "dice"):
+        assert abs(tm[k] - jm[k]) <= 1e-5 * max(1.0, abs(jm[k])), (k, tm[k], jm[k])
+    for name, want in jax_sd.items():
+        got = port_sd[name]
+        if name.endswith("num_batches_tracked"):
+            continue
+        if name.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * max(1.0, np.abs(want).max()), err_msg=name)
+            continue
+        d_jax, d_port = want - init[name], got - init[name]
+        tol = 1e-3 * np.abs(d_jax).max() + 1e-7
+        assert np.abs(d_port - d_jax).max() <= tol, (name, np.abs(d_port - d_jax).max(), tol)

@@ -18,7 +18,7 @@ import torch
 torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "dfc_sa_unet_torch"
-FORBIDDEN = ("jax", "flax", "dfc_sa_unet_tpu")
+FORBIDDEN = ("jax", "flax", "orbax", "optax", "dfc_sa_unet_tpu")
 CFG = {"model": {"name": "DFC-SA-Res-Block", "features": [8, 16, 24, 32], "pool_size": 4}}
 # the transformer families at toy sizes: one ViT layer; the R50-ViT-B/16 widths are fixed by the
 # factory, so TransUNet is built on the meta device (no storage) where only construction matters
@@ -37,10 +37,13 @@ def _imported_roots(path):
 
 
 def test_no_jax_imports_in_source():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 15
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "bench_torch_bn_stats.py",
+                                         ROOT / "scripts" / "profile_torch_serving.py",
+                                         ROOT / "scripts" / "profile_torch_training.py"]
+    assert len(files) > 35
     names = {f.name for f in files}
-    assert {"mha.py", "vit_seg.py", "transunet.py", "layers.py", "chip_smoke.py"} <= names
+    assert {"mha.py", "vit_seg.py", "transunet.py", "layers.py", "chip_smoke.py", "trainer.py", "losses.py",
+            "loader.py", "conv_bn_stats.py", "cli.py"} <= names
     bad = [(str(f.relative_to(ROOT)), r) for f in files for r in _imported_roots(f) if r in FORBIDDEN]
     assert not bad, bad
 
@@ -48,17 +51,19 @@ def test_no_jax_imports_in_source():
 def test_package_imports_without_jax():
     code = (
         "import sys, pkgutil, importlib\n"
-        "for name in ('jax', 'flax', 'dfc_sa_unet_tpu'): sys.modules[name] = None\n"
+        "for name in ('jax', 'flax', 'orbax', 'optax', 'dfc_sa_unet_tpu', 'PIL', 'yaml', 'matplotlib', 'tqdm',\n"
+        "             'pandas', 'cv2'): sys.modules[name] = None\n"
         "import dfc_sa_unet_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(dfc_sa_unet_torch.__path__, 'dfc_sa_unet_torch.')]\n"
-        "for m in mods: importlib.import_module(m)\n"
+        "for m in mods:\n"
+        "    if not m.endswith('.__main__'): importlib.import_module(m)\n"
         "print(len(mods))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 18  # mha, vit_seg and transunet among them
+    assert int(out.stdout.split()[-1]) >= 38  # the training slice's modules among them
 
 
 @pytest.fixture
@@ -99,6 +104,29 @@ def test_entry_points_raise_without_cuda(no_cuda):
         Predictor(transunet)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_predictor(TRANSUNET_CFG, {}, device=args.device)
+
+
+def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from dfc_sa_unet_torch.models.factory import create_model
+    from dfc_sa_unet_torch.train import cli
+    from dfc_sa_unet_torch.train.trainer import Trainer
+
+    log = str(tmp_path / "logs")
+    config = {**CFG, "training": {"num_epochs": 1, "batch_size": 2},
+              "dataset": {"train_dir": str(tmp_path), "val_dir": str(tmp_path)},
+              "logging": {"log_dir": log, "images_dir": log + "/images"}}
+    model = create_model(CFG, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(model, None, None, config)
+    assert Trainer(model, None, None, config, device="cpu").device.type == "cpu"
+    args = cli.parse_args(["--config", "c.yaml"])
+    assert args.device == "cuda" and args.bf16 is None and args.remat is None
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.build_trainer(config, args)
+    with pytest.raises(SystemExit):  # the JAX CLI's parallel flags are not taken
+        cli.parse_args(["--config", "c.yaml", "--data_parallel"])
+    assert cli.parse_args(["--config", "c.yaml", "--remat"]).remat == "all"
+    assert cli.parse_args(["--config", "c.yaml", "--no_bf16"]).bf16 is False
 
 
 def test_other_models_raise_not_implemented():

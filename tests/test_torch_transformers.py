@@ -221,7 +221,12 @@ def test_attention_goes_through_the_mha_wrappers(monkeypatch):
     assert calls == {"fused_mha": 3, "fused_mha_sep": 2}
 
 
-def test_training_mode_applies_dropout_but_refuses_attention_dropout():
+def test_training_mode_applies_dropout_but_refuses_attention_dropout(monkeypatch):
+    """The name dates from when attention-weight dropout raised in training: now the fused
+    core is refused there and the plain path with dropout on the weights runs, as in JAX."""
+    import dfc_sa_unet_torch.models.vit_seg as vit_mod
+    from dfc_sa_unet_torch.ops.dropout import set_dropout_generator
+
     vit = _port("vit")  # dropout 0.0 in the golden's config: training equals eval
     x = torch.from_numpy(images(1, (1, 3, *VIT_HW)))
     tu = port_transunet({**TRANSUNET_SMALL, "dropout_rate": 0.5})
@@ -231,8 +236,17 @@ def test_training_mode_applies_dropout_but_refuses_attention_dropout():
     b = tu(x.repeat(1, 1, 2, 2))
     assert not torch.equal(a, b)  # the MLP and embedding dropout drew different masks
     wet = port_model({**VIT_SMALL, "dropout": 0.1}).train()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        wet(x)
+
+    def refused(*args):
+        raise AssertionError("the fused core has no dropout on the attention weights")
+
+    monkeypatch.setattr(vit_mod, "fused_mha", refused)
+    outs = []
+    for seed in (3, 3, 4):
+        set_dropout_generator(wet, torch.Generator().manual_seed(seed))
+        outs.append(wet(x))
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
+    monkeypatch.undo()
     assert vit.train()(x).shape == (1, 1, *VIT_HW)
 
 
