@@ -10,9 +10,11 @@ any failure exits non-zero:
    for the f32 checks;
 2. build the CUDA kernels from dfc_sa_unet_torch/csrc;
 3. hold every kernel against its plain PyTorch version on the card, at
-   the shapes the main paths give it and at awkward ones, in f32 and bf16,
-   and the backward of the three attention wrappers against autograd
-   through their plain versions;
+   the shapes the main paths give it and at awkward ones, in f32 and bf16
+   (both attention kernels, the two-pass one from N = 129 to 4096; the
+   three matrix-unit probes in bf16, their only type), and the backward of
+   the three attention wrappers against autograd through their plain
+   versions;
 4. serve the flagship DFC-SA-Res-Block at full width (224x224, features
    64/128/256/512, pool 8, seeded weights, BatchNorm statistics fitted to
    a slice of the batch so that the logits spread O(1)):
@@ -46,11 +48,29 @@ any failure exits non-zero:
    per step; one more step at the YAML's 0.1 must launch none) and
    TransUNet (12 fused_mha_sep launches per step);
 9. run the BatchNorm-statistics probe (the conv3x3_bias_stats kernel's own
-   path, scripts/bench_torch_bn_stats.py) at its four levels, B=128, bf16.
+   path, scripts/bench_torch_bn_stats.py) at its four levels, B=128, bf16;
+10. serve the DFC zoo at full width: the vanilla UNet (64..1024) and the
+   eight ablations (features 64/128/256/512, pool 8) at 224x224,
+   UNet_FullResAttention at 64x64 (its attention takes N = H*W <= 4096),
+   seeded weights with fitted BatchNorm statistics: one B=128 uint8 batch
+   through the Predictor in bf16, and 8 images in f32 against the same
+   weights on the CPU.  Pooled-attention launches per forward: 9 for the
+   attention-only, addition, concat and full-resolution models (six of the
+   last one's on the two-pass kernel), 5 for encoder-only, 4 for decoder-only,
+   none for UNet, baseline and both-standard;
+11. train three bf16 steps each of UNet_AttentionOnly (9 launches a step),
+   UNet_FullResAttention at 64x64 (9 a step; the backward goes through the
+   plain version, which holds B*N*N f32 energies, hence B=8) and UNet
+   (none) through the Trainer, every step finite and applied;
+12. run the matrix-unit probes (scripts/bench_torch_mxu.py: cuBLAS, the
+   matmul kernel, cuDNN, the two conv kernels) at B=128, 56x56, 128 -> 256,
+   bf16: one launch of each kernel held against its plain version, then
+   the five timed rows.
 
 The launch counts are set to 0 before phase 4 and read after phase 5 (the
 flagship's serving paths), and again around phase 6 (the transformers'),
-around each training run of phase 8 and around phase 9.  The line before
+around each training run of phase 8 and around each of phases 9 to 12
+(phase 12's before its timed rows).  The line before
 the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -108,6 +128,21 @@ TRAIN_LOSS_TOL_CPU = 1e-3
 TRAIN_LOSS_TOL_RESUME = 1e-4
 # attention backward on the card vs autograd through the plain version, of max|reference|
 GRAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# phase 10: the DFC zoo.  configs/config_unet.yaml and configs/config_ablation*.yaml, model sections:
+# name -> (image size, pooled-attention launches per forward)
+DFC_WIDTHS = {"in_channels": 3, "out_channels": 1, "features": [64, 128, 256, 512], "pool_size": 8}
+DFC_ZOO = {"UNet": (IMG, 0), "UNet_Baseline": (IMG, 0), "UNet_AttentionOnly": (IMG, 9),
+           "UNet_AdditionFusion": (IMG, 9), "UNet_ConcatFusion": (IMG, 9), "UNet_FullResAttention": (64, 9),
+           "UNet_EncoderOnlyDFC": (IMG, 5), "UNet_DecoderOnlyDFC": (IMG, 4), "UNet_BothStandardConv": (IMG, 0)}
+DFC_ZOO_F32_BATCH = 8
+DFC_ZOO_CPU_IMAGES = 2
+# phase 11: (model, image size, batch); the full-resolution model's backward recomputes through
+# the plain version, B*N*N f32 energies a tensor at N = 4096
+DFC_ZOO_TRAINING = [("UNet_AttentionOnly", IMG, 64), ("UNet_FullResAttention", 64, 8), ("UNet", IMG, 64)]
+# the full-resolution model at 64x64: (block, H, C) with N = H*H tokens a launch
+FULLRES_SHAPES = [("down1", 64, 64), ("down2", 32, 128), ("down3", 16, 256), ("down4", 8, 512),
+                  ("bottleneck", 4, 1024), ("up_conv4", 8, 512), ("up_conv3", 16, 256), ("up_conv2", 32, 128),
+                  ("up_conv1", 64, 64)]
 MIN_LOGIT_STD = 0.1  # below this the agreement checks could not tell a constant output apart
 # transformer f32 on the card vs the same weights on the CPU (plain attention), max |dlogit| / std:
 # the same f32 arithmetic in another order through 12 layers
@@ -119,6 +154,14 @@ DLOGIT_TOL_CPU = 1e-3
 # the same there); the full model read mean 1.250e-01 and max 1.255 on an H100.  A constant output
 # reads about 0.8 on the mean.
 DLOGIT_TOL_BF16_ZOO = {"ViT-seg": DLOGIT_TOL_BF16, "TransUNet": {"mean": 0.25, "max": 2.5}}
+# the DFC zoo's bf16 against its f32 on the same images, |dlogit| / std: a sanity gate at
+# TransUNet's limits (printed for every model; a constant output reads about 0.8 on the mean)
+DLOGIT_TOL_BF16_DFC_ZOO = DLOGIT_TOL_BF16_ZOO["TransUNet"]
+
+
+def model_config(name):
+    """The YAML model section of one of the DFC zoo's nine names."""
+    return {"model": {"name": name, "bilinear": False} if name == "UNet" else {"name": name, **DFC_WIDTHS}}
 
 
 def fail(msg):
@@ -151,6 +194,7 @@ def main():
     from dfc_sa_unet_torch.ops import _build, launches, reset_launches
     from dfc_sa_unet_torch.ops import conv_bn_stats as stats_ops
     from dfc_sa_unet_torch.ops import dfc_tail as tail_ops, mha as mha_ops, pooled_attention as attn_ops
+    from dfc_sa_unet_torch.ops import mxu_probes as probe_ops
     from dfc_sa_unet_torch.data.dataset import ArrayDataset
     from dfc_sa_unet_torch.data.loader import BatchLoader
     from dfc_sa_unet_torch.data.normalize import normalize
@@ -158,6 +202,7 @@ def main():
     from dfc_sa_unet_torch.train.trainer import Trainer
     from dfc_sa_unet_torch.utils.weights import calibrate_batch_stats_, init_random_, load_state_dict_file
     from scripts import bench_torch_bn_stats as probe
+    from scripts import bench_torch_mxu as mxu
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
@@ -200,8 +245,12 @@ def main():
         qkv = randn(b, n, 3 * e, dtype=dtype)
         return (qkv,) if packed else tuple(t.contiguous() for t in qkv.chunk(3, dim=-1))
 
+    def grid_attn_inputs(b, h, w, cq, c, dtype):
+        return randn(b, h, w, cq, dtype=dtype), randn(b, h, w, cq, dtype=dtype), randn(b, h, w, c, dtype=dtype)
+
     max_err = {"pooled_attention": 0.0, "dfc_tail": 0.0, "conv3x3_bn_relu": 0.0, "fused_mha": 0.0,
-               "fused_mha_sep": 0.0, "conv3x3_bias_stats": 0.0}
+               "fused_mha_sep": 0.0, "conv3x3_bias_stats": 0.0, "probe_matmul": 0.0, "probe_conv_cat": 0.0,
+               "probe_conv_9dot": 0.0}
     bad = []
 
     def check(name, kernel, plain, args, label):
@@ -269,6 +318,13 @@ def main():
         for n in (16, 256, 1024):
             check("pooled_attention", attn_ops.pooled_attention, attn_ops.pooled_attention_plain,
                   attn_inputs(16, n, 256, dtype), f"{dn} B=16 N={n} C=256")
+        # the two-pass kernel: the full-resolution model's first level (64x64, Cq=8, C=64), N=1600, the
+        # first N past the 16-row kernel's own limit (1025, a non-square grid), a C that no channel tile
+        # divides, and either side of the wrapper's threshold (N=128: the 16-row kernel; N=144)
+        for b, h, w, cq, c in ((8, 64, 64, 8, 64), (4, 40, 40, 8, 64), (4, 25, 41, 8, 64), (2, 40, 40, 4, 100),
+                               (4, 8, 16, 8, 64), (4, 12, 12, 8, 64)):
+            check("pooled_attention", attn_ops.pooled_attention, attn_ops.pooled_attention_plain,
+                  grid_attn_inputs(b, h, w, cq, c, dtype), f"{dn} B={b} N={h * w} ({h}x{w}) Cq={cq} C={c}")
         for name, h, cin, c in BLOCK_SHAPES:
             label = f"{dn} {name} B=4 {h}x{h} {cin}->{c}"
             if name in AUTO_TAIL_LEVELS:
@@ -292,13 +348,28 @@ def main():
         before = launches()
         check_backward("pooled_attention", attn_ops.pooled_attention, attn_ops.pooled_attention_plain,
                        attn_inputs(8, 64, 256, dtype), (), f"{dn} B=8 N=64 C=256")
+        check_backward("pooled_attention", attn_ops.pooled_attention, attn_ops.pooled_attention_plain,
+                       grid_attn_inputs(2, 40, 40, 8, 64, dtype), (), f"{dn} B=2 N=1600 C=64 (two-pass)")
         check_backward("fused_mha", mha_ops.fused_mha, mha_ops.fused_mha_plain,
                        mha_inputs(4, TOKENS, EMBED, dtype, packed=True), (HEADS,), f"{dn} B=4 N={TOKENS} E={EMBED}")
         check_backward("fused_mha_sep", mha_ops.fused_mha_sep, mha_ops.fused_mha_sep_plain,
                        mha_inputs(4, TOKENS, EMBED, dtype, packed=False), (HEADS,), f"{dn} B=4 N={TOKENS} E={EMBED}")
         delta = {k: v - before[k] for k, v in launches().items() if v != before[k]}
-        if delta != {"pooled_attention": 1, "fused_mha": 1, "fused_mha_sep": 1}:
-            fail(f"the wrappers' forwards under autograd launched {delta}, expected one launch of each kernel")
+        if delta != {"pooled_attention": 2, "fused_mha": 1, "fused_mha_sep": 1}:
+            fail(f"the wrappers' forwards under autograd launched {delta}, expected one launch per forward")
+    # the matrix-unit probes, bf16 only: the probe's shape cut in B, an odd H != W with widths that no
+    # tile divides, and row counts that are not a multiple of the 128-row tile
+    bf = torch.bfloat16
+    for m, kk, n in ((4 * 56 * 56, 384, 256), (1000, 384, 256), (129, 8, 8)):
+        check("probe_matmul", probe_ops.probe_matmul, probe_ops.probe_matmul_plain,
+              (randn(m, kk, dtype=bf), randn(kk, n, dtype=bf)), f"bfloat16 [{m}x{kk}]@[{kk}x{n}]")
+    for b, h, w, cin, c in ((4, 56, 56, 128, 256), (3, 13, 17, 24, 40), (1, 5, 3, 8, 8)):
+        x, w4 = randn(b, h, w, cin, dtype=bf), randn(3, 3, cin, c, dtype=bf, scale=0.05)
+        label = f"bfloat16 B={b} {h}x{w} {cin}->{c}"
+        check("probe_conv_cat", probe_ops.probe_conv_cat, probe_ops.probe_conv_cat_plain,
+              (x, w4.reshape(3, 3 * cin, c)), label)
+        check("probe_conv_9dot", probe_ops.probe_conv_9dot, probe_ops.probe_conv_9dot_plain,
+              (x, w4.reshape(9, cin, c)), label)
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
 
@@ -443,7 +514,6 @@ def main():
 
     import torch.nn.functional as F
 
-    bf = torch.bfloat16
     rows = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0}
             for k in max_err}
 
@@ -456,7 +526,7 @@ def main():
         r["ops"] += ops
         bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bf16"]) * 1e3
         r["bound_ms"] += bound  # each launch has its own bound: a kernel's is their sum
-        print(f"    {name:16s} {level:10s} kernel {ms:8.3f} ms  plain {plain_ms:8.3f} ms  "
+        print(f"    {name:16s} {level:18s} kernel {ms:8.3f} ms  plain {plain_ms:8.3f} ms  "
               f"library {lib_ms:8.3f} ms  bound {bound:7.3f} ms", flush=True)
 
     with torch.inference_mode():
@@ -539,6 +609,40 @@ def main():
                 2 * npix * c * 9 * cin)
             del x, w, b, kc
 
+        # the full-resolution model's nine launches at 64x64 (N = H*H tokens; the six with N > 128 run the
+        # two-pass kernel).  The plain version holds chunk*N*N f32 energies, so it runs the batch in chunks.
+        flagship_attn = dict(rows["pooled_attention"])
+        for name, h, c in FULLRES_SHAPES:
+            n = h * h
+            q, k, v = grid_attn_inputs(BATCH, h, h, c // 8, c, bf)
+            qs, ks, vs = (t.reshape(BATCH, 1, n, -1) for t in (q, k, v))
+            chunk = max(1, min(BATCH, 2 ** 27 // (n * n)))
+
+            def plain_in_chunks():
+                for i in range(0, BATCH, chunk):
+                    attn_ops.pooled_attention_plain(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk])
+
+            add("pooled_attention", f"fullres-{name}",
+                timed(lambda: attn_ops.pooled_attention(q, k, v), 5),
+                timed(plain_in_chunks, 2),
+                timed(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0), 5),
+                2 * (2 * q.numel() + 2 * v.numel()),
+                2 * BATCH * n * n * (c // 8 + c))
+        print("    pooled_attention, sums: the flagship's 9 launches "
+              + ", ".join(f"{key} {flagship_attn[key]:.4f}" for key in ("ms", "bound_ms", "plain_ms", "library_ms"))
+              + "; the full-resolution model's 9 launches "
+              + ", ".join(f"{key} {rows['pooled_attention'][key] - flagship_attn[key]:.4f}"
+                          for key in ("ms", "bound_ms", "plain_ms", "library_ms")), flush=True)
+
+        # the matrix-unit probes at their own shape (scripts/bench_torch_mxu.py): cuBLAS and cuDNN beside them
+        mx = mxu.Probe(BATCH, gen)
+        need = mxu.bounds(BATCH)
+        for name, kind, lib in (("probe_matmul", "matmul", "torch.matmul"), ("probe_conv_cat", "conv", "F.conv2d"),
+                                ("probe_conv_9dot", "conv", "F.conv2d")):
+            _, fn, plain = mx.rows[name]
+            add(name, "down3", timed(fn, 10), timed(lambda: plain(BATCH), 2), timed(mx.rows[lib][1], 10), *need[kind])
+        del mx, fn, plain
+
         xs = torch.from_numpy(batch).to(dev)
         for kind, pred in (("module", pred_module), ("engine", pred_engine), *zoo_pred.items()):
             xn = normalize(xs, bf).permute(0, 3, 1, 2)
@@ -560,16 +664,18 @@ def main():
     items = list(samples(n=2 * max(TRAIN_BATCHES), size=IMG, seed=seed))
     tmp = tempfile.TemporaryDirectory()
 
-    def make_trainer(cfg, batch, n, bf16, device, tag, remat=False, weight_seed=seed):
-        """A Trainer of ``cfg`` with seeded weights over the first ``n`` synthetic samples."""
+    def make_trainer(cfg, batch, n, bf16, device, tag, remat=False, weight_seed=seed, data=None):
+        """A Trainer of ``cfg`` with seeded weights over the first ``n`` synthetic samples (of
+        ``data``, or of the 224x224 ``items``)."""
+        data = items if data is None else data
         dtype = torch.bfloat16 if bf16 else None
         log_dir = os.path.join(tmp.name, tag)
         config = {**cfg, "training": {**TRAINING, "batch_size": batch},
                   "logging": {"log_dir": log_dir, "images_dir": os.path.join(log_dir, "images")}}
         net = init_random_(create_model(config, dtype=dtype, device="cpu", remat=remat),
                            torch.Generator().manual_seed(weight_seed))
-        train = BatchLoader(ArrayDataset(items[:n]), batch, shuffle=True, num_workers=2, seed=seed)
-        val = BatchLoader(ArrayDataset(items[:min(n, 2 * batch)]), batch, shuffle=False, num_workers=2, seed=seed)
+        train = BatchLoader(ArrayDataset(data[:n]), batch, shuffle=True, num_workers=2, seed=seed)
+        val = BatchLoader(ArrayDataset(data[:min(n, 2 * batch)]), batch, shuffle=False, num_workers=2, seed=seed)
         trainer = Trainer(net, train, val, config, seed=seed, compute_dtype=dtype, device=device, progress=False)
         trainer.step_log = []  # each step's metrics and its time: train_step ends on a read of the loss
         step = trainer.train_step
@@ -739,13 +845,118 @@ def main():
           f"{fits / train_ms[False] * 1e3:.1f} img/s; with remat l12 {train_ms['l12']:.1f} ms/step = "
           f"{fits / train_ms['l12'] * 1e3:.1f} img/s ({card})", flush=True)
 
+    # ------------------------------------------------------------ phase 10
+    print(f"[10] the DFC zoo at full width, B={BATCH}, seed {seed} ({card})", flush=True)
+    reset_launches()  # the DFC zoo's serving path starts here
+    batches = {IMG: batch, 64: rng.integers(0, 256, (BATCH, 64, 64, 3), dtype=np.uint8)}
+    for name, (size, per_fwd) in DFC_ZOO.items():
+        cfg, images = model_config(name), batches[size]
+        net = init_random_(create_model(cfg, device="cpu"), torch.Generator().manual_seed(seed))
+        net = net.to(dev, memory_format=torch.channels_last)
+        calib = normalize(torch.from_numpy(images[:16]).to(dev), torch.float32).permute(0, 3, 1, 2)
+        zoo_weights = calibrate_batch_stats_(net, calib).state_dict()
+        del net, calib
+        zoo_probs, speed = {}, ""
+        for dtype, n_img in ((torch.bfloat16, BATCH), (torch.float32, DFC_ZOO_F32_BATCH)):
+            dn = str(dtype).split(".")[-1]
+            fwd = create_model(cfg, dtype=None if dtype == torch.float32 else dtype, device=dev)
+            fwd.load_state_dict(zoo_weights, strict=True)
+            pred = Predictor(fwd, compute_dtype=dtype, device=dev)
+            before = launches()
+            with torch.inference_mode():
+                zoo_probs[dn] = pred.predict_probs(images[:n_img])
+            delta = {k: v - before[k] for k, v in launches().items()}
+            if delta != {**none, "pooled_attention": per_fwd}:
+                fail(f"{name} {dn} forward launched {delta}, expected {per_fwd} of pooled_attention alone")
+            if zoo_probs[dn].shape != (n_img, size, size) or not np.isfinite(zoo_probs[dn]).all():
+                fail(f"{name} {dn} probabilities: shape {zoo_probs[dn].shape} or non-finite values")
+            if dtype == torch.bfloat16:
+                with torch.inference_mode():
+                    xn = normalize(torch.from_numpy(images).to(dev), dtype).permute(0, 3, 1, 2)
+                    fwd_ms = timed(lambda: pred.model(xn), 3)
+                    t0 = time.perf_counter()
+                    for _ in range(3):
+                        pred.predict_probs(images)
+                    serve_s = (time.perf_counter() - t0) / 3
+                speed = (f"bf16 B={BATCH} {size}x{size}: forward {fwd_ms:.2f} ms = {BATCH / fwd_ms * 1e3:.1f} img/s on "
+                         f"device; predict_probs {BATCH / serve_s:.1f} img/s; {per_fwd} attention launches a forward")
+                del xn
+            del fwd, pred
+        cpu_fwd = create_model(cfg, device="cpu")
+        cpu_fwd.load_state_dict(zoo_weights, strict=True)
+        with torch.inference_mode():
+            cpu_probs = Predictor(cpu_fwd, device="cpu").predict_probs(images[:DFC_ZOO_CPU_IMAGES])
+        del cpu_fwd, zoo_weights
+        zl = {k: logit_of(v) for k, v in zoo_probs.items()}
+        zstd = float(zl["float32"].std())
+        d_cpu = float(np.abs(zl["float32"][:DFC_ZOO_CPU_IMAGES] - logit_of(cpu_probs)).max()) / zstd
+        d_bf16 = np.abs(zl["bfloat16"][:DFC_ZOO_F32_BATCH] - zl["float32"]) / zstd
+        print(f"    {name} {speed}\n        logit std {zstd:.3e}; f32 card vs CPU on {DFC_ZOO_CPU_IMAGES} images max "
+              f"|dlogit| / std {d_cpu:.3e} (tol {DLOGIT_TOL_CPU}); bf16 vs f32 on {DFC_ZOO_F32_BATCH} images: max "
+              f"{d_bf16.max():.3e} (tol {DLOGIT_TOL_BF16_DFC_ZOO['max']}), mean {d_bf16.mean():.3e} "
+              f"(tol {DLOGIT_TOL_BF16_DFC_ZOO['mean']})", flush=True)
+        if zstd < MIN_LOGIT_STD:
+            fail(f"{name} logit std {zstd:.3e} < {MIN_LOGIT_STD}: the output hardly depends on the input")
+        if not d_cpu <= DLOGIT_TOL_CPU:
+            fail(f"{name}: f32 on the card and on the CPU disagree")
+        if not (d_bf16.max() <= DLOGIT_TOL_BF16_DFC_ZOO["max"] and d_bf16.mean() <= DLOGIT_TOL_BF16_DFC_ZOO["mean"]):
+            fail(f"{name}: bf16 and f32 disagree on the card")
+    dfc_zoo_launches = launches()  # the DFC zoo's serving path ends here
+    print(f"    DFC zoo serving launches: {dfc_zoo_launches}", flush=True)
+    if dfc_zoo_launches["pooled_attention"] < 1:
+        fail(f"the attention kernel never launched while the DFC zoo was served: {dfc_zoo_launches}")
+    main_launches = {k: main_launches[k] + dfc_zoo_launches[k] for k in main_launches}
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ phase 11
+    print(f"[11] training the DFC zoo through the Trainer, bf16, seed {seed} ({card})", flush=True)
+    reset_launches()  # the DFC zoo's training path starts here
+    tmp = tempfile.TemporaryDirectory()
+    for name, size, b in DFC_ZOO_TRAINING:
+        per_step = DFC_ZOO[name][1]
+        data = items if size == IMG else list(samples(n=3 * b, size=size, seed=seed))
+        torch.cuda.reset_peak_memory_stats()
+        tz = make_trainer(model_config(name), b, 3 * b, True, dev, name, data=data)
+        run_epochs(tz, [0], "pooled_attention" if per_step else None, per_step, name)
+        losses = [m["loss"] for m in tz.step_log]
+        print(f"    {name} bf16 B={b} {size}x{size}: {len(losses)} steps, losses {[round(v, 4) for v in losses]}; "
+              f"train_step {tz.step_log[-1]['ms']:.1f} ms (the last step) = {b / tz.step_log[-1]['ms'] * 1e3:.1f} img/s; "
+              f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {per_step} attention launches "
+              f"a step ({card})", flush=True)
+        del tz, data
+        torch.cuda.empty_cache()
+    dfc_train_launches = launches()  # the DFC zoo's training path ends here
+    print(f"    DFC zoo training launches: {dfc_train_launches}", flush=True)
+    if dfc_train_launches["pooled_attention"] < 1:
+        fail(f"the attention kernel never launched while the DFC zoo trained: {dfc_train_launches}")
+    main_launches = {k: main_launches[k] + dfc_train_launches[k] for k in main_launches}
+    tmp.cleanup()
+
+    # ------------------------------------------------------------ phase 12
+    print(f"[12] matrix-unit probes, bf16, B={BATCH} {mxu.H}x{mxu.W} {mxu.CIN}->{mxu.COUT} ({card})", flush=True)
+    reset_launches()  # the probes' path starts here
+    with torch.inference_mode():
+        mx = mxu.Probe(BATCH, gen)
+        errs = mx.check()  # one launch of each kernel, held against its plain version
+        mxu_launches = launches()  # the probes' path ends here: the timed rows below are not counted
+        if {k: v for k, v in mxu_launches.items() if v} != {name: 1 for name in probe_ops.LAUNCHES}:
+            fail(f"the matrix-unit probes launched {mxu_launches}, expected one launch of each of the three kernels")
+        for name, (err, _) in errs.items():
+            max_err[name] = max(max_err[name], err)
+        mx.time(10, errs, card)
+        del mx
+    main_launches = {k: main_launches[k] + mxu_launches[k] for k in main_launches}
+
     sources = {"pooled_attention": ("dfc_sa_unet_torch/csrc/pooled_attention.cu",
                                     "dfc_sa_unet_tpu/ops/pallas_attention.py:74"),
                "dfc_tail": ("dfc_sa_unet_torch/csrc/dfc_tail.cu", "dfc_sa_unet_tpu/ops/pallas_conv.py:198"),
                "conv3x3_bn_relu": ("dfc_sa_unet_torch/csrc/dfc_tail.cu", "dfc_sa_unet_tpu/ops/pallas_conv.py:121"),
                "fused_mha": ("dfc_sa_unet_torch/csrc/mha.cu", "dfc_sa_unet_tpu/ops/pallas_attention.py:214"),
                "fused_mha_sep": ("dfc_sa_unet_torch/csrc/mha.cu", "dfc_sa_unet_tpu/ops/pallas_attention.py:276"),
-               "conv3x3_bias_stats": ("dfc_sa_unet_torch/csrc/conv_bn_stats.cu", "scripts/bench_bn_stats.py:80")}
+               "conv3x3_bias_stats": ("dfc_sa_unet_torch/csrc/conv_bn_stats.cu", "scripts/bench_bn_stats.py:80"),
+               "probe_matmul": ("dfc_sa_unet_torch/csrc/mxu_probes.cu", "scripts/bench_mxu.py:58"),
+               "probe_conv_cat": ("dfc_sa_unet_torch/csrc/mxu_probes.cu", "scripts/bench_mxu.py:129"),
+               "probe_conv_9dot": ("dfc_sa_unet_torch/csrc/mxu_probes.cu", "scripts/bench_mxu.py:134")}
     kernels = []
     for name, r in rows.items():
         by_bytes = r["bytes"] / HBM_BYTES_PER_S >= r["ops"] / PEAK_OPS["bf16"]

@@ -18,12 +18,30 @@
 // (16 query rows x N keys in f32, 64 KB at N = 1024), so device memory sees
 // q, k, v once per block and out once.
 //
-// Design: a block owns (batch element, 16 query rows, 128 channels of v).
-// It computes its 16 x N energy rows from K staged through shared memory in
-// 32-key steps, takes the softmax with one warp per row, then streams V in
-// 32-key steps for the AV product.  The cheap q k^T (depth Cq <= 256) is
-// recomputed by each channel tile.  SIMT f32 arithmetic throughout: simple
-// and exact first; the tensor-core (wgmma) version is later work.
+// Which kernel runs is the wrapper's choice (ops/pooled_attention.py picks by
+// N); the first takes N <= 1024, the second any N.
+//
+// Design, small N (pooled_attention_kernel): a block owns (batch element,
+// 16 query rows, 128 channels of v).  It computes its 16 x N energy rows from
+// K staged through shared memory in 32-key steps, takes the softmax with one
+// warp per row, then streams V in 32-key steps for the AV product.  The cheap
+// q k^T (depth Cq <= 256) is recomputed by each channel tile.
+//
+// Design, larger N up to 4096 (pooled_attention_long_kernel), the
+// full-resolution attention of a 64x64 image: 16 rows of N f32 energies no
+// longer fit an SM's shared memory, and the shapes that get here are narrow
+// (Cq = 8, C = 64 at the model's first level), so the energies are nearly
+// free to compute twice.  A block owns (batch element, 64 query rows, 64
+// channels of v) and goes over the keys twice in chunks of 64, K and V
+// streamed through shared memory: pass one keeps each row's running max and
+// the sum of exp(e - max) in registers; pass two recomputes the chunk's
+// energies, normalises with the final max and sum, rounds the probabilities
+// to v's dtype (the same values the short kernel rounds) and accumulates
+// P V in f32 registers.  The operations bound it there (N = 4096, C = 64:
+// 2*N*(Cq + C) operations per output row against 2*(2*Cq + 2*C) bytes).
+//
+// SIMT f32 arithmetic throughout: simple and exact first; the tensor-core
+// (wgmma) version is later work.
 
 #include <math.h>
 
@@ -148,7 +166,176 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------------ long N
+constexpr int kLRows = 64;  // query rows per block
+constexpr int kLKeys = 64;  // keys per chunk
+constexpr int kLCols = 64;  // v channels per block
+constexpr int kLdp = kLKeys + 1;
+
+// Thread (ty, tx) of the 16 x 16 layout owns query rows ty*4 + i; in the
+// energy tile keys tx + 16*jj, in the output tile channels tx*4 + jj.  The 16
+// threads of a row group are half a warp, so row reductions are shuffles.
+__device__ __forceinline__ void chunk_energies(float (&e)[4][4], const float* s_q, const float* s_k,
+                                               int cq, int cqp, int ty, int tx, int keys) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) e[i][jj] = 0.f;
+  const float* qr = s_q + ty * 4 * cqp;
+  const float* kr = s_k + tx * cqp;
+  for (int ch = 0; ch < cq; ++ch) {
+    float qv[4], kv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qv[i] = qr[i * cqp + ch];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) kv[jj] = kr[16 * jj * cqp + ch];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) e[i][jj] = fmaf(qv[i], kv[jj], e[i][jj]);
+  }
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+    if (tx + 16 * jj >= keys) {  // past the last key: no weight in the softmax
+#pragma unroll
+      for (int i = 0; i < 4; ++i) e[i][jj] = -INFINITY;
+    }
+}
+
+template <typename T>
+__device__ __forceinline__ void stage_keys(float* s_k, const T* __restrict__ kb, int j0, int keys,
+                                           int cq, int cqp) {
+  for (int i = threadIdx.x; i < kLKeys * cq; i += kThreads) {
+    const int j = i / cq, ch = i - j * cq;
+    s_k[j * cqp + ch] = j < keys ? dfc::to_f(kb[(size_t)(j0 + j) * cq + ch]) : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+pooled_attention_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, T* __restrict__ out, int n, int cq, int c) {
+  extern __shared__ __align__(16) float smem_long[];
+  const int cqp = cq + 1;  // padded row stride: no bank conflicts in q.k
+  float* s_v = smem_long;                      // [kLKeys][kLCols]
+  float* s_p = s_v + kLKeys * kLCols;     // [kLRows][kLdp] rounded probabilities of a chunk
+  float* s_q = s_p + kLRows * kLdp;       // [kLRows][cqp]
+  float* s_k = s_q + kLRows * cqp;        // [kLKeys][cqp]
+
+  const int b = blockIdx.z;
+  const int row0 = blockIdx.x * kLRows;
+  const int col0 = blockIdx.y * kLCols;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const T* qb = q + (size_t)b * n * cq;
+  const T* kb = k + (size_t)b * n * cq;
+  const T* vb = v + (size_t)b * n * c;
+
+  for (int i = tid; i < kLRows * cq; i += kThreads) {
+    const int r = i / cq, ch = i - r * cq;
+    s_q[r * cqp + ch] = row0 + r < n ? dfc::to_f(qb[(size_t)(row0 + r) * cq + ch]) : 0.f;
+  }
+
+  // pass one: per row the running max m and l = sum exp(e - m)
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  float e[4][4];
+  for (int j0 = 0; j0 < n; j0 += kLKeys) {
+    const int keys = min(kLKeys, n - j0);
+    __syncthreads();
+    stage_keys(s_k, kb, j0, keys, cq, cqp);
+    __syncthreads();
+    chunk_energies(e, s_q, s_k, cq, cqp, ty, tx, keys);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float cm = fmaxf(fmaxf(e[i][0], e[i][1]), fmaxf(e[i][2], e[i][3]));
+      for (int o = 8; o > 0; o >>= 1) cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, o));
+      const float mn = fmaxf(m[i], cm);  // finite: key j0 is always a real key
+      float s = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) s += expf(e[i][jj] - mn);
+      for (int o = 8; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      l[i] = l[i] * expf(m[i] - mn) + s;
+      m[i] = mn;
+    }
+  }
+
+  // pass two: P = exp(e - m) / l rounded to T, out += P V
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
+  for (int j0 = 0; j0 < n; j0 += kLKeys) {
+    const int keys = min(kLKeys, n - j0);
+    __syncthreads();
+    stage_keys(s_k, kb, j0, keys, cq, cqp);
+    for (int i = tid; i < kLKeys * kLCols; i += kThreads) {
+      const int j = i / kLCols, ch = col0 + i - j * kLCols;
+      s_v[i] = (j < keys && ch < c) ? dfc::to_f(vb[(size_t)(j0 + j) * c + ch]) : 0.f;
+    }
+    __syncthreads();
+    chunk_energies(e, s_q, s_k, cq, cqp, ty, tx, keys);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        s_p[(ty * 4 + i) * kLdp + tx + 16 * jj] =
+            dfc::to_f(dfc::from_f<T>(expf(e[i][jj] - m[i]) / l[i]));  // exp(-inf) = 0 past the end
+    __syncthreads();
+    const float* pr = s_p + ty * 4 * kLdp;
+    for (int j = 0; j < kLKeys; ++j) {
+      const float4 vv = *reinterpret_cast<const float4*>(s_v + j * kLCols + tx * 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = pr[i * kLdp + j];
+        acc[i][0] = fmaf(a, vv.x, acc[i][0]);
+        acc[i][1] = fmaf(a, vv.y, acc[i][1]);
+        acc[i][2] = fmaf(a, vv.z, acc[i][2]);
+        acc[i][3] = fmaf(a, vv.w, acc[i][3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty * 4 + i;
+    if (r >= n) continue;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int ch = col0 + tx * 4 + jj;
+      if (ch < c) out[((size_t)b * n + r) * c + ch] = dfc::from_f<T>(acc[i][jj]);
+    }
+  }
+}
+
+template <typename T>
+int launch_long(const void* q, const void* k, const void* v, void* out, int b, int n, int cq, int c,
+                void* stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)kLKeys * kLCols + kLRows * kLdp + (size_t)(kLRows + kLKeys) * (cq + 1));
+  cudaFuncSetAttribute(pooled_attention_long_kernel<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const dim3 grid(dfc::ceil_div(n, kLRows), dfc::ceil_div(c, kLCols), b);
+  pooled_attention_long_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), n, cq, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int pooled_attention_long_f32(const void* q, const void* k, const void* v, void* out,
+                                         int b, int n, int cq, int c, void* stream) {
+  return launch_long<float>(q, k, v, out, b, n, cq, c, stream);
+}
+
+extern "C" int pooled_attention_long_bf16(const void* q, const void* k, const void* v, void* out,
+                                          int b, int n, int cq, int c, void* stream) {
+  return launch_long<__nv_bfloat16>(q, k, v, out, b, n, cq, c, stream);
+}
 
 extern "C" int pooled_attention_f32(const void* q, const void* k, const void* v, void* out, int b,
                                     int n, int cq, int c, void* stream) {

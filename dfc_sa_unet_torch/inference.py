@@ -10,11 +10,14 @@ WEIGHTS is a reference-layout PyTorch ``.pth`` (raw state dict or trainer
 checkpoint), or the ``best_model`` or a checkpoint that
 ``python -m dfc_sa_unet_torch.train`` wrote; ``model.pretrained_path`` in the
 config is the fallback.  The
-config names ``DFC-SA-Res-Block``, ``VisionTransformerSegmentation`` or
-``TransformerUNet``; the transformer families take tiles of their own input
-size only (``--tile_size 224`` for the shipped configs), and ``--engine``
-is the DFC model's.  There is no ``--no_pallas``: on the card every
-attention core runs its hand-written kernel.  If
+config names any of the factory's twelve models: ``DFC-SA-Res-Block``,
+``UNet``, the eight ``UNet_*`` ablations, ``VisionTransformerSegmentation``
+or ``TransformerUNet``.  The transformer families take tiles of their own
+input size only (``--tile_size 224`` for the shipped configs);
+``UNet_FullResAttention`` attends over every pixel of a tile, so it takes
+tiles up to 64x64 (``--tile_size 64``) and the attention wrapper raises for
+a larger one; ``--engine`` is the flagship's.  There is no ``--no_pallas``:
+on the card every attention core runs its hand-written kernel.  If
 DIR holds ``original/`` and ``mask/``, per-image and micro-averaged global
 metrics are printed and written to CSV.  Runs on the card; ``--device cpu``
 runs the plain PyTorch path on the CPU.

@@ -1,9 +1,13 @@
 """create_model (counterpart of dfc_sa_unet_tpu/models/factory.py:24).
 
-Ported so far: the flagship ``DFC-SA-Res-Block`` and the transformer zoo,
-``VisionTransformerSegmentation`` and ``TransformerUNet`` / ``TransUNet``,
-with the JAX factory's config keys and defaults.  The other nine names of
-the JAX factory raise NotImplementedError (see ROADMAP.md Queue A).
+All twelve names of the JAX factory, with its config keys and defaults:
+the flagship ``DFC-SA-Res-Block``, the vanilla ``UNet``, the eight
+ablations (``UNet_Baseline``, ``UNet_AttentionOnly``,
+``UNet_AdditionFusion``, ``UNet_ConcatFusion``, ``UNet_FullResAttention``,
+``UNet_EncoderOnlyDFC``, ``UNet_DecoderOnlyDFC``,
+``UNet_BothStandardConv``) and the transformer zoo,
+``VisionTransformerSegmentation`` and ``TransformerUNet`` / ``TransUNet``.
+Any other name raises ValueError.
 """
 
 import math
@@ -13,6 +17,7 @@ import torch
 from torch import nn
 
 from dfc_sa_unet_torch.utils.device import resolve_device
+
 
 def _model_cfg(config: Mapping[str, Any]) -> Mapping[str, Any]:
     return config.get("model", config)
@@ -31,7 +36,15 @@ def create_model(config: Mapping[str, Any], dtype=None, use_pallas: bool = False
     ``remat`` (or ``model.remat`` in the config) recomputes activations in
     the backward pass: False, 'all', 'l12' or 'deep' for the flagship (the
     block sets of ``models.blocks.REMAT_BLOCKS``); the transformers take
-    any of them as "every encoder layer, ResNet unit and decoder block"."""
+    any of them as "every encoder layer, ResNet unit and decoder block".
+    As in the JAX factory (factory.py:37-45,113-121) it does not reach
+    ``UNet`` or the ablations: they keep every activation whatever it says.
+    The ablations also ignore ``ablation_on_qk_channels``: their attention
+    reduces Q and K to C//8.
+
+    ``UNet_FullResAttention`` attends over all H*W pixels of its input, so
+    it takes images up to 64x64 (N = 4096) on the card; at a larger size
+    the attention wrapper raises with the N it was given."""
     dev = resolve_device(device)
     m = _model_cfg(config)
     name = m["name"]
@@ -41,14 +54,26 @@ def create_model(config: Mapping[str, Any], dtype=None, use_pallas: bool = False
     remat = remat or m.get("remat", False)
     in_channels = m.get("in_channels", 3)
     out_channels = m.get("out_channels", 1)
-    if name == "DFC-SA-Res-Block":
+    features = tuple(m.get("features", [64, 128, 256, 512]))
+    pool_size = m.get("pool_size", 8)
+    from dfc_sa_unet_torch.models.ablations import ABLATIONS
+
+    if name == "UNet":
+        from dfc_sa_unet_torch.models.unet import UNet
+
+        model = UNet(in_channels=in_channels, out_channels=out_channels, bilinear=m.get("bilinear", False),
+                     compute_dtype=dtype)
+    elif name in ABLATIONS:
+        model = ABLATIONS[name](in_channels=in_channels, out_channels=out_channels, features=features,
+                                pool_size=pool_size, compute_dtype=dtype)
+    elif name == "DFC-SA-Res-Block":
         from dfc_sa_unet_torch.models.dfc_sa import UNetDFCSARes
 
         model = UNetDFCSARes(
             in_channels=in_channels,
             out_channels=out_channels,
-            features=tuple(m.get("features", [64, 128, 256, 512])),
-            pool_size=m.get("pool_size", 8),
+            features=features,
+            pool_size=pool_size,
             qk_div=m.get("ablation_on_qk_channels", 8),
             compute_dtype=dtype,
             remat=remat,
@@ -83,6 +108,5 @@ def create_model(config: Mapping[str, Any], dtype=None, use_pallas: bool = False
             remat=bool(remat),
         )
     else:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to dfc_sa_unet_torch yet (see ROADMAP.md, Queue A)")
+        raise ValueError(f"unsupported model name: {name!r}")
     return model.to(dev, memory_format=torch.channels_last)

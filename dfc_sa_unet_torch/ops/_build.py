@@ -30,6 +30,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "pooled_attention_f32": ("pooled_attention", [_P] * 4 + [_I] * 4 + [_P]),
     "pooled_attention_bf16": ("pooled_attention", [_P] * 4 + [_I] * 4 + [_P]),
+    "pooled_attention_long_f32": ("pooled_attention", [_P] * 4 + [_I] * 4 + [_P]),
+    "pooled_attention_long_bf16": ("pooled_attention", [_P] * 4 + [_I] * 4 + [_P]),
     "conv3x3_bn_relu_f32": ("dfc_tail", [_P] * 4 + [_I] * 5 + [_P]),
     "conv3x3_bn_relu_bf16": ("dfc_tail", [_P] * 4 + [_I] * 5 + [_P]),
     "dfc_tail_f32": ("dfc_tail", [_P] * 10 + [_I] * 5 + [_P]),
@@ -38,6 +40,9 @@ SIGNATURES = {
     "mha_bf16": ("mha", [_P] * 4 + [_I] * 5 + [_P]),
     "conv3x3_bias_stats_f32": ("conv_bn_stats", [_P] * 6 + [_I] * 5 + [_P]),
     "conv3x3_bias_stats_bf16": ("conv_bn_stats", [_P] * 6 + [_I] * 5 + [_P]),
+    "probe_matmul_bf16": ("mxu_probes", [_P] * 3 + [_I] * 3 + [_P]),
+    "probe_conv_cat_bf16": ("mxu_probes", [_P] * 3 + [_I] * 5 + [_P]),
+    "probe_conv_9dot_bf16": ("mxu_probes", [_P] * 3 + [_I] * 5 + [_P]),
 }
 
 _functions = None

@@ -1,9 +1,21 @@
 """Pooled self-attention through the hand-written CUDA kernel.
 
 Counterpart of dfc_sa_unet_tpu/ops/pallas_attention.py::fused_pooled_attention;
-the kernel is csrc/pooled_attention.cu.  On a CPU tensor the wrapper runs
-the plain version (ops/attention.py::pooled_self_attention); on a CUDA
-tensor it launches the kernel or raises.  Layout NHWC, as in JAX.
+the kernels are in csrc/pooled_attention.cu.  On a CPU tensor the wrapper
+runs the plain version (ops/attention.py::pooled_self_attention); on a CUDA
+tensor it launches a kernel or raises.  Layout NHWC, as in JAX.
+
+Two kernels compute the one function, picked by N = p*p: up to
+``SHORT_TOKENS`` (the flagship's pool sizes 4 and 8) the energies of 16
+query rows stay in shared memory; from there to ``MAX_TOKENS`` (the
+full-resolution attention of a 64x64 image, the TPU kernel's own limit,
+blocks.py:58) a two-pass kernel streams the keys twice and keeps nothing
+of the N x N energies.  The 16-row kernel runs up to N = 1024, but on an
+H100 the two-pass kernel is as fast at N = 64, 1.2x faster at N = 256 and
+2.5x at N = 1024 (scripts/bench_torch_pooled_attention.py), hence the
+threshold.  Both count under ``LAUNCHES["pooled_attention"]``.  Above
+``MAX_TOKENS`` the wrapper raises: the plain version would hold B*N*N f32
+energies in device memory.
 
 Under autograd the forward still launches the kernel; the backward
 recomputes through the plain version and returns its gradients, which is
@@ -16,9 +28,10 @@ import torch
 from dfc_sa_unet_torch.ops import _build
 from dfc_sa_unet_torch.ops.attention import pooled_self_attention
 
-MAX_TOKENS = 1024  # N = p*p; the energies of 16 query rows stay in shared memory
+SHORT_TOKENS = 128  # N = p*p up to which the 16-row kernel is launched (it takes N <= 1024)
+MAX_TOKENS = 4096
 MAX_QK_CHANNELS = 256
-_KERNELS = {torch.float32: "pooled_attention_f32", torch.bfloat16: "pooled_attention_bf16"}
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 LAUNCHES = {"pooled_attention": 0}
 
@@ -35,7 +48,7 @@ def pooled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"pooled_attention: {name} is on {t.device}, q on {q.device}")
-        if t.dtype not in _KERNELS or t.dtype != v.dtype:
+        if t.dtype not in _DTYPES or t.dtype != v.dtype:
             raise TypeError(f"pooled_attention: {name} is {t.dtype}; takes q, k, v all f32 or all bf16")
         if not t.is_contiguous():
             raise ValueError(f"pooled_attention: {name} must be a contiguous NHWC tensor")
@@ -55,7 +68,7 @@ def _launch(q, k, v):
     c, n = v.shape[-1], ph * pw
     out = torch.empty_like(v)
     if out.numel():
-        name = _KERNELS[v.dtype]
+        name = f"pooled_attention_{'long_' if n > SHORT_TOKENS else ''}{_DTYPES[v.dtype]}"
         err = _build.kernel(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                   b, n, cq, c, _build.stream_handle(q.device))
         _build.check(err, name)

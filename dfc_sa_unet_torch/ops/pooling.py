@@ -3,9 +3,10 @@
 ``adaptive_avg_pool`` is torch's own adaptive average pool: its windows
 [floor(i*H/p), ceil((i+1)*H/p)) are the ones the JAX package rebuilds as a
 matrix, including p > H (overlapping one-pixel windows).  It accumulates
-in f32 for bf16 input and rounds once.  ``max_pool`` is MaxPool2d in
-floor mode with -inf padding: window 2 between the DFC U-Net's encoder
-levels, window 3 / stride 2 / padding 1 after the TransUNet backbone's root.
+in f32 for bf16 input and rounds once.  ``max_pool`` is MaxPool2d with
+-inf padding: window 2 in floor mode between the DFC U-Net's encoder
+levels, window 2 in ceil mode in the vanilla U-Net's ``Down``, window 3 /
+stride 2 / padding 1 after the TransUNet backbone's root.
 """
 
 import torch
@@ -20,7 +21,10 @@ def adaptive_avg_pool(x: torch.Tensor, output_size) -> torch.Tensor:
     return F.adaptive_avg_pool2d(x, (p_h, p_w))
 
 
-def max_pool(x: torch.Tensor, window: int = 2, stride: int | None = None, padding: int = 0) -> torch.Tensor:
-    """Max pool in floor mode (partial windows at the edge are dropped);
-    ``padding`` pads every side with -inf, as torch.nn.MaxPool2d."""
-    return F.max_pool2d(x, window, stride if stride is not None else window, padding)
+def max_pool(x: torch.Tensor, window: int = 2, stride: int | None = None, padding: int = 0,
+             ceil_mode: bool = False) -> torch.Tensor:
+    """Max pool as torch.nn.MaxPool2d: ``padding`` pads every side with -inf.
+    In floor mode partial windows at the edge are dropped; with ``ceil_mode``
+    a partial window that starts inside the input is kept (the right and
+    bottom edges read as -inf)."""
+    return F.max_pool2d(x, window, stride if stride is not None else window, padding, ceil_mode=ceil_mode)

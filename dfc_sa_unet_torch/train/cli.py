@@ -8,6 +8,9 @@ the JAX package's train.py, with its flags).
         [--bf16 | --no_bf16] [--remat [all|l12|deep]] [--seed N]
         [--grad_accum N] [--device cuda|cpu]
 
+Trains any of the factory's twelve models (``--remat`` reaches the flagship
+and the transformers only, as in the JAX package; ``UNet_FullResAttention``
+needs a dataset ``img_size`` of at most 64x64).
 Runs on the card; without CUDA it raises unless ``--device cpu`` is given.
 ``--bf16`` computes in bfloat16 with f32 parameters and an f32 loss.  The
 JAX CLI's parallel, multi-host, ``--exe_cache`` and ``--grad_accum_exact``

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Where the time of one bf16 serving forward goes, for the PyTorch port on one GPU.
 
-    python3 scripts/profile_torch_serving.py [--model NAME] [--batch 128] [--seed 0] [--top 25]
-                                             [--report FILE]
+    python3 scripts/profile_torch_serving.py [--model NAME] [--batch 128] [--size 224] [--seed 0]
+                                             [--top 25] [--report FILE]
 
 Builds one served model at full width with seeded weights: the flagship
 ``DFC-SA-Res-Block`` (224x224, features 64/128/256/512, pool 8; the
-default), ``VisionTransformerSegmentation`` (ViT-B/16 at 224x224) or
+default), the vanilla ``UNet`` (64..1024), one of the eight ``UNet_*``
+ablations (the flagship's widths and pool size; give
+``UNet_FullResAttention`` ``--size 64``, the largest image its attention
+takes), ``VisionTransformerSegmentation`` (ViT-B/16 at 224x224) or
 ``TransformerUNet`` (R50-ViT-B/16).  For each of its serving paths (the
 flagship's module path with the attention kernel and its folded engine
 path with the tail, conv3x3 and attention kernels; the one module path of
-a transformer, with the multi-head-attention kernel) it times one B-image
+any other model) it times one B-image
 bf16 forward with CUDA events and traces two forwards with torch.profiler:
 device time by kernel, and the device's busy share of the traced wall
 time.  Prints a summary; ``--report`` also writes the profiler's full
@@ -42,7 +45,12 @@ CONFIGS = {
                                                 "num_heads": 12, "mlp_dim": 3072, "dropout": 0.1}},
     "TransformerUNet": {"model": {"name": "TransformerUNet", "in_channels": 3, "out_channels": 1},
                         "dataset": {"img_size": [224, 224]}},
+    "UNet": {"model": {"name": "UNet", "bilinear": False}},
 }
+# configs/config_ablation*.yaml: the flagship's widths and pool size under each ablation's name
+for _name in ("UNet_Baseline", "UNet_AttentionOnly", "UNet_AdditionFusion", "UNet_ConcatFusion",
+              "UNet_FullResAttention", "UNet_EncoderOnlyDFC", "UNet_DecoderOnlyDFC", "UNet_BothStandardConv"):
+    CONFIGS[_name] = {"model": {"name": _name, "features": [64, 128, 256, 512], "pool_size": 8, "use_pallas": True}}
 
 
 def _device_us(evt):
@@ -58,6 +66,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=sorted(CONFIGS), default="DFC-SA-Res-Block")
     ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--size", type=int, default=224, help="image height and width")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--report", type=str, default=None, help="file for the full profiler tables")
@@ -75,11 +84,11 @@ def main():
     if args.model == "DFC-SA-Res-Block":
         paths.append(("engine", DFCEngine(config, weights, dtype=torch.bfloat16, device=dev,
                                           tail_kernel_levels="auto", conv_kernel_levels="auto")))
-    x = torch.randn(args.batch, 3, 224, 224, generator=torch.Generator().manual_seed(args.seed))
+    x = torch.randn(args.batch, 3, args.size, args.size, generator=torch.Generator().manual_seed(args.seed))
     x = x.to(dev, torch.bfloat16, memory_format=torch.channels_last)
 
     tables = []
-    print(f"card: {card}; torch {torch.__version__}; {args.model}, B={args.batch} bf16 224x224")
+    print(f"card: {card}; torch {torch.__version__}; {args.model}, B={args.batch} bf16 {args.size}x{args.size}")
     with torch.inference_mode():
         for name, fwd in paths:
             fwd(x)

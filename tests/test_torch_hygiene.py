@@ -37,13 +37,13 @@ def _imported_roots(path):
 
 
 def test_no_jax_imports_in_source():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "bench_torch_bn_stats.py",
-                                         ROOT / "scripts" / "profile_torch_serving.py",
-                                         ROOT / "scripts" / "profile_torch_training.py"]
-    assert len(files) > 35
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", *sorted((ROOT / "scripts").glob("*torch*.py"))]
+    assert len(files) > 40
     names = {f.name for f in files}
     assert {"mha.py", "vit_seg.py", "transunet.py", "layers.py", "chip_smoke.py", "trainer.py", "losses.py",
-            "loader.py", "conv_bn_stats.py", "cli.py"} <= names
+            "loader.py", "conv_bn_stats.py", "cli.py", "unet.py", "ablations.py", "mxu_probes.py",
+            "bench_torch_mxu.py", "bench_torch_bn_stats.py", "profile_torch_serving.py",
+            "profile_torch_training.py"} <= names
     bad = [(str(f.relative_to(ROOT)), r) for f in files for r in _imported_roots(f) if r in FORBIDDEN]
     assert not bad, bad
 
@@ -63,7 +63,7 @@ def test_package_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 38  # the training slice's modules among them
+    assert int(out.stdout.split()[-1]) >= 41  # the DFC zoo's models and the probes' wrapper among them
 
 
 @pytest.fixture
@@ -129,11 +129,46 @@ def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
     assert cli.parse_args(["--config", "c.yaml", "--no_bf16"]).bf16 is False
 
 
-def test_other_models_raise_not_implemented():
-    from dfc_sa_unet_torch.models.factory import create_model
+ZOO_NAMES = ["UNet", "UNet_Baseline", "UNet_AttentionOnly", "UNet_AdditionFusion", "UNet_ConcatFusion",
+             "UNet_FullResAttention", "UNet_EncoderOnlyDFC", "UNet_DecoderOnlyDFC", "UNet_BothStandardConv"]
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_model({"model": {"name": "UNet"}}, device="cpu")
+
+@pytest.mark.parametrize("name", ZOO_NAMES)
+def test_zoo_entry_points_raise_without_cuda(no_cuda, tmp_path, name):
+    """The vanilla UNet and the ablations: factory, predictor, inference and training entry
+    points raise without a card unless given the CPU; ``--engine`` folds the flagship only."""
+    from dfc_sa_unet_torch.infer.predictor import Predictor
+    from dfc_sa_unet_torch.inference import build_predictor
+    from dfc_sa_unet_torch.models.factory import create_model
+    from dfc_sa_unet_torch.train import cli
+
+    cfg = {"model": {"name": name, "features": [8, 16, 24, 32], "pool_size": 4}}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_model(cfg)
+    with torch.device("meta"):  # the UNet's widths are fixed: no storage where only construction matters
+        model = create_model(cfg, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_predictor(cfg, {}, device="cuda")
+    with pytest.raises(ValueError, match="--engine folds the DFC-SA-Res-Block only"):
+        build_predictor(cfg, {}, engine=True, device="cpu")
+    log = str(tmp_path / "logs")
+    config = {**cfg, "training": {"num_epochs": 1, "batch_size": 2},
+              "dataset": {"train_dir": str(tmp_path), "val_dir": str(tmp_path)},
+              "logging": {"log_dir": log, "images_dir": log + "/images"}}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.build_trainer(config, cli.parse_args(["--config", "c.yaml"]))
+
+
+def test_probe_scripts_raise_without_cuda():
+    """The probe and profile scripts measure on the card only."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": str(ROOT)}
+    for script in ("bench_torch_mxu.py", "bench_torch_bn_stats.py", "bench_torch_pooled_attention.py"):
+        out = subprocess.run([sys.executable, str(ROOT / "scripts" / script)], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0, script
+        assert "CUDA" in out.stderr and "ms" not in out.stdout, (script, out.stderr[-500:])
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

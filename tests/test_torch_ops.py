@@ -55,6 +55,29 @@ def test_max_pool(shape):
     np.testing.assert_allclose(_port(max_pool, x, 2, 2), want, atol=ATOL)
 
 
+@pytest.mark.parametrize("shape", [(2, 8, 8, 3), (1, 9, 7, 2), (1, 13, 11, 4), (2, 5, 3, 2), (1, 1, 1, 3)])
+def test_max_pool_ceil_mode(shape):
+    """MaxPool2d(2, ceil_mode=True), the vanilla UNet's Down: an odd size keeps its last row and column."""
+    x = _nhwc(np.random.default_rng(6), shape) - 3.0  # all negative in places: the -inf edge must not win
+    want = np.asarray(jpool.max_pool(jnp.asarray(x), 2, 2, ceil_mode=True))
+    got = _port(lambda t: max_pool(t, 2, 2, ceil_mode=True), x)
+    assert got.shape == (shape[0], -(-shape[1] // 2), -(-shape[2] // 2), shape[3])
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape,size", [
+    ((1, 4, 4, 3), (8, 8)),      # the UNet's bilinear Up: twice the size
+    ((2, 5, 3, 2), (10, 6)),
+    ((1, 7, 5, 3), (13, 11)),
+    ((1, 1, 3, 2), (2, 6)),      # one row: every output row is that row
+])
+def test_resize_bilinear_align_corners(shape, size):
+    x = _nhwc(np.random.default_rng(7), shape)
+    want = np.asarray(jresize.resize_bilinear(jnp.asarray(x), size, align_corners=True))
+    got = _port(lambda t: resize_bilinear(t, size, align_corners=True), x)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
 @pytest.mark.parametrize("shape,size", [
     ((1, 8, 8, 3), (28, 28)),    # the attention upsample
     ((1, 7, 5, 3), (13, 11)),    # odd up

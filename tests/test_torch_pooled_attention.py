@@ -5,8 +5,10 @@ here (it picks that itself off the TPU).  f32: atol 1e-5, the same sums
 in another order.  bf16: inputs rounded to bf16 on both sides, then
 atol 2e-2 (about two bf16 ulps at |out| ~ 2): P and the output are each
 rounded once to bf16 and a one-ulp flip of P moves the output by ~1e-2.
-The CUDA kernel itself is checked against this oracle on the card by
-chip_smoke.py.
+Long token counts (the full-resolution attention: 40x40 = 1600 tokens, a
+non-square 25x41 grid): atol 2e-5, rtol 1e-4, as tests/test_pallas_attention.py:20
+holds the JAX kernel to its own oracle.  The CUDA kernels themselves are
+checked against this oracle on the card by chip_smoke.py.
 """
 
 import numpy as np
@@ -49,6 +51,38 @@ def test_plain_matches_jax_bf16(p):
     assert got.dtype == torch.bfloat16
     want = fused_pooled_attention(*(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)))
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=2e-2)
+
+
+def _qkv_grid(seed, b, h, w, cq, c):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, w, cq)).astype(np.float32), rng.standard_normal((b, h, w, cq)).astype(np.float32),
+            rng.standard_normal((b, h, w, c)).astype(np.float32))
+
+
+@pytest.mark.parametrize("grid", [(40, 40, 2, 16), (25, 41, 2, 16), (33, 32, 1, 8)],
+                         ids=["40x40_N1600", "25x41_N1025", "33x32_N1056"])
+def test_plain_matches_jax_kernel_at_long_n(grid):
+    """Past the short kernel's 1024 tokens, where the JAX kernel still runs (N <= 4096)."""
+    h, w, cq, c = grid
+    q, k, v = _qkv_grid(h * w, 2, h, w, cq, c)
+    got = pooled_attention(*(torch.from_numpy(t) for t in (q, k, v))).numpy()
+    want = np.asarray(fused_pooled_attention(*(jnp.asarray(t) for t in (q, k, v))))
+    assert got.shape == (2, h, w, c)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+
+
+def test_cpu_wrapper_takes_the_largest_n():
+    """N = 4096, the full-resolution model's first level at 64x64, at a tiny C; the limit
+    itself is the TPU kernel's (dfc_sa_unet_tpu/models/blocks.py:58)."""
+    from dfc_sa_unet_torch.ops import pooled_attention as ops
+
+    assert ops.MAX_TOKENS == 4096 and ops.SHORT_TOKENS < ops.MAX_TOKENS
+    q, k, v = (torch.from_numpy(t) for t in _qkv_grid(1, 1, 64, 64, 1, 8))
+    reset_launches()
+    got = pooled_attention(q, k, v)
+    assert got.shape == (1, 64, 64, 8) and torch.isfinite(got).all() and launches()["pooled_attention"] == 0
+    want = torch.softmax(q.reshape(4096, 1) @ k.reshape(4096, 1).T, dim=-1) @ v.reshape(4096, 8)
+    np.testing.assert_allclose(got.reshape(4096, 8).numpy(), want.numpy(), atol=2e-5, rtol=1e-4)
 
 
 def test_cpu_wrapper_launches_nothing():
