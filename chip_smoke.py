@@ -6,15 +6,16 @@
 Run from the root of the repository.  Phases, each printing its lines;
 any failure exits non-zero:
 
-1. require CUDA; print the card's name and power limit; turn TF32 off
-   for the f32 checks;
+1. require CUDA; print the card's name, power limit and maximum SM clock;
+   turn TF32 off for the f32 checks;
 2. build the CUDA kernels from dfc_sa_unet_torch/csrc;
 3. hold every kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and at awkward ones, in f32 and bf16
-   (both attention kernels, the two-pass one from N = 129 to 4096; the
-   three matrix-unit probes in bf16, their only type), and the backward of
-   the three attention wrappers against autograd through their plain
-   versions;
+   (pooled attention: in bf16 the tensor-core kernel at every N from 1 to
+   4096, in f32 the 16-row and the two-pass SIMT kernels; the three
+   matrix-unit probes in bf16, their only type, the two conv probes on the
+   wgmma mainloop), and the backward of the three attention wrappers
+   against autograd through their plain versions;
 4. serve the flagship DFC-SA-Res-Block at full width (224x224, features
    64/128/256/512, pool 8, seeded weights, BatchNorm statistics fitted to
    a slice of the batch so that the logits spread O(1)):
@@ -32,7 +33,10 @@ any failure exits non-zero:
    and TransUNet the fused_mha_sep kernel 12 times; f32 on the card must
    agree with the same weights on the CPU, and bf16 with f32;
 7. time each kernel, its plain version, a library yardstick and every
-   serving path in bf16 at B=128;
+   serving path in bf16 at B=128; a kernel's bound is the largest of its
+   bytes over the memory rate, its operations over the tensor-core peak
+   and, for the attention kernels, its exponentials over the rate of the
+   special-function units (132 SMs x 16 a clock x the maximum SM clock);
 8. train at full width through the port's Trainer (train_epoch and
    validate_epoch) on synthetic ellipses made in memory, bce_dice 0.5/0.5
    and SGD as configs/config_dfc-sa-res-block.yaml: the flagship for 16
@@ -55,9 +59,10 @@ any failure exits non-zero:
    seeded weights with fitted BatchNorm statistics: one B=128 uint8 batch
    through the Predictor in bf16, and 8 images in f32 against the same
    weights on the CPU.  Pooled-attention launches per forward: 9 for the
-   attention-only, addition, concat and full-resolution models (six of the
-   last one's on the two-pass kernel), 5 for encoder-only, 4 for decoder-only,
-   none for UNet, baseline and both-standard;
+   attention-only, addition, concat and full-resolution models, 5 for
+   encoder-only, 4 for decoder-only, none for UNet, baseline and
+   both-standard (in bf16 all on the tensor-core attention kernel; in f32
+   six of the full-resolution model's on the two-pass SIMT kernel);
 11. train three bf16 steps each of UNet_AttentionOnly (9 launches a step),
    UNet_FullResAttention at 64x64 (9 a step; the backward goes through the
    plain version, which holds B*N*N f32 energies, hence B=8) and UNet
@@ -107,6 +112,7 @@ BLOCK_SHAPES = [("down1", 224, 3, 64), ("down2", 112, 64, 128), ("down3", 56, 12
                 ("up_conv2", 112, 256, 128), ("up_conv1", 224, 128, 64)]
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 without tensor cores
+SMS, EXP_PER_CLOCK = 132, 16   # H100 SXM: SMs, and exponentials an SM's special-function units give a clock
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # max |kernel - plain| <= TOL * max(1, max|plain|)
 # module path vs engine path in f32: |dprob| <= 1e-3 and |dlogit| <= 1e-2 * std(logit); the
 # engine folds BatchNorm into the weights, which reorders the f32 sums of every conv
@@ -207,7 +213,12 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     card = smi[0].strip() if smi else "nvidia-smi gave nothing"
-    print(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60).stdout.split()
+    sm_mhz = float(clock[0]) if clock else 1980.0  # the H100 SXM's maximum, where nvidia-smi gives nothing
+    exps_per_s = SMS * EXP_PER_CLOCK * sm_mhz * 1e6
+    print(f"[1] card: {card}; maximum SM clock {sm_mhz:.0f} MHz; torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -318,11 +329,11 @@ def main():
         for n in (16, 256, 1024):
             check("pooled_attention", attn_ops.pooled_attention, attn_ops.pooled_attention_plain,
                   attn_inputs(16, n, 256, dtype), f"{dn} B=16 N={n} C=256")
-        # the two-pass kernel: the full-resolution model's first level (64x64, Cq=8, C=64), N=1600, the
-        # first N past the 16-row kernel's own limit (1025, a non-square grid), a C that no channel tile
-        # divides, and either side of the wrapper's threshold (N=128: the 16-row kernel; N=144)
+        # the full-resolution model's first level (64x64, Cq=8, C=64), N=1600, N=1025 (a non-square grid, one
+        # key in the last chunk), a Cq and a C that no tile divides (Cq 4 and 25, C 100 and 200; rows that are
+        # not 16-byte aligned), either side of the f32 threshold (N=128: the 16-row kernel; N=144), one token
         for b, h, w, cq, c in ((8, 64, 64, 8, 64), (4, 40, 40, 8, 64), (4, 25, 41, 8, 64), (2, 40, 40, 4, 100),
-                               (4, 8, 16, 8, 64), (4, 12, 12, 8, 64)):
+                               (4, 8, 16, 8, 64), (4, 12, 12, 8, 64), (4, 1, 1, 8, 64), (4, 8, 8, 25, 200)):
             check("pooled_attention", attn_ops.pooled_attention, attn_ops.pooled_attention_plain,
                   grid_attn_inputs(b, h, w, cq, c, dtype), f"{dn} B={b} N={h * w} ({h}x{w}) Cq={cq} C={c}")
         for name, h, cin, c in BLOCK_SHAPES:
@@ -349,7 +360,7 @@ def main():
         check_backward("pooled_attention", attn_ops.pooled_attention, attn_ops.pooled_attention_plain,
                        attn_inputs(8, 64, 256, dtype), (), f"{dn} B=8 N=64 C=256")
         check_backward("pooled_attention", attn_ops.pooled_attention, attn_ops.pooled_attention_plain,
-                       grid_attn_inputs(2, 40, 40, 8, 64, dtype), (), f"{dn} B=2 N=1600 C=64 (two-pass)")
+                       grid_attn_inputs(2, 40, 40, 8, 64, dtype), (), f"{dn} B=2 N=1600 C=64")
         check_backward("fused_mha", mha_ops.fused_mha, mha_ops.fused_mha_plain,
                        mha_inputs(4, TOKENS, EMBED, dtype, packed=True), (HEADS,), f"{dn} B=4 N={TOKENS} E={EMBED}")
         check_backward("fused_mha_sep", mha_ops.fused_mha_sep, mha_ops.fused_mha_sep_plain,
@@ -514,17 +525,18 @@ def main():
 
     import torch.nn.functional as F
 
-    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0}
-            for k in max_err}
+    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0,
+                "exps": 0.0} for k in max_err}
 
-    def add(name, level, ms, plain_ms, lib_ms, nbytes, ops):
+    def add(name, level, ms, plain_ms, lib_ms, nbytes, ops, exps=0):
         r = rows[name]
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["library_ms"] += lib_ms
         r["bytes"] += nbytes
         r["ops"] += ops
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bf16"]) * 1e3
+        r["exps"] += exps
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["bf16"], exps / exps_per_s) * 1e3
         r["bound_ms"] += bound  # each launch has its own bound: a kernel's is their sum
         print(f"    {name:16s} {level:18s} kernel {ms:8.3f} ms  plain {plain_ms:8.3f} ms  "
               f"library {lib_ms:8.3f} ms  bound {bound:7.3f} ms", flush=True)
@@ -538,7 +550,7 @@ def main():
                 timed(lambda: attn_ops.pooled_attention_plain(q, k, v), 20),
                 timed(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0), 20),
                 2 * (2 * q.numel() + 2 * v.numel()),
-                2 * BATCH * 64 * 64 * (c // 8 + c))
+                2 * BATCH * 64 * 64 * (c // 8 + c), BATCH * 64 * 64)
         for name, h, cin, c in BLOCK_SHAPES:
             npix = BATCH * h * h
             if name in AUTO_TAIL_LEVELS:
@@ -594,7 +606,7 @@ def main():
                 timed(lambda: layers_of(lambda: kernel(*args, HEADS)), 5),
                 timed(lambda: layers_of(lambda: plain(*args, HEADS)), 3),
                 timed(lambda: layers_of(lambda: F.scaled_dot_product_attention(q4, k4, v4)), 5),
-                mha_bytes, mha_ops_count)
+                mha_bytes, mha_ops_count, LAYERS * BATCH * HEADS * TOKENS * TOKENS)
 
         # the probe's own shapes: B=128 at the four encoder levels (scripts/bench_torch_bn_stats.py)
         for name, h, cin, c in probe.LEVELS:
@@ -609,8 +621,8 @@ def main():
                 2 * npix * c * 9 * cin)
             del x, w, b, kc
 
-        # the full-resolution model's nine launches at 64x64 (N = H*H tokens; the six with N > 128 run the
-        # two-pass kernel).  The plain version holds chunk*N*N f32 energies, so it runs the batch in chunks.
+        # the full-resolution model's nine launches at 64x64 (N = H*H tokens).  The plain version holds
+        # chunk*N*N f32 energies, so it runs the batch in chunks.
         flagship_attn = dict(rows["pooled_attention"])
         for name, h, c in FULLRES_SHAPES:
             n = h * h
@@ -627,7 +639,7 @@ def main():
                 timed(plain_in_chunks, 2),
                 timed(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0), 5),
                 2 * (2 * q.numel() + 2 * v.numel()),
-                2 * BATCH * n * n * (c // 8 + c))
+                2 * BATCH * n * n * (c // 8 + c), BATCH * n * n)
         print("    pooled_attention, sums: the flagship's 9 launches "
               + ", ".join(f"{key} {flagship_attn[key]:.4f}" for key in ("ms", "bound_ms", "plain_ms", "library_ms"))
               + "; the full-resolution model's 9 launches "
@@ -959,13 +971,14 @@ def main():
                "probe_conv_9dot": ("dfc_sa_unet_torch/csrc/mxu_probes.cu", "scripts/bench_mxu.py:134")}
     kernels = []
     for name, r in rows.items():
-        by_bytes = r["bytes"] / HBM_BYTES_PER_S >= r["ops"] / PEAK_OPS["bf16"]
+        terms = {"bytes": r["bytes"] / HBM_BYTES_PER_S, "operations": r["ops"] / PEAK_OPS["bf16"],
+                 "exponentials": r["exps"] / exps_per_s}
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
             "launches": main_launches[name], "max_abs_err": max_err[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
-            "bound_by": "bytes" if by_bytes else "operations", "library_ms": r["library_ms"],
+            "bound_by": max(terms, key=terms.get), "library_ms": r["library_ms"],
         })
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -193,23 +193,11 @@ __device__ __forceinline__ uint32_t ld2(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// two floats rounded to bf16 (nearest even); lo in the low half, as the mma fragments want
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&pair);
-}
-
-// c += a b for one m16n8k16 tile (PTX ISA fragment layouts; g = lane / 4, t = lane % 4:
-// a0..a3 = A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]; b0, b1 = B[2t..][g],
-// B[2t+8..][g]; c0..c3 = C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1])
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using dfc::exp2_scaled;
+using dfc::mma16816;
+using dfc::pack2;
+using dfc::quad_max;
+using dfc::quad_sum;
 
 // s[r][0..HDP) <- g[row0 + r][0..hd) for r < rows, zero beyond row n and column hd.
 // Rows are 16-byte aligned: hd, ld and the head offset are multiples of 8.
@@ -275,25 +263,6 @@ __device__ __forceinline__ void chunk_scores(float (&s)[kChunk / 8][4], const ui
       if (key + 1 >= n) s[nt][1] = s[nt][3] = -INFINITY;
     }
   }
-}
-
-// exp((x - m) * scale) as 2^(x * c - mc) with c = scale * log2(e) and mc = m * c: one
-// multiply-add and the hardware's exp2 (relative error 2^-22, far inside the 2^-9 of the
-// rounding to bf16 that follows); 0 for x = -inf
-__device__ __forceinline__ float exp2_scaled(float x, float c, float mc) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(fmaf(x, c, -mc)));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // KS = k-steps of 16 over the head dimension, which is zero-padded to HDP = 16 KS.

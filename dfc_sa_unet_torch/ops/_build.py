@@ -29,9 +29,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # cudaGetLastError() as an int
 SIGNATURES = {
     "pooled_attention_f32": ("pooled_attention", [_P] * 4 + [_I] * 4 + [_P]),
-    "pooled_attention_bf16": ("pooled_attention", [_P] * 4 + [_I] * 4 + [_P]),
     "pooled_attention_long_f32": ("pooled_attention", [_P] * 4 + [_I] * 4 + [_P]),
-    "pooled_attention_long_bf16": ("pooled_attention", [_P] * 4 + [_I] * 4 + [_P]),
+    "pooled_attention_mma_bf16": ("pooled_attention", [_P] * 4 + [_I] * 4 + [_P]),
     "conv3x3_bn_relu_f32": ("dfc_tail", [_P] * 4 + [_I] * 5 + [_P]),
     "conv3x3_bn_relu_bf16": ("dfc_tail", [_P] * 4 + [_I] * 5 + [_P]),
     "dfc_tail_f32": ("dfc_tail", [_P] * 10 + [_I] * 5 + [_P]),

@@ -18,9 +18,12 @@ shallow ones.
 All accumulate in f32 and round once to x's dtype.  The two conv layouts
 hold the same weights: ``w3 = w.reshape(3, 3*Cin, Cout)`` and
 ``w9 = w.reshape(9, Cin, Cout)`` of one HWIO ``w [3,3,Cin,Cout]``.  The
-kernels take bf16 (the probe's type); the plain versions any float type.
-On CPU tensors a wrapper runs its plain version; on CUDA tensors it
-launches its kernel or raises.
+conv kernels run on the pipelined wgmma mainloop of csrc/conv3x3_wgmma.cuh
+(the same shared memory a block whatever Cin), the matmul on the mma.sync
+mainloop of csrc/conv3x3_mainloop.cuh.  The kernels
+take bf16 (the probe's type); the plain versions any float type.  On CPU
+tensors a wrapper runs its plain version; on CUDA tensors it launches its
+kernel or raises.
 """
 
 import torch
@@ -28,9 +31,7 @@ import torch.nn.functional as F
 
 from dfc_sa_unet_torch.ops import _build
 
-BLOCK_ROWS = 128          # kM of csrc/mxu_probes.cu
-_CHUNK, _PAD = 32, 8      # Tile::BK and kPad there
-_MAX_SMEM = 232448        # what a block may use on an H100
+BLOCK_ROWS = 128          # pixels or rows a block: kM of csrc/mxu_probes.cu, wgconv::kBM of conv3x3_wgmma.cuh
 _MAX_GRID_Y = 65535
 
 LAUNCHES = {"probe_matmul": 0, "probe_conv_cat": 0, "probe_conv_9dot": 0}
@@ -118,11 +119,8 @@ def _probe_conv(name, taps_per_pass, x, w):
         raise ValueError(f"{name}: w has shape {tuple(w.shape)}; x {tuple(x.shape)} needs "
                          f"{(9 // taps_per_pass, taps_per_pass * cin, cout)}")
     npix = bsz * h * width
-    depth = -(-taps_per_pass * cin // _CHUNK) * _CHUNK
-    smem = 2 * (BLOCK_ROWS * (depth + _PAD) + BLOCK_ROWS * (_CHUNK + _PAD))
-    if cin % 8 or cout % 8 or cin == 0 or smem > _MAX_SMEM or not 0 < npix <= _MAX_GRID_Y * BLOCK_ROWS:
-        raise ValueError(f"{name}: Cin={cin} and Cout={cout} (multiples of 8; a pass of depth {depth} needs {smem} "
-                         f"bytes of shared memory, at most {_MAX_SMEM}) or {npix} pixels "
+    if cin % 8 or cout % 8 or cin == 0 or not 0 < npix <= _MAX_GRID_Y * BLOCK_ROWS:
+        raise ValueError(f"{name}: Cin={cin} and Cout={cout} (multiples of 8) or {npix} pixels "
                          f"(1 .. {_MAX_GRID_Y * BLOCK_ROWS}) not supported by the kernel")
     out = torch.empty((bsz, h, width, cout), dtype=x.dtype, device=x.device)
     err = _build.kernel(f"{name}_bf16")(x.data_ptr(), w.data_ptr(), out.data_ptr(), npix, h, width, cin, cout,

@@ -1,20 +1,23 @@
-"""Pooled self-attention through the hand-written CUDA kernel.
+"""Pooled self-attention through the hand-written CUDA kernels.
 
 Counterpart of dfc_sa_unet_tpu/ops/pallas_attention.py::fused_pooled_attention;
 the kernels are in csrc/pooled_attention.cu.  On a CPU tensor the wrapper
 runs the plain version (ops/attention.py::pooled_self_attention); on a CUDA
 tensor it launches a kernel or raises.  Layout NHWC, as in JAX.
 
-Two kernels compute the one function, picked by N = p*p: up to
-``SHORT_TOKENS`` (the flagship's pool sizes 4 and 8) the energies of 16
-query rows stay in shared memory; from there to ``MAX_TOKENS`` (the
+``entry_point`` names the kernel of a call.  bf16, every N = p*p up to
+``MAX_TOKENS``: one tensor-core kernel (mma.sync, K and V streamed through a
+cp.async ring, two passes over the keys: the row maximum, then one
+exponential per energy).  It rounds the unnormalised probabilities to bf16
+and divides the f32 sum by the row sum once at the end, where the reference
+rounds the normalised ones: the two differ by bf16 roundings only.  At the
+full-resolution model's first level (N = 4096, Cq = 8) the exponentials bound
+it, at the flagship's N = 64 the bytes.  f32, the parity path: two SIMT
+kernels, the 16-row kernel that keeps its energies in shared memory up to
+``SHORT_TOKENS`` and the two-pass kernel above.  All count under
+``LAUNCHES["pooled_attention"]``, one per call.  Above ``MAX_TOKENS`` (the
 full-resolution attention of a 64x64 image, the TPU kernel's own limit,
-blocks.py:58) a two-pass kernel streams the keys twice and keeps nothing
-of the N x N energies.  The 16-row kernel runs up to N = 1024, but on an
-H100 the two-pass kernel is as fast at N = 64, 1.2x faster at N = 256 and
-2.5x at N = 1024 (scripts/bench_torch_pooled_attention.py), hence the
-threshold.  Both count under ``LAUNCHES["pooled_attention"]``.  Above
-``MAX_TOKENS`` the wrapper raises: the plain version would hold B*N*N f32
+blocks.py:58) the wrapper raises: the plain version would hold B*N*N f32
 energies in device memory.
 
 Under autograd the forward still launches the kernel; the backward
@@ -28,7 +31,7 @@ import torch
 from dfc_sa_unet_torch.ops import _build
 from dfc_sa_unet_torch.ops.attention import pooled_self_attention
 
-SHORT_TOKENS = 128  # N = p*p up to which the 16-row kernel is launched (it takes N <= 1024)
+SHORT_TOKENS = 128  # f32: N = p*p up to which the 16-row kernel is launched (it takes N <= 1024)
 MAX_TOKENS = 4096
 MAX_QK_CHANNELS = 256
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -62,13 +65,20 @@ def pooled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     return _launch(q, k, v)
 
 
+def entry_point(dtype: torch.dtype, n: int) -> str:
+    """The C function of csrc/pooled_attention.cu that computes a call of N tokens."""
+    if dtype == torch.bfloat16:
+        return "pooled_attention_mma_bf16"
+    return f"pooled_attention_{'long_' if n > SHORT_TOKENS else ''}{_DTYPES[dtype]}"
+
+
 def _launch(q, k, v):
     """One launch on checked, contiguous CUDA tensors."""
     b, ph, pw, cq = q.shape
     c, n = v.shape[-1], ph * pw
     out = torch.empty_like(v)
     if out.numel():
-        name = f"pooled_attention_{'long_' if n > SHORT_TOKENS else ''}{_DTYPES[v.dtype]}"
+        name = entry_point(v.dtype, n)
         err = _build.kernel(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                   b, n, cq, c, _build.stream_handle(q.device))
         _build.check(err, name)

@@ -9,10 +9,15 @@ down3 shape (B=128, 56x56, Cin=128, Cout=256), bf16, seeded inputs, it times
 
   torch.matmul     [M, 3*Cin] @ [3*Cin, Cout], M = B*56*56: cuBLAS, the clean
                    matrix-unit reference (the JAX script's xla_matmul)
-  probe_matmul     the same product through the hand-written kernel
+  probe_matmul     the same product through the hand-written kernel, on the
+                   mma.sync mainloop of csrc/conv3x3_mainloop.cuh (no overlap
+                   of loads and math; the port's other conv kernels run on it)
   F.conv2d         cuDNN's 3x3 conv (xla_conv)
-  probe_conv_cat   the hand-written conv, three passes of depth 3*Cin
-  probe_conv_9dot  the hand-written conv, nine passes of depth Cin
+  probe_conv_cat   the hand-written conv with the weight [3][3*Cin][Cout]
+  probe_conv_9dot  the same with the weight [9][Cin][Cout]; both conv probes
+                   run on the pipelined wgmma mainloop of
+                   csrc/conv3x3_wgmma.cuh, one stream of (tap, 64-channel)
+                   steps whose copies overlap the products
 
 with CUDA events after a warm-up, prints ms and TF/s for each, each kernel's
 largest absolute error against its plain version (at most 2e-2 of the largest

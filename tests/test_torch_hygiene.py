@@ -4,16 +4,22 @@
   dfc_sa_unet_tpu - checked on the source, and by importing every module
   in a process where ``import jax`` fails.
 * Without CUDA every entry point raises unless it is given device="cpu".
+* Every C function that ops/_build.py binds is defined in its source with
+  the argument count its ctypes signature gives, and no source exports a
+  function that is not bound: a stale export shows here, not on the card.
 """
 
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
 import pytest
 import torch
+
+from dfc_sa_unet_torch.ops._build import SIGNATURES
 
 torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -182,3 +188,23 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                              text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def _c_exports(stem):
+    """{name: argument count} of the ``extern "C" int`` functions defined in csrc/<stem>.cu."""
+    src = (PKG / "csrc" / f"{stem}.cu").read_text(encoding="utf-8")
+    return {m.group(1): len([a for a in m.group(2).split(",") if a.strip()])
+            for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src)}
+
+
+@pytest.mark.parametrize("name", sorted(SIGNATURES))
+def test_every_bound_function_is_defined_with_its_argument_count(name):
+    stem, argtypes = SIGNATURES[name]
+    assert _c_exports(stem).get(name) == len(argtypes), (name, stem, _c_exports(stem))
+
+
+def test_every_exported_function_is_bound():
+    sources = sorted((PKG / "csrc").glob("*.cu"))
+    assert {f.stem for f in sources} == {stem for stem, _ in SIGNATURES.values()}
+    exported = {name for f in sources for name in _c_exports(f.stem)}
+    assert exported == set(SIGNATURES)

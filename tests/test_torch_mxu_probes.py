@@ -151,3 +151,17 @@ def test_probe_script_bounds_and_operands():
     x2, w2, x, w4 = script.inputs(1, torch.Generator().manual_seed(0), h=4, w=4, cin=8, cout=8)
     assert x2.shape == (16, 24) and w2.shape == (24, 8) and x.shape == (1, 4, 4, 8) and w4.shape == (3, 3, 8, 8)
     assert x.dtype == torch.bfloat16
+
+
+def test_conv_wrapper_rows_and_shared_memory_match_the_wgmma_mainloop():
+    """The wrapper's BLOCK_ROWS is the pixel tile of csrc/conv3x3_wgmma.cuh, whose ring (kStages
+    buffers of a tap tile and a weight tile in bf16, plus 1 KB of alignment slack) fits in the
+    232448 bytes an H100 block may use, whatever Cin: the wrapper checks no shared-memory limit."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(ops.__file__).resolve().parent.parent / "csrc" / "conv3x3_wgmma.cuh").read_text()
+    const = {name: int(val) for name, val in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    bm = 64 * const["kWarpgroups"]
+    assert bm == ops.BLOCK_ROWS
+    assert const["kStages"] * 2 * (bm * const["kBK"] + const["kBK"] * const["kBN"]) + 1024 <= 232448

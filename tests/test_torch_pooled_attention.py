@@ -96,3 +96,18 @@ def test_non_cpu_tensor_never_falls_back():
     q, k, v = (torch.from_numpy(t) for t in _qkv(0, 1, 4, 64))
     with pytest.raises(ValueError, match="pooled_attention"):
         pooled_attention(q, k.to("meta"), v)
+
+
+def test_entry_point_per_dtype_and_token_count():
+    """bf16: the tensor-core kernel for every N the wrapper takes; f32: the 16-row SIMT kernel
+    up to SHORT_TOKENS and the two-pass one above.  Every export of the source is reached."""
+    from dfc_sa_unet_torch.ops import _build
+    from dfc_sa_unet_torch.ops import pooled_attention as ops
+
+    bf16 = {ops.entry_point(torch.bfloat16, n) for n in range(1, ops.MAX_TOKENS + 1)}
+    assert bf16 == {"pooled_attention_mma_bf16"}
+    f32 = [ops.entry_point(torch.float32, n) for n in range(1, ops.MAX_TOKENS + 1)]
+    assert set(f32[:ops.SHORT_TOKENS]) == {"pooled_attention_f32"}
+    assert set(f32[ops.SHORT_TOKENS:]) == {"pooled_attention_long_f32"}
+    exports = {name for name, (stem, _) in _build.SIGNATURES.items() if stem == "pooled_attention"}
+    assert exports == bf16 | set(f32)
