@@ -36,7 +36,10 @@ any failure exits non-zero:
    serving path in bf16 at B=128; a kernel's bound is the largest of its
    bytes over the memory rate, its operations over the tensor-core peak
    and, for the attention kernels, its exponentials over the rate of the
-   special-function units (132 SMs x 16 a clock x the maximum SM clock);
+   special-function units (132 SMs x 16 a clock x the maximum SM clock;
+   ``bound_by`` says "bytes" or "operations", ``bound_term`` which of the
+   three); the tail is held to its plain version at each level's B=128
+   inputs (after a launch on NaN inputs) before they are timed;
 8. train at full width through the port's Trainer (train_epoch and
    validate_epoch) on synthetic ellipses made in memory, bce_dice 0.5/0.5
    and SGD as configs/config_dfc-sa-res-block.yaml: the flagship for 16
@@ -106,6 +109,16 @@ ZOO = {
                    "dataset": {"img_size": [224, 224]}}, "fused_mha_sep"),
 }
 TOKENS, EMBED, HEADS, LAYERS = 196, 768, 12, 12  # ViT-B/16 at 224x224: what both models give the kernel
+# phase 3's MHA checks (B, N, E, heads): ViT-B, then N in {196, 197, 256, 257, 1024} (either side of
+# the one-pass kernel's 256) at head dimensions 32, 64 and 128, a tiny N, one token, a single image
+MHA_SHAPES = ([(BATCH, TOKENS, EMBED, HEADS)]
+              + [(2, n, 4 * hd, 4) for n in (196, 197, 256, 257, 1024) for hd in (32, 64, 128)]
+              + [(2, 16, 32, 2), (3, 1, EMBED, HEADS), (1, TOKENS, EMBED, HEADS)])
+# phase 3's extra tail checks (B, H, W, Cin, C): odd H and W and ragged pixel counts at C = 512 and
+# C <= 256, the channel counts below the flagship's (C = 32 is padded to 64 columns), and down1's
+# Cin = 3 (zero-padded to 8 by the wrapper)
+TAIL_ODD_SHAPES = [(3, 13, 17, 512, 512), (1, 9, 7, 1024, 512), (3, 13, 17, 128, 256), (2, 9, 7, 64, 128),
+                   (2, 15, 15, 128, 64), (2, 8, 8, 32, 32), (1, 7, 9, 64, 32), (2, 9, 7, 3, 64)]
 BLOCK_SHAPES = [("down1", 224, 3, 64), ("down2", 112, 64, 128), ("down3", 56, 128, 256),
                 ("down4", 28, 256, 512), ("bottleneck", 14, 512, 1024),
                 ("up_conv4", 28, 1024, 512), ("up_conv3", 56, 512, 256),
@@ -208,6 +221,7 @@ def main():
     from dfc_sa_unet_torch.train.trainer import Trainer
     from dfc_sa_unet_torch.utils.weights import calibrate_batch_stats_, init_random_, load_state_dict_file
     from scripts import bench_torch_bn_stats as probe
+    from scripts import bench_torch_dfc_tail as tail_bench
     from scripts import bench_torch_mxu as mxu
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -215,7 +229,9 @@ def main():
     card = smi[0].strip() if smi else "nvidia-smi gave nothing"
     clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                            capture_output=True, text=True, timeout=60).stdout.split()
-    sm_mhz = float(clock[0]) if clock else 1980.0  # the H100 SXM's maximum, where nvidia-smi gives nothing
+    if not clock:
+        fail("nvidia-smi gave no maximum SM clock: the exponential bound needs it")
+    sm_mhz = float(clock[0])
     exps_per_s = SMS * EXP_PER_CLOCK * sm_mhz * 1e6
     print(f"[1] card: {card}; maximum SM clock {sm_mhz:.0f} MHz; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
@@ -246,10 +262,12 @@ def main():
         return (randn(b, h, h, cin, dtype=dtype), randn(3, 3, cin, c, dtype=dtype, scale=(9 * cin) ** -0.5),
                 randn(c))
 
-    def tail_inputs(b, h, cin, c, dtype):
-        x, wc, bc = conv_inputs(b, h, cin, c, dtype)
-        return (x, randn(b, h, h, c, dtype=dtype), wc, bc, randn(2 * c, c, dtype=dtype, scale=(2 * c) ** -0.5),
-                randn(c), randn(3 * c, c, dtype=dtype, scale=(3 * c) ** -0.5), randn(c),
+    def tail_inputs(b, h, cin, c, dtype, w=None):
+        w = h if w is None else w
+        return (randn(b, h, w, cin, dtype=dtype), randn(b, h, w, c, dtype=dtype),
+                randn(3, 3, cin, c, dtype=dtype, scale=(9 * cin) ** -0.5), randn(c),
+                randn(2 * c, c, dtype=dtype, scale=(2 * c) ** -0.5), randn(c),
+                randn(3 * c, c, dtype=dtype, scale=(3 * c) ** -0.5), randn(c),
                 randn(cin, c, dtype=dtype, scale=0.1 * cin ** -0.5))
 
     def mha_inputs(b, n, e, dtype, packed):
@@ -264,7 +282,13 @@ def main():
                "probe_conv_9dot": 0.0}
     bad = []
 
-    def check(name, kernel, plain, args, label):
+    def check(name, kernel, plain, args, label, poison=()):
+        """kernel(*args) against plain(*args); first, where ``poison`` names arguments, one launch
+        with those filled with NaN, so that a kernel reading shared memory it did not write this
+        launch (padding, a stale buffer) fails the check instead of passing by luck."""
+        if poison:
+            kernel(*(torch.full_like(a, float("nan")) if i in poison else a for i, a in enumerate(args)))
+            torch.cuda.synchronize()
         got = kernel(*args)
         torch.cuda.synchronize()
         want = plain(*args)
@@ -340,18 +364,22 @@ def main():
             label = f"{dn} {name} B=4 {h}x{h} {cin}->{c}"
             if name in AUTO_TAIL_LEVELS:
                 check("dfc_tail", tail_ops.dfc_tail, tail_ops.dfc_tail_plain,
-                      tail_inputs(4, h, cin, c, dtype), label)
+                      tail_inputs(4, h, cin, c, dtype), label, poison=(0, 1))
             check("conv3x3_bn_relu", tail_ops.conv3x3_bn_relu, tail_ops.conv3x3_bn_relu_plain,
                   conv_inputs(4, h, cin, c, dtype), label)
-        # the ViT-B shape of both models, then awkward ones: a tiny N, N not a multiple of 8,
-        # the largest N, a single image
-        for b, n, e, nh in ((BATCH, TOKENS, EMBED, HEADS), (2, 16, 32, 2), (3, 197, EMBED, HEADS),
-                            (2, 1024, 128, 4), (1, TOKENS, EMBED, HEADS)):
-            label = f"{dn} B={b} N={n} E={e} heads={nh}"
+        # the tail at pixel counts that no block divides (odd H and W, a ragged last block),
+        # at C >= 256 (64-pixel blocks) and C <= 128 (128-pixel blocks), at C = 32 and 64, at Cin = 3
+        for b, h, w, cin, c in TAIL_ODD_SHAPES:
+            check("dfc_tail", tail_ops.dfc_tail, tail_ops.dfc_tail_plain, tail_inputs(b, h, cin, c, dtype, w),
+                  f"{dn} B={b} {h}x{w} {cin}->{c}", poison=(0, 1))
+        # the ViT-B shape of both models, then N either side of the one-pass kernel's limit and the
+        # largest N, at every head dimension the checks name, and awkward ones: a tiny N, one token
+        for b, n, e, nh in MHA_SHAPES:
+            label = f"{dn} B={b} N={n} E={e} heads={nh} ({mha_ops.entry_point(dtype, n)})"
             check("fused_mha", mha_ops.fused_mha, mha_ops.fused_mha_plain,
-                  (*mha_inputs(b, n, e, dtype, packed=True), nh), label)
+                  (*mha_inputs(b, n, e, dtype, packed=True), nh), label, poison=(0,))
             check("fused_mha_sep", mha_ops.fused_mha_sep, mha_ops.fused_mha_sep_plain,
-                  (*mha_inputs(b, n, e, dtype, packed=False), nh), label)
+                  (*mha_inputs(b, n, e, dtype, packed=False), nh), label, poison=(0, 1, 2))
         for name, h, cin, c in probe.LEVELS:
             check_stats(conv_inputs(4, h, cin, c, dtype), f"{dn} {name} B=4 {h}x{h} {cin}->{c}")
         check_stats((randn(3, 13, 17, 24, dtype=dtype), randn(3, 3, 24, 40, dtype=dtype, scale=216 ** -0.5), randn(40)),
@@ -541,6 +569,7 @@ def main():
         print(f"    {name:16s} {level:18s} kernel {ms:8.3f} ms  plain {plain_ms:8.3f} ms  "
               f"library {lib_ms:8.3f} ms  bound {bound:7.3f} ms", flush=True)
 
+    tail_levels = []  # the tail's seven launches, level by level, kept in the kernels line
     with torch.inference_mode():
         for name, h, cin, c in BLOCK_SHAPES:
             q, k, v = attn_inputs(BATCH, 64, c, bf)
@@ -555,27 +584,14 @@ def main():
             npix = BATCH * h * h
             if name in AUTO_TAIL_LEVELS:
                 args = tail_inputs(BATCH, h, cin, c, bf)
-                x, a = args[0], args[1]
-                xc, ac = x.permute(0, 3, 1, 2), a.permute(0, 3, 1, 2)  # channels_last NCHW views
-                kc = args[2].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-                kg = args[4].t().reshape(c, 2 * c, 1, 1).contiguous()
-                kf = args[6].t().reshape(c, 3 * c, 1, 1).contiguous()
-                kr = args[8].t().reshape(c, cin, 1, 1).contiguous()
-
-                def library_tail():
-                    local = F.relu(F.conv2d(xc, kc, args[3].to(bf), padding=1))
-                    g = torch.sigmoid(F.conv2d(torch.cat([local, ac], 1), kg, args[5].to(bf)))
-                    fused = g * local + (1 - g) * ac
-                    o = F.relu(F.conv2d(torch.cat([fused, local, ac], 1), kf, args[7].to(bf)))
-                    return o + F.conv2d(xc, kr)
-
-                wbytes = 2 * (9 * cin * c + 5 * c * c + cin * c) + 4 * 3 * c
-                add("dfc_tail", name,
-                    timed(lambda: tail_ops.dfc_tail(*args), 3),
-                    timed(lambda: tail_ops.dfc_tail_plain(*args), 3),
-                    timed(library_tail, 3),
-                    2 * npix * (cin + 2 * c) + wbytes,
-                    2 * npix * c * (9 * cin + 5 * c + cin))
+                # held to the plain version at the engine's own shapes before it is timed
+                check("dfc_tail", tail_ops.dfc_tail, tail_ops.dfc_tail_plain, args,
+                      f"bfloat16 {name} B={BATCH} {h}x{h} {cin}->{c}", poison=(0, 1))
+                ms = (timed(lambda: tail_ops.dfc_tail(*args), 3), timed(lambda: tail_ops.dfc_tail_plain(*args), 3),
+                      timed(tail_bench.library(args), 3))
+                add("dfc_tail", name, *ms, *tail_bench.work(BATCH, h, cin, c))
+                tail_levels.append({"level": name, "ms": ms[0], "plain_ms": ms[1], "library_ms": ms[2],
+                                    "bound_ms": tail_bench.bound_ms(BATCH, h, cin, c)[0]})
             else:
                 x, w, b = conv_inputs(BATCH, h, cin, c, bf)
                 xc = x.permute(0, 3, 1, 2)
@@ -667,9 +683,12 @@ def main():
                   f"predict_probs (uint8 in, probs out) {BATCH / serve_s:.1f} img/s ({card})", flush=True)
 
 
+    if bad:
+        fail(f"kernels disagree with their plain versions at B={BATCH}: {bad}")
+
     # ------------------------------------------------------------ phase 8
     del pred, pred_module, pred_engine, zoo_pred, xs, xn, model, weights, served, ref, probs, calib
-    del args, q, k, v, qs, ks, vs, q4, k4, v4, a, xc, ac, kg, kf, kr  # phase 7's last inputs
+    del args, q, k, v, qs, ks, vs, q4, k4, v4, xc  # phase 7's last inputs
     torch.cuda.empty_cache()
     print(f"    device memory still allocated before training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     print(f"[8] training at {IMG}x{IMG} through the Trainer, seed {seed} ({card})", flush=True)
@@ -978,7 +997,12 @@ def main():
             "launches": main_launches[name], "max_abs_err": max_err[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
-            "bound_by": max(terms, key=terms.get), "library_ms": r["library_ms"],
+            # exponentials are operations of the special-function units; bound_term names which
+            # of the three terms is the largest
+            "bound_by": "bytes" if max(terms, key=terms.get) == "bytes" else "operations",
+            "bound_term": max(terms, key=terms.get),
+            "library_ms": r["library_ms"],
+            **({"levels": tail_levels} if name == "dfc_tail" else {}),
         })
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

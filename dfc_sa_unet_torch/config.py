@@ -25,12 +25,13 @@ def load_config(path: str) -> Dict[str, Any]:
     return config
 
 
-def merge_bf16_flag(args, config: Dict[str, Any]):
-    """``args.bf16`` from the YAML's ``training.bf16`` where the flag was not
+def merge_bf16_flag(args, config: Dict[str, Any], section: str = "training"):
+    """``args.bf16`` from the YAML's ``<section>.bf16`` (``training`` for the
+    training CLI, ``inference`` for the inference CLI) where the flag was not
     given (None); ``--bf16`` / ``--no_bf16`` win both ways.  The part of the
     JAX package's ``merge_parallel_flags`` that a one-card run has."""
     if args.bf16 is None:
-        args.bf16 = bool((config.get("training") or {}).get("bf16", False))
+        args.bf16 = bool((config.get(section) or {}).get("bf16", False))
     return args
 
 

@@ -1,115 +1,231 @@
-// A 3x3 conv mainloop on Hopper's warpgroup MMA (wgmma), for sm_90a.
+// A pipelined mainloop on Hopper's warpgroup MMA (wgmma) for 3x3 convs and the
+// products around them, for sm_90a.
 //
 // An implicit GEMM, out[P, Cout] = taps(x)[P, 9*Cin] . w[9*Cin, Cout], with no
-// padded copy of x: a block owns kBM = 128 pixels (any H, W and batch, flat in
-// row-major (b, h, w) order, every image edge masked) x kBN = 256 output
-// channels.  Its two warpgroups each own 64 pixel rows and run
-// wgmma.mma_async.m64n256k16 with f32 accumulators in registers (128 a thread).
+// padded copy of x: a block owns BM pixels (any H, W and batch, flat in
+// row-major (b, h, w) order, every image edge masked) and its warpgroups own
+// 64-row x N-column tiles of the output, with f32 accumulators in registers.
 //
-// The K dimension is walked in steps of kBK = 64 channels (128 bytes of bf16),
-// each inside one tap and zero-padded past Cin: step (tap, c0) gathers the
-// tap's shifted pixels x[p + dy*W + dx][c0..c0+64) (the A tile, 128 x 64) and
-// the weight rows of that tap and those channels (the B tile, 64 x 256).
-// Both tiles are copied by 16-byte cp.async (zero-fill outside the image and
-// past Cin or Cout) into a ring of kStages = 4 buffers of 48 KB, written in
-// the 128-byte swizzle that the wgmma shared-memory descriptors name: A
-// K-major (a pixel's 64 channels are one 128-byte row), B MN-major (the
-// weight is [K][Cout] row-major, so wgmma reads it with its transpose flag).
-// The copies of step i + 2 are issued before the products of step i, and one
-// step's wgmma stays in flight (commit_group / wait_group 1) while the next
-// is issued: loads overlap math.  The epilogue rounds to bf16 and stores
-// through shared memory, 16 bytes a thread, coalesced.
+// The K dimension is walked in steps of 64 channels (128 bytes of bf16), each
+// inside one tap and zero-padded past Cin: step (tap, c0) gathers the tap's
+// shifted pixels x[p + dy*W + dx][c0..c0+64) (the A tile, BM x 64:
+// PixelSlots::gather) and the weight rows of that tap and those channels (the
+// B tile, 64 x NB).  The A tile is copied by 16-byte cp.async (zero-fill
+// outside the image and past Cin), the B tile by cp.async too
+// (copy_weight_tile) or by TMA from a tensor map (tma_weight_tile), into a
+// ring of STAGES buffers, written in the 128-byte swizzle that the wgmma
+// shared-memory descriptors name: A K-major (a pixel's 64 channels are one
+// 128-byte row), B MN-major (the weight is [K][Cout] row-major, so wgmma reads
+// it with its transpose flag).  ring_step runs one step: the copies of step
+// i + AHEAD are issued before the products of step i, and with three stages
+// or more one step's wgmma stays in flight (commit_group / wait_group 1) while
+// the next is issued: loads overlap math.
 //
-// Its user is csrc/mxu_probes.cu (probe_conv_cat, probe_conv_9dot).  The
-// port's other conv kernels still run on the mma.sync mainloop of
-// conv3x3_mainloop.cuh.
+// Ring<BM, WGS, NB, STAGES, TMA> is templated on the pixels, the warpgroups, the
+// B tile's width, the depth of the ring and how the B tiles come; with
+// PixelSlots, tma_weight_tile and ring_step it carries the bf16 DFC tail of
+// csrc/dfc_tail.cu, which walks one stream of steps through four products on
+// the same ring.  conv3x3_wgmma below (the probes of csrc/mxu_probes.cu: 128
+// pixels x 256 channels, two warpgroups of wgmma.m64n256k16, four stages,
+// cp.async for both tiles) writes its step loop out: built on ring_step,
+// ptxas serialized its products
+// (C7515: non-wgmma instructions defining their accumulators inside a pipeline
+// stage) and the probe ran slower on the card, where the tail's loops compile
+// without it.
 #pragma once
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 namespace wgconv {
 
 using bf16 = __nv_bfloat16;
+using dfc::fence_regs;
+using dfc::smem_desc;
+using dfc::swizzle128;
+using dfc::wgmma_commit;
+using dfc::wgmma_fence;
+using dfc::wgmma_wait;
+
+constexpr int kBK = 64;            // channels per step: one 128-byte swizzle row
+constexpr uint32_t kBlock = kBK * 128;  // bytes of a 64-column block of a B tile (its LBO)
+
+// A ring of STAGES buffers, each an A tile [BM][64] (K-major) and a B tile
+// [NB / 64][64][64] (MN-major), from a 1 KB-aligned base.  With three stages or
+// more one step's products stay in flight, and the copies run AHEAD = STAGES - 2
+// steps ahead; with two, the products of a step end with it and the copies run
+// one step ahead.
+//
+// TMA: the B tiles (the weights) come by TMA from tensor maps, thread 0 issuing a
+// tile's 64 x 64 boxes, so no thread holds their addresses; each stage then has an
+// mbarrier after the ring, `full`, on which the tile's bytes land.
+template <int BM, int WGS, int NB, int STAGES, bool TMA = false>
+struct Ring {
+  static constexpr int kThreads = 128 * WGS;
+  static constexpr int kStages = STAGES;
+  static constexpr bool kTma = TMA;
+  static constexpr int kABytes = BM * 128;
+  static constexpr int kStageBytes = kABytes + NB * 128;
+  static constexpr int kBytes = STAGES * kStageBytes;
+  static constexpr int kBarBytes = TMA ? 8 * STAGES : 0;  // after the ring
+  static constexpr int kInFlight = STAGES >= 3 ? 1 : 0;
+  static constexpr int kAhead = STAGES - 1 - kInFlight;
+  static_assert(BM % 64 == 0 && NB % 64 == 0 && kAhead >= 1, "tile shape");
+  uint32_t base;
+  __device__ __forceinline__ uint32_t a(int step) const { return base + (step % STAGES) * kStageBytes; }
+  __device__ __forceinline__ uint32_t b(int step) const { return a(step) + kABytes; }
+  __device__ __forceinline__ uint32_t full(int step) const { return base + kBytes + (step % STAGES) * 8; }
+};
+
+// ------------------------------------------------ mbarriers and TMA
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+// wait until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// one 64 x 64 box of a 3-D tensor map at (c0, c1, c2) into dst, its bytes landing on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const void* map, uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Before the first step: a TMA ring's barriers, seen by every thread.  Every thread.
+template <class R>
+__device__ __forceinline__ void ring_init(const R& ring) {
+  if constexpr (R::kTma) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < R::kStages; ++s) mbar_init(ring.full(s), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+}
+
+// Step s's B tile by TMA, from thread 0: box n of the tile (NB / 64 of them) is the 64 x 64
+// box at (col(64 n), r0, z) of the 3-D tensor map `map` (rows past the tensor's end read
+// zero), and the stage's `full` barrier expects the whole tile.
+template <class R, int NB, class Col>
+__device__ __forceinline__ void tma_weight_tile(const R& ring, int s, const void* map, int r0, int z, Col col) {
+  if (threadIdx.x != 0) return;
+  mbar_expect_tx(ring.full(s), NB * 128);
+#pragma unroll
+  for (int blk = 0; blk < NB / 64; ++blk) tma_load(ring.b(s) + blk * kBlock, map, ring.full(s), col(blk * 64), r0, z);
+}
+
+// The pixels of a BM-pixel tile whose copies this thread makes: rows tid/8 + (THREADS/8) i
+// of the tile, the 16-byte chunk tid % 8 of their 64 channels.
+template <int BM, int THREADS>
+struct PixelSlots {
+  static constexpr int N = BM * 8 / THREADS;
+  int pix[N], ph[N], pw[N];
+  __device__ __forceinline__ PixelSlots(int m0, int P, int H, int W) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int m = m0 + threadIdx.x / 8 + (THREADS / 8) * i;
+      pix[i] = m < P ? m : -1;
+      pw[i] = m % W;
+      ph[i] = (m / W) % H;
+    }
+  }
+  // the A tile at sa: channels c0..c0+64 of the tile's pixels shifted by (dy, dx), from
+  // src [P][ch]; zero outside the image and past ch
+  __device__ __forceinline__ void gather(uint32_t sa, const bf16* __restrict__ src, int ch, int c0, int dy,
+                                         int dx, int H, int W) const {
+    const int q = threadIdx.x % 8, ci = c0 + q * 8;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int hh = ph[i] + dy, ww = pw[i] + dx;
+      const bool ok = pix[i] >= 0 && ci < ch && hh >= 0 && hh < H && ww >= 0 && ww < W;
+      const bf16* p = ok ? src + (size_t)(pix[i] + dy * W + dx) * ch + ci : src;
+      dfc::cp_async16(sa + swizzle128((threadIdx.x / 8 + (THREADS / 8) * i) * 128 + q * 16), p, ok);
+    }
+  }
+};
+
+// The B tile at sb, 64 x NB: tile row kk is row r0 + kk of the row-major weight w [*][ld]
+// (zero for kk >= rows), tile column n its column col(n) (zero where that is >= cols).
+template <int NB, int THREADS, typename Col>
+__device__ __forceinline__ void copy_weight_tile(uint32_t sb, const bf16* __restrict__ w, int r0, int rows,
+                                                 int ld, int cols, Col col) {
+  static_assert(kBK * NB / 8 % THREADS == 0, "whole rounds of copies");
+#pragma unroll
+  for (int j = 0; j < kBK * NB / 8 / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int kk = i / (NB / 8), n = (i % (NB / 8)) * 8, gc = col(n);
+    const bool ok = kk < rows && gc < cols;
+    const bf16* p = ok ? w + (size_t)(r0 + kk) * ld + gc : w;
+    dfc::cp_async16(sb + swizzle128((n / 64) * kBlock + kk * 128 + (n % 64) * 2), p, ok);
+  }
+}
+
+// descriptors of k-step kk (16 deep) of a K-major A tile at a (from its row 0) and of the
+// n-th 64-column block of an MN-major B tile at b
+__device__ __forceinline__ uint64_t a_desc(uint32_t a, int kk) { return dfc::kmajor_desc(a + kk * 32); }
+__device__ __forceinline__ uint64_t b_desc(uint32_t b, int block, int kk) {
+  return smem_desc(b + block * kBlock + kk * 16 * 128, kBlock, 1024);
+}
+
+// The copies of the first AHEAD steps: each issue(step) is one commit group.
+template <class R, class Issue>
+__device__ __forceinline__ void ring_prologue(int steps, Issue&& issue) {
+#pragma unroll
+  for (int s = 0; s < R::kAhead; ++s) {
+    if (s < steps) issue(s);
+    dfc::cp_async_commit();
+  }
+}
+
+// Step i of `steps`: wait for its copies and make them visible to wgmma, issue the
+// copies of step i + AHEAD (its buffer's products are done), then mma(i), the products
+// into acc, between a wgmma fence and commit, leaving kInFlight groups of products in
+// flight.  acc is fenced after the wait, so that no access to it moves across one (ptxas
+// would serialize the products if it did).  Writes a thread made to shared memory before
+// the call (an epilogue's) are visible to the products of step i.  With TMA, step i's B
+// tile is awaited on its `full` barrier.
+template <class R, class Issue, class Mma, int N>
+__device__ __forceinline__ void ring_step(const R& ring, int i, int steps, Issue&& issue, Mma&& mma,
+                                          float (&acc)[N]) {
+  if constexpr (R::kTma) mbar_wait(ring.full(i), (i / R::kStages) & 1);
+  dfc::cp_async_wait<R::kAhead - 1>();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (i + R::kAhead < steps) issue(i + R::kAhead);
+  dfc::cp_async_commit();
+  wgmma_fence();
+  mma(i);
+  wgmma_commit();
+  wgmma_wait<R::kInFlight>();
+  fence_regs(acc);
+}
+
+// ------------------------------------------------ the probes' plain conv
 
 constexpr int kWarpgroups = 2;
 constexpr int kThreads = 128 * kWarpgroups;
 constexpr int kBM = 64 * kWarpgroups;  // pixels per block
 constexpr int kBN = 256;               // output channels per block
-constexpr int kBK = 64;                // channels per step: one 128-byte swizzle row
 constexpr int kStages = 4;
-constexpr int kATile = kBM * kBK * 2;  // 16 KB: [kBM][kBK], K-major
-constexpr int kBTile = kBK * kBN * 2;  // 32 KB: [kBN / 64][kBK][64], MN-major
-constexpr int kStageBytes = kATile + kBTile;
-constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + slack to align the ring to 1 KB
-constexpr int kOutLd = kBN + 8;                             // epilogue row stride, elements
-static_assert(kBM * kOutLd * 2 <= kStages * kStageBytes, "the epilogue tile reuses the ring");
-
-// wgmma descriptor strides (bytes).  A, K-major: 8-row groups of 128-byte rows lie
-// 1024 bytes apart; the leading offset is unused with the 128-byte swizzle.  B,
-// MN-major: the 64-column blocks (kBK rows of 128 bytes each) lie kBK * 128 bytes
-// apart, the 8-row groups of k 1024 bytes apart.
-constexpr uint32_t kALbo = 16, kASbo = 1024;
-constexpr uint32_t kBLbo = kBK * 128, kBSbo = 1024;
-
-// the 128-byte swizzle (Swizzle<3,4,3>): the 16-byte chunk index (bits 4-6) is XORed
-// with the row within an 8-row, 1 KB atom (bits 7-9); offsets from a 1 KB-aligned base
-__device__ __forceinline__ uint32_t swizzle128(uint32_t off) { return off ^ (((off >> 7) & 7) << 4); }
-
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);  // layout type 1: 128-byte swizzle
-}
-
-// d += A . B for a 64 x 256 x 16 product: A K-major and B MN-major (transpose flag 1),
-// both in shared memory.  d[4j + r] is row 16*warp + lane/4 (+8 for r >= 2), column
-// 8j + 2*(lane%4) + (r & 1) of the warpgroup's tile.
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving accumulator reads or writes across a wgmma wait
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+using ProbeRing = Ring<kBM, kWarpgroups, kBN, kStages>;
+constexpr int kSmemBytes = ProbeRing::kBytes + 1024;  // + slack to align the ring to 1 KB
+constexpr int kOutLd = kBN + 8;                       // epilogue row stride, elements
+static_assert(kBM * kOutLd * 2 <= ProbeRing::kBytes, "the epilogue tile reuses the ring");
 
 // out[P, Cout] = the 3x3 conv (zero padding 1) of NHWC x [P, Cin] with the weight
 // rows that row(tap, c) gives: the row of tap (dy+1)*3 + (dx+1), channel c.
@@ -118,78 +234,49 @@ template <typename WeightRow>
 __device__ __forceinline__ void conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
                                               bf16* __restrict__ out, int P, int H, int W, int cin,
                                               int cout, WeightRow row) {
+  using R = ProbeRing;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = dfc::smem_u32(smem_raw);
-  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const R ring{(raw + 1023u) & ~1023u};
   const int tid = threadIdx.x, wg = tid / 128;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
   const int kchunks = (cin + kBK - 1) / kBK, steps = 9 * kchunks;
+  const PixelSlots<kBM, kThreads> px(m0, P, H, W);
 
-  // this thread's copies: A rows tid/8 + 32i (i < 4), chunk tid%8; B rows tid/32 + 8i
-  // (i < 8), columns 8*(tid%32)..+8
-  constexpr int ASLOTS = kBM * 8 / kThreads, BSLOTS = kBK * (kBN / 8) / kThreads;
-  const int aq = tid % 8;
-  int apix[ASLOTS], ah[ASLOTS], aw[ASLOTS];
-#pragma unroll
-  for (int i = 0; i < ASLOTS; ++i) {
-    const int m = m0 + tid / 8 + 32 * i;
-    apix[i] = m < P ? m : -1;
-    aw[i] = m % W;
-    ah[i] = (m / W) % H;
-  }
-  const int bn = (tid % 32) * 8;
-  const bool bcol = n0 + bn < cout;
-  const uint32_t boff = (bn / 64) * (kBK * 128) + (bn % 64) * 2;
-
-  auto issue = [&](int step) {  // the copies of one step into its ring buffer, one commit group
+  auto issue = [&](int step) {
     if (step < steps) {
       const int tap = step / kchunks, c0 = (step - tap * kchunks) * kBK;
-      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-      const uint32_t sa = ring + (step % kStages) * kStageBytes, sb = sa + kATile;
-      const int ci = c0 + aq * 8;
-#pragma unroll
-      for (int i = 0; i < ASLOTS; ++i) {
-        const int hh = ah[i] + dy, ww = aw[i] + dx;
-        const bool ok = apix[i] >= 0 && ci < cin && hh >= 0 && hh < H && ww >= 0 && ww < W;
-        const bf16* src = ok ? x + (size_t)(apix[i] + dy * W + dx) * cin + ci : x;
-        dfc::cp_async16(sa + swizzle128((tid / 8 + 32 * i) * 128 + aq * 16), src, ok);
-      }
-      const size_t r0 = row(tap, c0);
-#pragma unroll
-      for (int i = 0; i < BSLOTS; ++i) {
-        const int kk = tid / 32 + 8 * i;
-        const bool ok = bcol && c0 + kk < cin;
-        const bf16* src = ok ? w + (r0 + kk) * cout + n0 + bn : w;
-        dfc::cp_async16(sb + swizzle128(boff + kk * 128), src, ok);
-      }
+      px.gather(ring.a(step), x, cin, c0, tap / 3 - 1, tap % 3 - 1, H, W);
+      copy_weight_tile<kBN, kThreads>(ring.b(step), w, (int)row(tap, c0), cin - c0, cout, cout,
+                                      [n0](int n) { return n0 + n; });
     }
     dfc::cp_async_commit();
   };
 
+  // the step loop written out (on ring_step ptxas serialized these products, C7515)
   float acc[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-  for (int s = 0; s < kStages - 2; ++s) issue(s);
+  for (int s = 0; s < R::kAhead; ++s) issue(s);
   for (int i = 0; i < steps; ++i) {
-    dfc::cp_async_wait<kStages - 3>();  // this thread's copies of step i have landed
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
-    __syncthreads();  // everyone's have; both warpgroups finished the products of step i - 2
-    issue(i + kStages - 2);
-    const uint32_t sa = ring + (i % kStages) * kStageBytes + wg * (64 * 128), sb = ring + (i % kStages) * kStageBytes + kATile;
+    dfc::cp_async_wait<R::kAhead - 1>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    issue(i + R::kAhead);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_m64n256k16(acc, smem_desc(sa + kk * 32, kALbo, kASbo), smem_desc(sb + kk * 16 * 128, kBLbo, kBSbo));
+      dfc::wgmma_ss(acc, a_desc(ring.a(i) + wg * (64 * 128), kk), b_desc(ring.b(i), 0, kk));
     wgmma_commit();
-    wgmma_wait<1>();  // step i - 1's products are done: its buffer may be refilled after the next barrier
-    fence_acc(acc);
+    wgmma_wait<R::kInFlight>();
+    fence_regs(acc);
   }
   wgmma_wait<0>();
-  fence_acc(acc);
+  fence_regs(acc);
   dfc::cp_async_wait<0>();
-  __syncthreads();  // the ring is free: it holds the output tile now
+  __syncthreads();
 
-  bf16* so = reinterpret_cast<bf16*>(smem_raw + (ring - raw));  // [kBM][kOutLd]
+  bf16* so = reinterpret_cast<bf16*>(smem_raw + (ring.base - raw));
   const int lane = tid % 32, r = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
 #pragma unroll
   for (int j = 0; j < kBN / 8; ++j) {

@@ -22,41 +22,44 @@
 // of q, k, v and out.
 //
 // Design.  The TPU kernel gives one program a whole image and unrolls the
-// heads, since VMEM holds [N,3E].  Here the grid is (tile of query rows,
-// head, image), and a head's K and V go through shared memory.
+// heads, since VMEM holds [N,3E].  Here a head's q, k and v go through shared
+// memory, in one of three kernels (ops/mha.py::entry_point picks by type and N):
 //
-// * bf16 (mha_mma_kernel): 8 warps, each owning 16 query rows (its q rows
-//   live in registers as mma A fragments), both products on the tensor cores
-//   (mma.sync m16n8k16, f32 accumulators).  For N <= 256 all of K (as rows)
-//   and V (transposed, so that both are B operands with their depth
-//   contiguous) of the head stay in shared memory: staged once, then the
-//   warps run without a block-wide barrier.  For larger N they are staged in
-//   64-key chunks, so any N is served by the same code.  The scores are kept
-//   nowhere: a first pass over the keys takes each row's maximum and sum, a
-//   second pass recomputes the products, forms the final probabilities in
-//   registers (the accumulator fragment of q k^T is the A fragment of p v),
-//   rounds them to bf16 and accumulates p v.  Recomputing q k^T costs half
-//   as many operations again and keeps the rounding of p the reference's
-//   (normalised, then rounded), which an online softmax would not.  The
-//   scale is folded into the exponential, exp((s - m) * scale) as one
-//   multiply-add and the hardware's exp2, and 1/l is one reciprocal per row:
-//   both far inside the rounding to bf16 that follows.  K and V are re-read
-//   per query tile from L2, not from device memory.
+// * bf16, N <= 256 (mha_wgmma_kernel; every model of the factory: ViT-B/16 at
+//   224x224 has N = 196): one block, one warpgroup, per (head, image) stages
+//   the head's k and v once and q one 64-row tile ahead (16-byte cp.async into
+//   the 128-byte swizzle; 70 KB at N = 196, three blocks an SM), and each
+//   64-row tile of queries makes ONE pass over the keys: q k^T by
+//   wgmma with q's fragments as the register A operand and k K-major, the
+//   64 x NKP tile of scores kept in registers (NKP = N padded to 16: 208 for
+//   196, 104 floats a thread), the exact row maximum and sum, p / l rounded to
+//   bf16 (the reference's rounding point) straight into the register A operand
+//   of the p v wgmma, v read MN-major with the transpose flag (no transposed
+//   copy), the output through shared memory in coalesced 16-byte stores.  Two
+//   products and one exponential per score; q, k and v read once, the output
+//   written once, which is what the bytes bound asks.
+// * bf16, N > 256 (mha_mma_kernel, no model of the factory): 8 warps, each
+//   owning 16 query rows (its q rows live in registers as mma A fragments),
+//   both products on the tensor cores (mma.sync m16n8k16, f32 accumulators),
+//   keys staged in 64-key chunks.  The scores are kept nowhere: a first pass
+//   over the keys takes each row's maximum and sum, a second pass recomputes
+//   the products, forms the final probabilities in registers (the accumulator
+//   fragment of q k^T is the A fragment of p v), rounds them to bf16 and
+//   accumulates p v.  The scale is folded into the exponential, exp((s - m) *
+//   scale) as one multiply-add and the hardware's exp2, and 1/l is one
+//   reciprocal per row: both far inside the rounding to bf16 that follows.
 // * f32 (mha_simt_kernel): exact f32 arithmetic on the SIMT units, a block
 //   owning 16 query rows with their N scores in shared memory, as
 //   pooled_attention.cu does.  TF32 would not hold the 1e-5 parity of the
-//   f32 serving mode.
-//
-// With mma.sync the bf16 kernel's three products (two passes of q k^T, one of
-// p v, on N padded to 128-row and 64-key tiles) keep the tensor cores
-// busier than anything else in it; keeping the scores of a row tile in
-// registers (no second q k^T), or wgmma/TMA with a pipelined K/V stream, is
-// later work.
+//   f32 serving mode, and wgmma has no f32 path.
 
 #include <math.h>
 #include <stdint.h>
 
+#include <utility>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -409,6 +412,213 @@ bool supported(int b, int n, int nh, int hd) {
          hd % 8 == 0;
 }
 
+// ------------------------------------------- bf16, N <= 256: one pass on wgmma
+
+constexpr int kWgTokens = 256;   // the one-pass kernel takes N up to here
+constexpr int kWgThreads = 128;  // one warpgroup
+
+// s[r][c] of a [rows][64 HB] tile stored as HB column blocks of [rows][64], each row one
+// 128-byte swizzle row: byte offset of the 16-byte chunk `chunk` (of 8 columns) of row r
+__device__ __forceinline__ uint32_t tile_off(int rows, int r, int chunk) {
+  return dfc::swizzle128((chunk / 8) * rows * 128 + r * 128 + (chunk % 8) * 16);
+}
+
+// rows [0, rows) x columns [0, 64 HB) of a head's [n, hd] slice of g (row stride ld) into
+// shared memory at s, zero past row n and column hd (16-byte cp.async, zero-fill)
+template <int HB>
+__device__ __forceinline__ void stage_tile(uint32_t s, const bf16* __restrict__ g, int rows, int n, int hd,
+                                           int ld) {
+  for (int i = threadIdx.x; i < rows * HB * 8; i += kWgThreads) {
+    const int r = i / (HB * 8), chunk = i % (HB * 8);
+    const bool ok = r < n && chunk * 8 < hd;
+    dfc::cp_async16(s + tile_off(rows, r, chunk), ok ? g + (size_t)r * ld + chunk * 8 : g, ok);
+  }
+}
+
+// Shared memory of a block: two buffers of one 64-row tile of q (and then of the output),
+// k and v; and 3 where an SM's 228 KB hold three such blocks (then 170 registers a thread
+// let their registers fit too), else 1 (no bound on the registers).
+template <int HB, int NKC>
+constexpr int wg_smem() { return 1024 + HB * 128 * (2 * 64 + 2 * 16 * NKC); }
+template <int HB, int NKC>
+constexpr int wg_blocks() { return 233472 / (wg_smem<HB, NKC>() + 1024) >= 3 ? 3 : 1; }
+
+// One block (one warpgroup) per (head, image).  The head's k and v come into shared
+// memory once, by 16-byte cp.async in the 128-byte swizzle, the head dimension zero-padded
+// to HDP = 64 HB and the keys to NKP = 16 NKC; q comes one 64-row tile at a time, the
+// next tile's copies in flight while this one is computed.  For each 64-row tile:
+//   * q's fragments (ldmatrix) are the register A operand of wgmma.m64n16k16 against K
+//     (K-major: k's rows as they are), one 16-key chunk after another: the tile's scores,
+//     64 x NKP, stay in registers (NKC x 8 a thread);
+//   * the exact row maximum and sum (quad shuffles), p = 2^(s c - m c) with c =
+//     log2(e)/sqrt(hd), keys past n at p = 0; p / l rounded to bf16 is the reference's
+//     rounding point, and the accumulator layout of a 16-key chunk is the A fragment of
+//     the next product as it stands;
+//   * out = p v by wgmma.m64n{HDP}k16 with p in registers and V read MN-major (the
+//     transpose flag): no transposed copy of v;
+//   * the output rows go through the tile's q buffer (free once its fragments are read),
+//     one warp's 16 rows at a time, and leave in coalesced 16-byte stores.
+template <int HB, int NKC>
+__global__ void __launch_bounds__(kWgThreads, (wg_blocks<HB, NKC>()))
+mha_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                 bf16* __restrict__ out, int n, int hd, int ld, int e, float sc) {
+  constexpr int KS = 4 * HB, NKP = 16 * NKC, OR = 32 * HB, QTILE = HB * 64 * 128;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = dfc::smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023u) & ~1023u;  // 2 x [HB][64][64]: q's row tiles, then the output's
+  const uint32_t sk = sq + 2 * QTILE;           // [HB][NKP][64]
+  const uint32_t sv = sk + HB * NKP * 128;      // [HB][NKP][64]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const size_t in0 = (size_t)b * n * ld + (size_t)h * hd;
+  stage_tile<HB>(sk, k + in0, NKP, n, hd, ld);
+  stage_tile<HB>(sq, q + in0, 64, n, hd, ld);
+  dfc::cp_async_commit();  // k and q's first row tile
+  stage_tile<HB>(sv, v + in0, NKP, n, hd, ld);
+  dfc::cp_async_commit();  // v
+
+  for (int row0 = 0; row0 < n; row0 += 64) {
+    const uint32_t sqt = sq + (row0 / 64 % 2) * QTILE;
+    if (row0 == 0)
+      dfc::cp_async_wait<1>();  // k and q's first tile have landed
+    else
+      dfc::cp_async_wait<0>();  // this tile of q has
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // and every warp has stored the output that the other buffer held
+    uint32_t qa[KS][4];
+    const int m = lane / 8, qr = warp * 16 + 8 * (m & 1) + lane % 8;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) dfc::ldmatrix_x4(qa[ks], sqt + tile_off(64, qr, 2 * ks + (m >> 1)));
+    if (row0 + 64 < n)  // q's next row tile into the other buffer
+      stage_tile<HB>(sq + ((row0 / 64 + 1) % 2) * QTILE, q + in0 + (size_t)(row0 + 64) * ld, 64, n - row0 - 64,
+                     hd, ld);
+    dfc::cp_async_commit();
+
+    float s[NKC][8];
+#pragma unroll
+    for (int c = 0; c < NKC; ++c)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s[c][i] = 0.f;
+    dfc::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NKC; ++c)
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        dfc::wgmma_rs<0>(s[c], qa[ks], dfc::kmajor_desc(sk + (ks / 4) * NKP * 128 + c * 2048 + (ks % 4) * 32));
+    dfc::wgmma_commit();
+    dfc::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NKC; ++c) dfc::fence_regs(s[c]);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) dfc::fence_regs(qa[ks]);  // live until the products are done
+
+    // s[c][4j + r]: key 16c + 8j + 2t + (r & 1) of row g (r < 2) or g + 8 (r >= 2)
+    if (NKP > n) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (16 * (NKC - 1) + 8 * (i / 4) + 2 * t + (i & 1) >= n) s[NKC - 1][i] = -INFINITY;
+    }
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < NKC; ++c)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        m0 = fmaxf(m0, fmaxf(s[c][4 * j], s[c][4 * j + 1]));
+        m1 = fmaxf(m1, fmaxf(s[c][4 * j + 2], s[c][4 * j + 3]));
+      }
+    const float d0 = dfc::quad_max(m0) * sc, d1 = dfc::quad_max(m1) * sc;
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < NKC; ++c)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        s[c][4 * j] = exp2_scaled(s[c][4 * j], sc, d0);
+        s[c][4 * j + 1] = exp2_scaled(s[c][4 * j + 1], sc, d0);
+        s[c][4 * j + 2] = exp2_scaled(s[c][4 * j + 2], sc, d1);
+        s[c][4 * j + 3] = exp2_scaled(s[c][4 * j + 3], sc, d1);
+        l0 += s[c][4 * j] + s[c][4 * j + 1];
+        l1 += s[c][4 * j + 2] + s[c][4 * j + 3];
+      }
+    const float r0 = 1.f / quad_sum(l0), r1 = 1.f / quad_sum(l1);
+    uint32_t pa[NKC][4];
+#pragma unroll
+    for (int c = 0; c < NKC; ++c) {
+      pa[c][0] = pack2(s[c][0] * r0, s[c][1] * r0);
+      pa[c][1] = pack2(s[c][2] * r1, s[c][3] * r1);
+      pa[c][2] = pack2(s[c][4] * r0, s[c][5] * r0);
+      pa[c][3] = pack2(s[c][6] * r1, s[c][7] * r1);
+    }
+
+    float o[OR];
+#pragma unroll
+    for (int i = 0; i < OR; ++i) o[i] = 0.f;
+    if (row0 == 0) {
+      dfc::cp_async_wait<1>();  // v has landed (q's next tile may not have)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
+    dfc::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NKC; ++c) dfc::wgmma_rs<1>(o, pa[c], dfc::smem_desc(sv + c * 2048, NKP * 128, 1024));
+    dfc::wgmma_commit();
+    dfc::wgmma_wait<0>();
+    dfc::fence_regs(o);
+#pragma unroll
+    for (int c = 0; c < NKC; ++c) dfc::fence_regs(pa[c]);  // live until the products are done
+
+    // o[4j + r]: row 16 warp + g (+8 for r >= 2), column 8j + 2t + (r & 1); this warp's rows
+    // of the tile's q buffer were read by this warp alone
+    unsigned char* so = smem_raw + (sqt - raw);
+    const int ra = warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < OR / 4; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(so + tile_off(64, ra, j) + 4 * t) = __floats2bfloat162_rn(o[4 * j], o[4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(so + tile_off(64, ra + 8, j) + 4 * t) =
+          __floats2bfloat162_rn(o[4 * j + 2], o[4 * j + 3]);
+    }
+    __syncwarp();
+    bf16* ob = out + (size_t)b * n * e + (size_t)h * hd;
+    for (int i = lane; i < 16 * HB * 8; i += 32) {
+      const int r = warp * 16 + i / (HB * 8), chunk = i % (HB * 8);
+      if (row0 + r < n && chunk * 8 < hd)
+        *reinterpret_cast<uint4*>(ob + (size_t)(row0 + r) * e + chunk * 8) =
+            *reinterpret_cast<const uint4*>(so + tile_off(64, r, chunk));
+    }
+  }
+}
+
+template <int HB, int NKC>
+int launch_wg(const bf16* q, const bf16* k, const bf16* v, bf16* out, int b, int n, int nh, int hd, int ld,
+              cudaStream_t stream) {
+  constexpr int smem = wg_smem<HB, NKC>();
+  cudaFuncSetAttribute(mha_wgmma_kernel<HB, NKC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  mha_wgmma_kernel<HB, NKC><<<dim3(nh, b), kWgThreads, smem, stream>>>(
+      q, k, v, out, n, hd, ld, nh * hd, 1.4426950408889634f / sqrtf((float)hd));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HB, int... C>
+int launch_wg_keys(std::integer_sequence<int, C...>, const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                   int b, int n, int nh, int hd, int ld, cudaStream_t stream) {
+  const int nkc = (n + 15) / 16;
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  ((nkc == C + 1 ? (err = launch_wg<HB, C + 1>(q, k, v, out, b, n, nh, hd, ld, stream)) : 0), ...);
+  return err;
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, int b, int n, int nh, int hd, int ld,
+                 void* stream) {
+  const auto keys = std::make_integer_sequence<int, kWgTokens / 16>{};
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  bf16* op = static_cast<bf16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd <= 64) return launch_wg_keys<1>(keys, qp, kp, vp, op, b, n, nh, hd, ld, st);
+  return launch_wg_keys<2>(keys, qp, kp, vp, op, b, n, nh, hd, ld, st);
+}
+
 }  // namespace
 
 // q, k, v: base pointers of [B,N,*] tensors with row stride ld (elements), whose
@@ -420,8 +630,16 @@ extern "C" int mha_f32(const void* q, const void* k, const void* v, void* out, i
   return launch_simt<float>(q, k, v, out, b, n, nh, hd, ld, stream);
 }
 
+// bf16, the two-pass mma.sync kernel: any N (the wrapper sends it N > 256)
 extern "C" int mha_bf16(const void* q, const void* k, const void* v, void* out, int b, int n, int nh,
                         int hd, int ld, void* stream) {
   if (!supported(b, n, nh, hd)) return static_cast<int>(cudaErrorInvalidValue);
   return launch_mma(q, k, v, out, b, n, nh, hd, ld, stream);
+}
+
+// bf16, the one-pass wgmma kernel: N <= 256
+extern "C" int mha_wgmma_bf16(const void* q, const void* k, const void* v, void* out, int b, int n, int nh,
+                              int hd, int ld, void* stream) {
+  if (!supported(b, n, nh, hd) || n > kWgTokens) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_wgmma(q, k, v, out, b, n, nh, hd, ld, stream);
 }

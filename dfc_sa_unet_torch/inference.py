@@ -3,7 +3,7 @@
     python -m dfc_sa_unet_torch.inference --config CFG.yaml --model WEIGHTS.pth
         --input DIR [--output DIR] [--csv_dir DIR] [--threshold 0.5]
         [--tile_size 224] [--overlap 50] [--resize W H] [--no_slide_window]
-        [--tta] [--bf16] [--engine] [--batch_size 128] [--serial]
+        [--tta] [--bf16 | --no_bf16] [--engine] [--batch_size 128] [--serial]
         [--device cuda]
 
 WEIGHTS is a reference-layout PyTorch ``.pth`` (raw state dict or trainer
@@ -19,8 +19,11 @@ tiles up to 64x64 (``--tile_size 64``) and the attention wrapper raises for
 a larger one; ``--engine`` is the flagship's.  There is no ``--no_pallas``:
 on the card every attention core runs its hand-written kernel.  If
 DIR holds ``original/`` and ``mask/``, per-image and micro-averaged global
-metrics are printed and written to CSV.  Runs on the card; ``--device cpu``
-runs the plain PyTorch path on the CPU.
+metrics are printed and written to CSV, with a combined view per image; a
+``mask/`` without ``original/`` is served without evaluation, with a warning.
+An ``inference: {bf16: true}`` section of the config serves in bfloat16 unless
+``--no_bf16`` is given.  Runs on the card; ``--device cpu`` runs the plain
+PyTorch path on the CPU.
 """
 
 import argparse
@@ -31,11 +34,12 @@ import os
 import numpy as np
 import torch
 
-from dfc_sa_unet_torch.config import load_config
+from dfc_sa_unet_torch.config import load_config, merge_bf16_flag
 from dfc_sa_unet_torch.infer.predictor import Predictor, load_image, prefetch
 from dfc_sa_unet_torch.metrics import confusion_counts, metrics_from_counts
 from dfc_sa_unet_torch.models.factory import create_model
 from dfc_sa_unet_torch.utils.device import resolve_device
+from dfc_sa_unet_torch.utils.visualization import create_combined_visualization
 from dfc_sa_unet_torch.utils.weights import load_state_dict_file
 
 
@@ -56,19 +60,25 @@ def create_overlay(image: np.ndarray, mask: np.ndarray, alpha: float = 0.5) -> n
 
 
 def save_prediction(original, pred_prob, pred_binary, output_dir, filename, gt_mask=None):
-    """original / heatmap / binary / overlay (/ ground truth) PNGs per image."""
+    """original / heatmap / binary / overlay (/ ground truth) PNGs per image, and
+    with a ground truth the combined view ``{output_dir}/{filename}_combined_view.png``."""
     import cv2
 
+    pred_binary_img = (pred_binary * 255).astype(np.uint8)
+    gt_vis = ((gt_mask > 0) * 255).astype(np.uint8) if gt_mask is not None else None
+    if gt_vis is not None:
+        create_combined_visualization(original, pred_binary_img, gt_vis, filename,
+                                      os.path.join(output_dir, f"{filename}_combined_view.png"))
     individual = os.path.join(output_dir, filename)
     os.makedirs(individual, exist_ok=True)
     heatmap = cv2.applyColorMap((pred_prob * 255).astype(np.uint8), cv2.COLORMAP_JET)
     overlay = create_overlay(original, pred_binary)
     cv2.imwrite(os.path.join(individual, "original.png"), cv2.cvtColor(original, cv2.COLOR_RGB2BGR))
     cv2.imwrite(os.path.join(individual, "pred_heatmap.png"), heatmap)
-    cv2.imwrite(os.path.join(individual, "pred_binary.png"), (pred_binary * 255).astype(np.uint8))
+    cv2.imwrite(os.path.join(individual, "pred_binary.png"), pred_binary_img)
     cv2.imwrite(os.path.join(individual, "pred_overlay.png"), cv2.cvtColor(overlay, cv2.COLOR_RGB2BGR))
-    if gt_mask is not None:
-        cv2.imwrite(os.path.join(individual, "ground_truth.png"), ((gt_mask > 0) * 255).astype(np.uint8))
+    if gt_vis is not None:
+        cv2.imwrite(os.path.join(individual, "ground_truth.png"), gt_vis)
 
 
 def build_predictor(config, weights, bf16=False, engine=False, device=None) -> Predictor:
@@ -93,6 +103,7 @@ def main(args):
     import cv2
 
     config = load_config(_norm(args.config))
+    merge_bf16_flag(args, config, "inference")
     model_path = args.model or config["model"].get("pretrained_path")
     if not model_path:
         raise SystemExit("no weights: pass --model or set model.pretrained_path in the config")
@@ -102,8 +113,8 @@ def main(args):
                          f"best_model or a checkpoint of dfc_sa_unet_torch.train), not an Orbax directory (ROADMAP.md)")
     predictor = build_predictor(config, load_state_dict_file(model_path), bf16=args.bf16,
                                 engine=args.engine, device=args.device)
-    print(f"Loaded {model_path}; model {config['model']['name']} on {predictor.device}"
-          + (" (folded engine)" if args.engine else ""))
+    print(f"Loaded {model_path}; model {config['model']['name']} on {predictor.device} in "
+          f"{str(predictor.compute_dtype).split('.')[-1]}" + (" (folded engine)" if args.engine else ""))
     print("Mode: " + ("direct prediction" if args.no_slide_window else "sliding window")
           + (", TTA" if args.tta else ""))
 
@@ -111,9 +122,12 @@ def main(args):
     os.makedirs(output_dir, exist_ok=True)
     input_dir = _norm(args.input)
     original_dir, mask_dir, evaluate = input_dir, os.path.join(input_dir, "mask"), False
-    if os.path.isdir(mask_dir) and os.path.isdir(os.path.join(input_dir, "original")):
-        original_dir, evaluate = os.path.join(input_dir, "original"), True
-        print("Found 'original' and 'mask' subdirectories - evaluation enabled.")
+    if os.path.isdir(mask_dir):
+        if os.path.isdir(os.path.join(input_dir, "original")):
+            original_dir, evaluate = os.path.join(input_dir, "original"), True
+            print("Found 'original' and 'mask' subdirectories - evaluation enabled.")
+        else:
+            print("Warning: 'mask' found without 'original'; skipping evaluation.")
     image_files = []
     for ext in ("*.png", "*.jpg", "*.jpeg", "*.tif", "*.tiff"):
         image_files.extend(sorted(glob.glob(os.path.join(original_dir, ext))))
@@ -216,7 +230,10 @@ def parse_args(argv=None):
     parser.add_argument("--resize", nargs=2, type=int, metavar=("WIDTH", "HEIGHT"))
     parser.add_argument("--no_slide_window", action="store_true")
     parser.add_argument("--tta", action="store_true")
-    parser.add_argument("--bf16", action="store_true")
+    parser.add_argument("--bf16", action="store_true", default=None,
+                        help="bfloat16 compute; fills from the config's inference.bf16 when not given")
+    parser.add_argument("--no_bf16", action="store_false", dest="bf16",
+                        help="override a config-enabled inference.bf16")
     parser.add_argument("--engine", action="store_true",
                         help="folded inference engine: the fused DFC-tail kernel on its 7 'auto' "
                              "levels, the 3x3 conv kernel on the other two")

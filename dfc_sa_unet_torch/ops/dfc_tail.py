@@ -6,7 +6,8 @@ runs its plain version on CPU tensors and launches its kernel (or raises)
 on CUDA tensors.  Layout NHWC; weights in the JAX layout: wc [3,3,Cin,C]
 (HWIO), wg [2C,C] ordered [local|a], wf [3C,C] ordered [fused|local|a],
 wr [Cin,C] with res_scale folded in; weights in the activation dtype,
-biases f32.  The kernels mask every image edge, so any H and W work.
+biases f32.  The kernels mask every image edge, so any H and W work; the
+bf16 tail takes any Cin, which the wrapper zero-pads to a multiple of 8.
 """
 
 import torch
@@ -43,6 +44,16 @@ def dfc_tail_plain(x, a, wc, bc, wg, bg, wf, bf, wr):
     o = torch.relu(torch.cat([fused, local, a], -1).float() @ wf.to(dtype).float() + bf.float())
     o = o + x.float() @ wr.to(dtype).float()
     return o.to(dtype)
+
+
+def pad_cin(x, wc, wr, multiple=8):
+    """x, wc and wr with Cin zero-padded to a multiple of ``multiple``: the same tail (the
+    added channels meet zero weights), with x's rows in whole 16-byte copies for the bf16
+    kernel."""
+    pad = -x.shape[-1] % multiple
+    if not pad:
+        return x, wc, wr
+    return F.pad(x, (0, pad)), F.pad(wc, (0, 0, 0, pad)), F.pad(wr, (0, 0, 0, pad))
 
 
 def _check(name, x, tensors, weights, biases):
@@ -108,6 +119,10 @@ def dfc_tail(x, a, wc, bc, wg, bg, wf, bf, wr) -> torch.Tensor:
         raise ValueError(f"dfc_tail: C={c} not supported by the kernel (one of {TAIL_CHANNELS})")
     out = torch.empty_like(a)
     if out.numel():
+        if x.dtype == torch.bfloat16:  # the bf16 kernel copies x in 16-byte rows
+            x, wc, wr = pad_cin(x, wc, wr)
+            cin = x.shape[-1]
+            args = (x, a, wc, bc, wg, bg, wf, bf, wr)
         name = f"dfc_tail_{_DTYPES[x.dtype]}"
         err = _build.kernel(name)(*(t.data_ptr() for t in args), out.data_ptr(),
                                   bsz * h * width, h, width, cin, c, _build.stream_handle(x.device))

@@ -9,7 +9,10 @@ land merged in ``[B,N,E]`` with no transpose on either side.
 
 On CPU tensors the wrappers run the plain versions below (the math of
 ``_mha_sep_reference``, pallas_attention.py:188-210); on CUDA tensors they
-launch the kernel or raise.
+launch a kernel or raise.  ``entry_point`` names the C function: in bf16 the
+one-pass ``wgmma`` kernel up to ``WGMMA_TOKENS`` (every model of the factory:
+ViT-B/16 at 224x224 has N = 196), the two-pass ``mma.sync`` kernel above; in
+f32 the exact SIMT kernel.
 
 Under autograd the forward still launches the kernel; the backward
 recomputes through the plain version and returns its gradients, as the JAX
@@ -24,8 +27,9 @@ from dfc_sa_unet_torch.ops.dropout import dropout
 from dfc_sa_unet_torch.ops.pooled_attention import plain_vjp
 
 MAX_TOKENS = 1024
+WGMMA_TOKENS = 256  # bf16 up to here: the one-pass wgmma kernel keeps a row tile's scores in registers
 MAX_HEAD_DIM = 128  # and a multiple of 8: rows of a head are 16-byte aligned in bf16
-_KERNELS = {torch.float32: "mha_f32", torch.bfloat16: "mha_bf16"}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 LAUNCHES = {"fused_mha": 0, "fused_mha_sep": 0}
 
@@ -53,13 +57,20 @@ def fused_mha_plain(qkv: torch.Tensor, num_heads: int, dropout_p: float = 0.0, g
     return fused_mha_sep_plain(q, k, v, num_heads, dropout_p, generator)
 
 
+def entry_point(dtype: torch.dtype, n: int) -> str:
+    """The C function of csrc/mha.cu that computes a call of N tokens."""
+    if dtype == torch.bfloat16:
+        return "mha_wgmma_bf16" if n <= WGMMA_TOKENS else "mha_bf16"
+    return "mha_f32"
+
+
 def _launch(counter: str, tensors, ptrs, row_stride: int, b: int, n: int, e: int, num_heads: int):
     """Check what the kernel takes, launch it once on ``ptrs`` and count it."""
     first = tensors[0]
     for t in tensors:
         if t.device.type != "cuda" or t.device != first.device:
             raise ValueError(f"{counter}: tensors on {t.device} and {first.device}; takes CUDA tensors of one device")
-        if t.dtype not in _KERNELS or t.dtype != first.dtype:
+        if t.dtype not in _DTYPES or t.dtype != first.dtype:
             raise TypeError(f"{counter}: got {t.dtype}; takes tensors all f32 or all bf16")
         if not t.is_contiguous():
             raise ValueError(f"{counter}: takes contiguous [B,N,*] tensors")
@@ -71,7 +82,7 @@ def _launch(counter: str, tensors, ptrs, row_stride: int, b: int, n: int, e: int
                          f"{MAX_HEAD_DIM}), B={b} (max 65535) not supported by the kernel")
     out = torch.empty((b, n, e), dtype=first.dtype, device=first.device)
     if out.numel():
-        name = _KERNELS[first.dtype]
+        name = entry_point(first.dtype, n)
         err = _build.kernel(name)(*ptrs, out.data_ptr(), b, n, num_heads, hd, row_stride,
                                   _build.stream_handle(first.device))
         _build.check(err, name)

@@ -87,7 +87,9 @@ def main():
                           capture_output=True, text=True).stdout.strip()
     clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                            capture_output=True, text=True).stdout.split()
-    sm_mhz = float(clock[0]) if clock else 1980.0
+    if not clock:
+        raise RuntimeError("nvidia-smi gave no maximum SM clock: the exponential bound needs it")
+    sm_mhz = float(clock[0])
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     b = args.batch
     print(f"card: {card}; maximum SM clock {sm_mhz:.0f} MHz; torch {torch.__version__}; pooled attention, B={b}; "

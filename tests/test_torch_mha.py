@@ -91,7 +91,88 @@ def test_build_signatures_name_the_mha_exports():
     from dfc_sa_unet_torch.ops import _build
 
     src = (_build.CSRC / "mha.cu").read_text()
-    for name in ("mha_f32", "mha_bf16"):
+    for name in ("mha_f32", "mha_bf16", "mha_wgmma_bf16"):
         stem, argtypes = _build.SIGNATURES[name]
         assert stem == "mha" and len(argtypes) == 10
         assert f'extern "C" int {name}(' in src
+
+
+# --------------------------------------------------------------------------------------------
+# The bf16 one-pass kernel's order of arithmetic (csrc/mha.cu, mha_wgmma_kernel), emulated on
+# the CPU and held to the JAX kernels in interpret mode.  The kernel cannot run here; this pins
+# what it computes: the raw scores q k^T in f32 over the keys zero-padded to a multiple of 16,
+# padded keys at -inf (p = 0), the exact row maximum m, p = 2^(s c - m c) with the scale folded
+# into c = log2(e)/sqrt(hd), the f32 sum l of the unrounded p, p * (1/l) rounded to bf16 (the
+# reference's rounding point: it rounds the normalised softmax), and p v accumulated in f32.
+# Tolerance: 1e-2 of max|reference|.  The orders differ by exp2 against exp, one reciprocal
+# against a division and the sums' order, which flip bf16 roundings of p and of the output
+# here and there: one ulp of the largest outputs is up to 2^-8 of them.
+
+LOG2E = 1.4426950408889634
+ONE_PASS_TOL = 1e-2
+
+
+def one_pass_order(q, k, v, num_heads):
+    """q, k, v [B,N,E] bf16 -> [B,N,E] bf16 in the one-pass kernel's order."""
+    b, n, e = q.shape
+    hd = e // num_heads
+    nkp = -(-n // 16) * 16
+
+    def heads(t, rows):
+        t = t.reshape(b, n, num_heads, hd).transpose(1, 2).float()
+        return torch.nn.functional.pad(t, (0, 0, 0, rows - n))
+
+    s = heads(q, n) @ heads(k, nkp).transpose(2, 3)
+    s[..., n:] = float("-inf")
+    c = LOG2E / hd ** 0.5
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s * c - m * c)
+    l = p.sum(dim=-1, keepdim=True)
+    out = (p * (1.0 / l)).to(torch.bfloat16).float() @ heads(v, nkp)
+    return out.to(torch.bfloat16).transpose(1, 2).reshape(b, n, e)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "separate"])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("n", [196, 200, 256])
+def test_one_pass_order_matches_the_jax_kernels(n, hd, packed):
+    nh = 2
+    jx, tx = _qkv(n + hd, 1, n, nh * hd, "bfloat16")
+    tq, tk, tv = (t.contiguous() for t in tx.chunk(3, dim=-1))
+    if packed:
+        want = _np(jpa.fused_mha(jx, nh))
+    else:
+        want = _np(jpa.fused_mha_sep(*jnp.split(jx, 3, axis=-1), nh))
+    got = one_pass_order(tq, tk, tv, nh)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, n, nh * hd)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(_np(got), want, rtol=0, atol=ONE_PASS_TOL * scale)
+    np.testing.assert_allclose(_np(got), _np(mha.fused_mha_sep_plain(tq, tk, tv, nh)), rtol=0,
+                               atol=ONE_PASS_TOL * scale)
+
+
+def test_entry_point_per_dtype_and_token_count():
+    """bf16: the one-pass wgmma kernel up to 256 tokens, the two-pass kernel above; f32: SIMT."""
+    assert mha.entry_point(torch.bfloat16, 196) == "mha_wgmma_bf16"
+    assert mha.entry_point(torch.bfloat16, mha.WGMMA_TOKENS) == "mha_wgmma_bf16"
+    assert mha.entry_point(torch.bfloat16, mha.WGMMA_TOKENS + 1) == "mha_bf16"
+    assert mha.entry_point(torch.bfloat16, mha.MAX_TOKENS) == "mha_bf16"
+    assert mha.entry_point(torch.float32, 196) == "mha_f32"
+
+
+def test_chip_smoke_checks_both_bf16_kernels_at_every_head_dim():
+    """chip_smoke.py's phase 3 holds both bf16 kernels (N either side of the one-pass
+    kernel's limit, and the largest N) to the plain version at head dimensions 32, 64, 128."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    seen = {(n, e // nh) for _, n, e, nh in smoke.MHA_SHAPES}
+    assert {(n, hd) for n in (196, 197, 256, 257, 1024) for hd in (32, 64, 128)} <= seen
+    kernels = {mha.entry_point(torch.bfloat16, n) for _, n, _, _ in smoke.MHA_SHAPES}
+    assert kernels == {"mha_wgmma_bf16", "mha_bf16"}
+    assert all(n <= mha.MAX_TOKENS and (e // nh) % 8 == 0 and e // nh <= mha.MAX_HEAD_DIM
+               for _, n, e, nh in smoke.MHA_SHAPES)
