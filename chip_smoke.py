@@ -8,14 +8,19 @@ any failure exits non-zero:
 
 1. require CUDA; print the card's name, power limit and maximum SM clock;
    turn TF32 off for the f32 checks;
-2. build the CUDA kernels from dfc_sa_unet_torch/csrc;
+2. build the CUDA kernels from dfc_sa_unet_torch/csrc; ptxas must neither
+   serialize the products (C7515) nor spill in the wgmma kernels of
+   conv3x3_bn_relu and probe_matmul;
 3. hold every kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and at awkward ones, in f32 and bf16
    (pooled attention: in bf16 the tensor-core kernel at every N from 1 to
-   4096, in f32 the 16-row and the two-pass SIMT kernels; the three
-   matrix-unit probes in bf16, their only type, the two conv probes on the
-   wgmma mainloop), and the backward of the three attention wrappers
-   against autograd through their plain versions;
+   4096, in f32 the 16-row and the two-pass SIMT kernels; conv3x3_bn_relu
+   at every flagship level and at the bf16 kernels' tilings, Cin 3 to 520,
+   Cout 8 to 1024, ragged pixel counts and one pixel, after a launch on NaN
+   inputs; the three matrix-unit probes in bf16, their only type, the
+   matmul on the TMA-fed wgmma GEMM up to the probe's full M, the two conv
+   probes on the wgmma mainloop), and the backward of the three attention
+   wrappers against autograd through their plain versions;
 4. serve the flagship DFC-SA-Res-Block at full width (224x224, features
    64/128/256/512, pool 8, seeded weights, BatchNorm statistics fitted to
    a slice of the batch so that the logits spread O(1)):
@@ -38,8 +43,9 @@ any failure exits non-zero:
    and, for the attention kernels, its exponentials over the rate of the
    special-function units (132 SMs x 16 a clock x the maximum SM clock;
    ``bound_by`` says "bytes" or "operations", ``bound_term`` which of the
-   three); the tail is held to its plain version at each level's B=128
-   inputs (after a launch on NaN inputs) before they are timed;
+   three); the tail and the conv are held to their plain versions at each
+   level's B=128 inputs (after a launch on NaN inputs) before they are
+   timed, and the kernels line keeps both level by level (``levels``);
 8. train at full width through the port's Trainer (train_epoch and
    validate_epoch) on synthetic ellipses made in memory, bce_dice 0.5/0.5
    and SGD as configs/config_dfc-sa-res-block.yaml: the flagship for 16
@@ -119,6 +125,17 @@ MHA_SHAPES = ([(BATCH, TOKENS, EMBED, HEADS)]
 # Cin = 3 (zero-padded to 8 by the wrapper)
 TAIL_ODD_SHAPES = [(3, 13, 17, 512, 512), (1, 9, 7, 1024, 512), (3, 13, 17, 128, 256), (2, 9, 7, 64, 128),
                    (2, 15, 15, 128, 64), (2, 8, 8, 32, 32), (1, 7, 9, 64, 32), (2, 9, 7, 3, 64)]
+# phase 3's extra conv3x3_bn_relu checks (B, H, W, Cin, Cout): the bf16 kernels' flat K walk at Cin 3
+# and 8 (the persistent kernel at Cout <= 64; Cin 3 on the ring, zero-padded to 8, at Cout 1024), 16
+# (taps packed into a step), 24 (a step across taps) and 520 (a step across a tap's end), Cout 8, 40,
+# 64 and 1024 (B tiles of 64 and 256 columns, ragged at 8 and 40), pixel counts that no 128-pixel
+# block divides, and a 1x1 image
+CONV_ODD_SHAPES = [(3, 13, 17, 3, 64), (3, 13, 17, 8, 40), (2, 9, 7, 16, 8), (3, 13, 17, 24, 1024),
+                   (2, 9, 7, 520, 40), (3, 5, 3, 16, 64), (2, 9, 7, 3, 1024), (1, 1, 1, 3, 64),
+                   (1, 1, 1, 520, 1024)]
+# phase 3's probe_matmul checks (M, K, N): the probe's shape cut in B, rows that no 128-row tile
+# divides, a tiny K and N, and the probe's full M plus a ragged tile (more tiles than blocks)
+PROBE_MATMUL_SHAPES = [(4 * 56 * 56, 384, 256), (1000, 384, 256), (129, 8, 8), (BATCH * 56 * 56 + 77, 384, 256)]
 BLOCK_SHAPES = [("down1", 224, 3, 64), ("down2", 112, 64, 128), ("down3", 56, 128, 256),
                 ("down4", 28, 256, 512), ("bottleneck", 14, 512, 1024),
                 ("up_conv4", 28, 1024, 512), ("up_conv3", 56, 512, 256),
@@ -221,6 +238,7 @@ def main():
     from dfc_sa_unet_torch.train.trainer import Trainer
     from dfc_sa_unet_torch.utils.weights import calibrate_batch_stats_, init_random_, load_state_dict_file
     from scripts import bench_torch_bn_stats as probe
+    from scripts import bench_torch_conv3x3 as conv_bench
     from scripts import bench_torch_dfc_tail as tail_bench
     from scripts import bench_torch_mxu as mxu
 
@@ -249,6 +267,20 @@ def main():
         regs = [ln.split("Used")[1].split(",")[0].strip() for ln in log.read_text().splitlines() if "Used" in ln]
         spills = sum("0 bytes spill stores" not in ln for ln in log.read_text().splitlines() if "spill stores" in ln)
         print(f"    {log.stem}: registers per kernel instance {regs}; instances with spills: {spills}")
+    # the wgmma kernels of conv3x3_bn_relu (the ring's and the persistent one) and probe_matmul: ptxas
+    # must neither serialize their products (C7515) nor spill
+    for stem, kernel in (("dfc_tail", "conv3x3_bn_relu_wgmma_kernel"), ("dfc_tail", "conv3x3_bn_relu_narrow_kernel"),
+                         ("mxu_probes", "probe_matmul_kernel")):
+        text = (_build.BUILD_DIR / f"{stem}.log").read_text()
+        entry, found = "", []
+        for ln in text.splitlines():
+            if "Compiling entry function" in ln:
+                entry = ln
+            elif "spill stores" in ln and kernel in entry:
+                found.append(ln.split(":", 1)[-1].strip())
+        print(f"    {kernel}: {len(found)} instances, {found}")
+        if "C7515" in text or not found or any("0 bytes spill stores" not in ln for ln in found):
+            fail(f"ptxas serialized the wgmma products or spilled in {stem}.cu ({kernel}): see {stem}.log")
 
     # ------------------------------------------------------------ phase 3
     def randn(*shape, dtype=torch.float32, scale=1.0):
@@ -258,9 +290,9 @@ def main():
         return (randn(b, n, 1, c // 8, dtype=dtype), randn(b, n, 1, c // 8, dtype=dtype),
                 randn(b, n, 1, c, dtype=dtype))
 
-    def conv_inputs(b, h, cin, c, dtype):
-        return (randn(b, h, h, cin, dtype=dtype), randn(3, 3, cin, c, dtype=dtype, scale=(9 * cin) ** -0.5),
-                randn(c))
+    def conv_inputs(b, h, cin, c, dtype, w=None):
+        return (randn(b, h, h if w is None else w, cin, dtype=dtype),
+                randn(3, 3, cin, c, dtype=dtype, scale=(9 * cin) ** -0.5), randn(c))
 
     def tail_inputs(b, h, cin, c, dtype, w=None):
         w = h if w is None else w
@@ -366,7 +398,14 @@ def main():
                 check("dfc_tail", tail_ops.dfc_tail, tail_ops.dfc_tail_plain,
                       tail_inputs(4, h, cin, c, dtype), label, poison=(0, 1))
             check("conv3x3_bn_relu", tail_ops.conv3x3_bn_relu, tail_ops.conv3x3_bn_relu_plain,
-                  conv_inputs(4, h, cin, c, dtype), label)
+                  conv_inputs(4, h, cin, c, dtype), label, poison=(0,))
+        # the conv's tilings: taps packed into a step, steps across taps, B tiles ragged in Cout, blocks
+        # ragged in pixels, one pixel
+        for b, h, w, cin, c in CONV_ODD_SHAPES:
+            tiling = tail_ops.conv_tiling(cin, c)
+            check("conv3x3_bn_relu", tail_ops.conv3x3_bn_relu, tail_ops.conv3x3_bn_relu_plain,
+                  conv_inputs(b, h, cin, c, dtype, w),
+                  f"{dn} B={b} {h}x{w} {cin}->{c} ({tiling.steps} steps, NB {tiling.nb})", poison=(0,))
         # the tail at pixel counts that no block divides (odd H and W, a ragged last block),
         # at C >= 256 (64-pixel blocks) and C <= 128 (128-pixel blocks), at C = 32 and 64, at Cin = 3
         for b, h, w, cin, c in TAIL_ODD_SHAPES:
@@ -399,9 +438,9 @@ def main():
     # the matrix-unit probes, bf16 only: the probe's shape cut in B, an odd H != W with widths that no
     # tile divides, and row counts that are not a multiple of the 128-row tile
     bf = torch.bfloat16
-    for m, kk, n in ((4 * 56 * 56, 384, 256), (1000, 384, 256), (129, 8, 8)):
+    for m, kk, n in PROBE_MATMUL_SHAPES:
         check("probe_matmul", probe_ops.probe_matmul, probe_ops.probe_matmul_plain,
-              (randn(m, kk, dtype=bf), randn(kk, n, dtype=bf)), f"bfloat16 [{m}x{kk}]@[{kk}x{n}]")
+              (randn(m, kk, dtype=bf), randn(kk, n, dtype=bf)), f"bfloat16 [{m}x{kk}]@[{kk}x{n}]", poison=(0,))
     for b, h, w, cin, c in ((4, 56, 56, 128, 256), (3, 13, 17, 24, 40), (1, 5, 3, 8, 8)):
         x, w4 = randn(b, h, w, cin, dtype=bf), randn(3, 3, cin, c, dtype=bf, scale=0.05)
         label = f"bfloat16 B={b} {h}x{w} {cin}->{c}"
@@ -570,6 +609,7 @@ def main():
               f"library {lib_ms:8.3f} ms  bound {bound:7.3f} ms", flush=True)
 
     tail_levels = []  # the tail's seven launches, level by level, kept in the kernels line
+    conv_levels = []  # the same for the conv's two
     with torch.inference_mode():
         for name, h, cin, c in BLOCK_SHAPES:
             q, k, v = attn_inputs(BATCH, 64, c, bf)
@@ -594,14 +634,14 @@ def main():
                                     "bound_ms": tail_bench.bound_ms(BATCH, h, cin, c)[0]})
             else:
                 x, w, b = conv_inputs(BATCH, h, cin, c, bf)
-                xc = x.permute(0, 3, 1, 2)
-                kc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-                add("conv3x3_bn_relu", name,
-                    timed(lambda: tail_ops.conv3x3_bn_relu(x, w, b), 3),
-                    timed(lambda: tail_ops.conv3x3_bn_relu_plain(x, w, b), 3),
-                    timed(lambda: F.relu(F.conv2d(xc, kc, b.to(bf), padding=1)), 3),
-                    2 * npix * (cin + c) + 2 * 9 * cin * c + 4 * c,
-                    2 * npix * c * 9 * cin)
+                # held to the plain version at the engine's own shapes before it is timed
+                check("conv3x3_bn_relu", tail_ops.conv3x3_bn_relu, tail_ops.conv3x3_bn_relu_plain, (x, w, b),
+                      f"bfloat16 {name} B={BATCH} {h}x{h} {cin}->{c}", poison=(0,))
+                ms = (timed(lambda: tail_ops.conv3x3_bn_relu(x, w, b), 5),
+                      timed(lambda: tail_ops.conv3x3_bn_relu_plain(x, w, b), 3), timed(conv_bench.library(x, w, b), 5))
+                add("conv3x3_bn_relu", name, *ms, *conv_bench.work(BATCH, h, cin, c))
+                conv_levels.append({"level": name, "ms": ms[0], "plain_ms": ms[1], "library_ms": ms[2],
+                                    "bound_ms": conv_bench.bound_ms(BATCH, h, cin, c)[0]})
 
         # one forward of either transformer launches its kernel LAYERS times at this shape
         head_dim = EMBED // HEADS
@@ -688,7 +728,7 @@ def main():
 
     # ------------------------------------------------------------ phase 8
     del pred, pred_module, pred_engine, zoo_pred, xs, xn, model, weights, served, ref, probs, calib
-    del args, q, k, v, qs, ks, vs, q4, k4, v4, xc  # phase 7's last inputs
+    del args, q, k, v, qs, ks, vs, q4, k4, v4  # phase 7's last inputs
     torch.cuda.empty_cache()
     print(f"    device memory still allocated before training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     print(f"[8] training at {IMG}x{IMG} through the Trainer, seed {seed} ({card})", flush=True)
@@ -1002,7 +1042,8 @@ def main():
             "bound_by": "bytes" if max(terms, key=terms.get) == "bytes" else "operations",
             "bound_term": max(terms, key=terms.get),
             "library_ms": r["library_ms"],
-            **({"levels": tail_levels} if name == "dfc_tail" else {}),
+            **({"levels": {"dfc_tail": tail_levels, "conv3x3_bn_relu": conv_levels}[name]}
+               if name in ("dfc_tail", "conv3x3_bn_relu") else {}),
         })
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,5 @@
-// The 3x3 conv mainloop shared by the port's conv kernels, for Hopper (sm_90a).
+// The mma.sync / SIMT 3x3 conv mainloop of the port's older conv kernels, for
+// Hopper (sm_90a).
 //
 // An implicit GEMM: a block owns M pixels x NT output channels, gathers the
 // nine taps straight from NHWC x (every image edge masked, so no padded copy
@@ -7,11 +8,13 @@
 // cores (mma.sync m16n8k16; 8 warps as 2 x 4 over the M x N tile); f32 runs
 // on the SIMT units (each warp TM pixel rows, each lane the channels
 // lane + 32*j), exact to f32.  Operands are staged with no overlap of loads
-// and math; wgmma/TMA pipelining is later work.
+// and math.
 //
-// Included by dfc_tail.cu (conv3x3_bn_relu, dfc_tail) and conv_bn_stats.cu
-// (conv3x3_bias_stats); each is its own translation unit, so everything
-// here sits in an unnamed namespace.
+// It carries conv3x3_bias_stats (conv_bn_stats.cu, bf16 and f32) and the f32
+// paths of dfc_tail.cu (conv3x3_bn_relu and the tail).  The bf16
+// conv3x3_bn_relu, the bf16 tail and the matrix-unit probes run on wgmma
+// (conv3x3_wgmma.cuh).  Each includer is its own translation unit, so
+// everything here sits in an unnamed namespace.
 #pragma once
 
 #include <stdint.h>

@@ -43,8 +43,22 @@
 // and its register and shared-memory budget are TailTiling's.
 // f32 (dfc_tail_kernel, conv3x3_mainloop.cuh): the SIMT units, each warp TM
 // pixel rows, each lane the channels lane + 32*j, exact to f32 for the 1e-5
-// parity mode (wgmma has no f32 path; TF32 would break it).  conv3x3_bn_relu
-// runs on the mma.sync mainloop in bf16 and the SIMT units in f32.
+// parity mode (wgmma has no f32 path; TF32 would break it).
+//
+// conv3x3_bn_relu, bf16, on wgmma, with the bias and the ReLU applied to the
+// f32 accumulators before the one rounding.  K is walked flat, 64 rows of w
+// [9 * Cin8][Cout] (Cin zero-padded to 8) a step.  At the bottleneck (512 ->
+// 1024, 14x14, bound by the tensor cores; conv3x3_bn_relu_wgmma_kernel:
+// wgconv::conv3x3_wgmma, 128 pixels x NB channels a block, two warpgroups of
+// wgmma.m64nNBk16, weight tiles by TMA) a step lies in one tap, 72 steps
+// through a ring of four stages.  At down1 (Cin = 3, 224x224 -> 64, bound by
+// its 822 MB of output; conv3x3_bn_relu_narrow_kernel:
+// wgconv::conv3x3_wgmma_narrow) a step packs eight taps, so its 27-deep product
+// takes two steps instead of nine; a persistent block keeps the weight resident,
+// gathers the 3-channel pixels straight from x one tile ahead (no padded copy of
+// x) and stores by TMA, so loads and stores stay in flight.  The tiling (the
+// kernel, NB from Cout) is ops/dfc_tail.py::conv_tiling's; the wrapper passes
+// it.  conv3x3_bn_relu in f32 runs on the SIMT units of conv3x3_mainloop.cuh.
 
 #include <cuda.h>
 #include <stdint.h>
@@ -59,11 +73,13 @@ namespace {
 
 // ---------------------------------------------------------------- conv3x3
 
-template <typename T, int NT>
+// f32 (SIMT, exact); the bf16 conv is on wgmma below
+template <int NT>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_bn_relu_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       const float* __restrict__ bias, T* __restrict__ out, int P, int H, int W,
+conv3x3_bn_relu_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                       const float* __restrict__ bias, float* __restrict__ out, int P, int H, int W,
                        int cin, int cout) {
+  using T = float;
   constexpr int M = 64;
   using Tile = typename TileFor<T, M, NT>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -167,29 +183,106 @@ dfc_tail_kernel(const float* __restrict__ x, const float* __restrict__ a, const 
   }
 }
 
-template <typename T, int NT>
-int launch_conv(const void* x, const void* w, const void* b, void* out, int P, int H, int W,
-                int cin, int cout, cudaStream_t stream) {
+template <int NT>
+int launch_conv_f32(const void* x, const void* w, const void* b, void* out, int P, int H, int W,
+                    int cin, int cout, cudaStream_t stream) {
   constexpr int M = 64;
-  using Tile = typename TileFor<T, M, NT>::type;
-  const size_t smem = sizeof(T) * (M * (Tile::BK + kPad) + Tile::SW_ELEMS);
-  cudaFuncSetAttribute(conv3x3_bn_relu_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  using Tile = typename TileFor<float, M, NT>::type;
+  const size_t smem = sizeof(float) * (M * (Tile::BK + kPad) + Tile::SW_ELEMS);
+  cudaFuncSetAttribute(conv3x3_bn_relu_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid(dfc::ceil_div(P, M), dfc::ceil_div(cout, NT));
-  conv3x3_bn_relu_kernel<T, NT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(b),
-      static_cast<T*>(out), P, H, W, cin, cout);
+  conv3x3_bn_relu_kernel<NT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
+      static_cast<float*>(out), P, H, W, cin, cout);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int conv_dispatch(const void* x, const void* w, const void* b, void* out, int P, int H, int W,
-                  int cin, int cout, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cout <= 32) return launch_conv<T, 32>(x, w, b, out, P, H, W, cin, cout, s);
-  if (cout <= 64) return launch_conv<T, 64>(x, w, b, out, P, H, W, cin, cout, s);
-  if (cout <= 128) return launch_conv<T, 128>(x, w, b, out, P, H, W, cin, cout, s);
-  return launch_conv<T, 256>(x, w, b, out, P, H, W, cin, cout, s);
+// blocks an SM of the bf16 conv: as many rings as shared memory holds, at most three (the registers
+// of 768 threads)
+constexpr int conv_blocks(int smem) { return 232448 / smem < 3 ? 232448 / smem : 3; }
+
+// bf16: ReLU(conv3x3(x) + b) on the wgmma ring; w is [9 * cin][cout] (HWIO with cin a multiple
+// of 8), read by TMA through wmap
+template <int NB, int STAGES>
+__global__ void __launch_bounds__(wgconv::kThreads, conv_blocks(wgconv::conv_smem_bytes<NB, STAGES, true>()))
+conv3x3_bn_relu_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ bias,
+                             __nv_bfloat16* __restrict__ out, int P, int H, int W, int cin, int cout,
+                             const __grid_constant__ CUtensorMap wmap) {
+  wgconv::conv3x3_wgmma<NB, STAGES, true>(x, nullptr, &wmap, out, P, H, W, cin, cout, wgconv::BiasRelu{bias, cout});
+}
+
+template <int NB, int STAGES>
+int launch_conv_wgmma(const void* x, const void* w, const void* b, void* out, int P, int H, int W, int cin,
+                      int cout, cudaStream_t stream) {
+  constexpr int smem = wgconv::conv_smem_bytes<NB, STAGES, true>();
+  CUtensorMap wmap;
+  if (!wgconv::encode_tiled()) return static_cast<int>(cudaErrorNotSupported);
+  if (!wgconv::tile_map(&wmap, w, cout, 9 * (uint64_t)cin, 1, 64)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      cudaFuncSetAttribute(conv3x3_bn_relu_wgmma_kernel<NB, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(dfc::ceil_div(P, wgconv::kBM), dfc::ceil_div(cout, NB));
+  conv3x3_bn_relu_wgmma_kernel<NB, STAGES><<<grid, wgconv::kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(b), static_cast<__nv_bfloat16*>(out), P, H, W,
+      cin, cout, wmap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 at Cin = 3 or 8 and Cout <= 64 (down1): the persistent kernel, x [P][CIN] read as it is,
+// w [72][cout], out by TMA through omap
+template <int CIN>
+__global__ void __launch_bounds__(wgconv::kNarrowThreads, 4)
+conv3x3_bn_relu_narrow_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                              const float* __restrict__ bias, int P, int H, int W, int cout,
+                              const __grid_constant__ CUtensorMap omap) {
+  wgconv::conv3x3_wgmma_narrow<CIN>(x, w, &omap, P, H, W, cout, wgconv::BiasRelu{bias, cout});
+}
+
+template <int CIN>
+int launch_conv_narrow(const void* x, const void* w, const void* b, void* out, int P, int H, int W, int cout,
+                       cudaStream_t stream) {
+  constexpr int smem = wgconv::kNarrowSmemBytes;
+  if (cout > 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (!wgconv::encode_tiled()) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap omap;
+  if (!wgconv::tile_map(&omap, out, cout, P, 1, 64)) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(conv3x3_bn_relu_narrow_kernel<CIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv3x3_bn_relu_narrow_kernel<CIN>,
+                                                        wgconv::kNarrowThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = dfc::ceil_div(P, wgconv::kNarrowBM), blocks = per_sm * sms;
+  conv3x3_bn_relu_narrow_kernel<CIN><<<tiles < blocks ? tiles : blocks, wgconv::kNarrowThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(b), P, H,
+      W, cout, omap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the tilings ops/dfc_tail.py::conv_tiling gives: (B tile width, ring stages; 0: the persistent
+// kernel, which reads x's cin = 3 or 8 channels)
+int conv_wgmma_dispatch(const void* x, const void* w, const void* b, void* out, int P, int H, int W, int cin,
+                        int cout, int nb, int stages, cudaStream_t s) {
+  if (cout % 8) return static_cast<int>(cudaErrorInvalidValue);  // 16-byte rows of w and out
+  if (nb == 64 && stages == 0 && cin == 3) return launch_conv_narrow<3>(x, w, b, out, P, H, W, cout, s);
+  if (nb == 64 && stages == 0 && cin == 8) return launch_conv_narrow<8>(x, w, b, out, P, H, W, cout, s);
+  if (cin % 8) return static_cast<int>(cudaErrorInvalidValue);  // 16-byte rows of x
+  if (nb == 64 && stages == 4) return launch_conv_wgmma<64, 4>(x, w, b, out, P, H, W, cin, cout, s);
+  if (nb == 128 && stages == 4) return launch_conv_wgmma<128, 4>(x, w, b, out, P, H, W, cin, cout, s);
+  if (nb == 256 && stages == 4) return launch_conv_wgmma<256, 4>(x, w, b, out, P, H, W, cin, cout, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// f32: the SIMT mainloop, NT output channels a block
+int conv_dispatch_f32(const void* x, const void* w, const void* b, void* out, int P, int H, int W, int cin, int cout,
+                      cudaStream_t s) {
+  if (cout <= 32) return launch_conv_f32<32>(x, w, b, out, P, H, W, cin, cout, s);
+  if (cout <= 64) return launch_conv_f32<64>(x, w, b, out, P, H, W, cin, cout, s);
+  if (cout <= 128) return launch_conv_f32<128>(x, w, b, out, P, H, W, cin, cout, s);
+  return launch_conv_f32<256>(x, w, b, out, P, H, W, cin, cout, s);
 }
 
 // M per C: about 64 accumulators a thread; three M x (C + 8) operands and a
@@ -456,43 +549,16 @@ dfc_tail_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a, co
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, through the runtime (no link to libcuda); null if missing
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// a TailMaps entry: bf16 tensor [z][rows][cols] at w, boxes of 64 x 64 x 1 in the 128-byte swizzle
-bool weight_map(CUtensorMap* map, const void* w, uint64_t cols, uint64_t rows, uint64_t z) {
-  const cuuint64_t dims[3] = {cols, rows, z}, strides[2] = {cols * 2, cols * rows * 2};
-  const cuuint32_t box[3] = {64, 64, 1}, unit[3] = {1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int C>
 int launch_tail_bf16(const void* x, const void* a, const void* wc, const void* bc, const void* wg,
                      const void* bg, const void* wf, const void* bf, const void* wr, void* out, int P,
                      int H, int W, int cin, cudaStream_t stream) {
   using T = TailTiling<C>;
   if (cin % 8) return static_cast<int>(cudaErrorInvalidValue);  // 16-byte rows of x
-  if (!encode_tiled()) return static_cast<int>(cudaErrorNotSupported);
+  if (!wgconv::encode_tiled()) return static_cast<int>(cudaErrorNotSupported);
   TailMaps maps;
-  if (!weight_map(&maps.wc, wc, C, cin, 9) || !weight_map(&maps.wg, wg, C, C, 2) ||
-      !weight_map(&maps.wf, wf, C, C, 3) || !weight_map(&maps.wr, wr, C, cin, 1))
+  if (!wgconv::tile_map(&maps.wc, wc, C, cin, 9, 64) || !wgconv::tile_map(&maps.wg, wg, C, C, 2, 64) ||
+      !wgconv::tile_map(&maps.wf, wf, C, C, 3, 64) || !wgconv::tile_map(&maps.wr, wr, C, cin, 1, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncSetAttribute(dfc_tail_wgmma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   dfc_tail_wgmma_kernel<C><<<dfc::ceil_div(P, T::BM), 256, T::kSmemBytes, stream>>>(
@@ -518,12 +584,14 @@ int tail_dispatch(int c, Launch&& launch) {
 
 extern "C" int conv3x3_bn_relu_f32(const void* x, const void* w, const void* b, void* out, int P,
                                    int H, int W, int cin, int cout, void* stream) {
-  return conv_dispatch<float>(x, w, b, out, P, H, W, cin, cout, stream);
+  return conv_dispatch_f32(x, w, b, out, P, H, W, cin, cout, static_cast<cudaStream_t>(stream));
 }
 
+// w: [9 * cin8][cout], cin8 = cin zero-padded to a multiple of 8 (ops/dfc_tail.py::pack_conv_taps);
+// nb, stages: conv_tiling's (the ring's kernel needs cin a multiple of 8, the wrapper pads x for it)
 extern "C" int conv3x3_bn_relu_bf16(const void* x, const void* w, const void* b, void* out, int P,
-                                    int H, int W, int cin, int cout, void* stream) {
-  return conv_dispatch<__nv_bfloat16>(x, w, b, out, P, H, W, cin, cout, stream);
+                                    int H, int W, int cin, int cout, int nb, int stages, void* stream) {
+  return conv_wgmma_dispatch(x, w, b, out, P, H, W, cin, cout, nb, stages, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int dfc_tail_f32(const void* x, const void* a, const void* wc, const void* bc,

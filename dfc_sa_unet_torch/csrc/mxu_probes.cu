@@ -17,116 +17,200 @@
 // What the probes ask on this card: how close a product written by hand gets to
 // the library's, and whether the tap schedule of a conv mainloop matters.
 //
-// The conv probes run on the pipelined wgmma mainloop of conv3x3_wgmma.cuh
-// (128 pixels x 256 output channels a block, a 4-stage cp.async ring, one
-// step's products in flight while the next step's copies land).  On the TPU the
-// two schedules are different matrix shapes (three products of depth 3*Cin, or
-// nine of depth Cin).  Here both become the same stream of (tap, 64-channel)
-// steps, and the template parameter NDX (taps per row of the weight) only says
-// where a step's weight rows lie in its layout; the two layouts put them at the
-// same addresses.  So the probe now asks whether the schedule matters once
-// loads overlap math, and on this card the answer is the stream's, not the
-// layout's.
+// The conv probes run on wgconv::conv3x3_wgmma of conv3x3_wgmma.cuh (128
+// pixels x 256 output channels a block, a 4-stage cp.async ring, one step's
+// products in flight while the next step's copies land, no epilogue).  On the
+// TPU the two schedules are different matrix shapes (three products of depth
+// 3*Cin, or nine of depth Cin).  Here both layouts are the same matrix
+// [9*Cin][Cout], walked as one stream of 64-row steps, so the two exports launch
+// one kernel: the probe now asks whether the schedule matters once loads overlap
+// math, and on this card the answer is the stream's, not the layout's.
 //
-// probe_matmul keeps the mma.sync mainloop of conv3x3_mainloop.cuh (128 x 128
-// tiles, 32-deep chunks, no overlap of loads and math), the one the port's
-// dfc_tail, conv3x3_bn_relu and conv3x3_bias_stats kernels run on.
+// probe_matmul (probe_matmul_kernel) is a persistent GEMM fed by TMA: one block
+// an SM walks 128 x 256 output tiles; a producer warpgroup (one thread issuing,
+// 40 registers after setmaxnreg) keeps a ring of three 48 KB stages full, each
+// stage a 128 x 64 box of x and four 64 x 64 boxes of w in the 128-byte swizzle
+// the wgmma descriptors name; two consumer warpgroups (232 registers) run
+// wgmma.m64n256k16 on 64 rows each, one step's products in flight, and free a
+// stage on its `empty` barrier.  A tile's bf16 output goes through shared memory
+// in the same swizzle and leaves by TMA stores, so the next tile's loads and
+// products run during its epilogue.  TMA zero-fills past M, K and N and clips
+// the stores, so ragged shapes need no masking.
 //
 // What bounds them on the H100 at the probe's shape (B = 128, 56x56, 128 ->
 // 256): the matmul at K = 384 does 2*K*N / (2*(K + N)) = 154 operations per
-// byte, below the ~295 the card needs, so the bytes bound it; the conv does
-// 9 times the operations on a third of the input bytes, so the tensor cores
-// do.
+// byte, below the ~295 the card needs, so the bytes bound it (205 MB of its
+// 514 MB are the output); the conv does 9 times the operations on a third of
+// the input bytes, so the tensor cores do.
 
 #include <stdint.h>
 
 #include "common.cuh"
-#include "conv3x3_mainloop.cuh"
 #include "conv3x3_wgmma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int kM = 128;   // rows (pixels) per block
-constexpr int kNT = 128;  // output columns per block
-using Tile = MmaTile<kM, kNT>;
 
-// out[m0.., n0..] <- acc rounded to bf16, two adjacent columns per store
-__device__ void store_tile(const float (&acc)[Tile::ACC], bf16* __restrict__ out, int m0, int n0,
-                           int rows, int cout) {
-#pragma unroll
-  for (int e = 0; e < Tile::ACC; e += 2) {
-    const int m = m0 + Tile::row(e), n = n0 + Tile::col(e);  // n is even, cout a multiple of 8
-    if (m < rows && n < cout)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * cout + n) =
-          __floats2bfloat162_rn(acc[e], acc[e + 1]);
-  }
-}
+// ---------------------------------------------------------------- probe_matmul
 
-__global__ void __launch_bounds__(kThreads)
-probe_matmul_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ out,
-                    int M, int K, int N) {
-  constexpr int LDA = Tile::BK + kPad;
+constexpr int kGemmBM = 128;        // rows of a tile: two consumer warpgroups of 64
+constexpr int kGemmBN = 256;        // columns of a tile: wgmma.m64n256k16
+constexpr int kGemmStages = 3;      // 48 KB each, beside the 64 KB output tile
+constexpr int kGemmConsumers = 2;   // warpgroups
+constexpr int kGemmThreads = 128 * (kGemmConsumers + 1);  // + the producer warpgroup
+using GemmRing = wgconv::Ring<kGemmBM, kGemmConsumers, kGemmBN, kGemmStages, true>;
+constexpr int kGemmOutBytes = kGemmBM * kGemmBN * 2;
+// output tile, ring, its `full` barriers, the `empty` barriers, 1 KB of alignment slack
+constexpr int kGemmSmemBytes = 1024 + kGemmOutBytes + GemmRing::kBytes + 2 * GemmRing::kBarBytes;
+static_assert(kGemmSmemBytes <= 232448, "shared memory of one block");
+
+// x [M][K] in 64 x 128 boxes (a tile's A: K-major), w [K][N] and out [M][N] in 64 x 64 boxes
+struct GemmMaps {
+  CUtensorMap x, w, out;
+};
+
+__global__ void __launch_bounds__(kGemmThreads, 1)
+probe_matmul_kernel(int M, int K, int N, const __grid_constant__ GemmMaps maps) {
+  using R = GemmRing;
+  constexpr int S = kGemmStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sa = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sw = sa + kM * LDA;
-  const int n0 = blockIdx.x * kNT, m0 = blockIdx.y * kM;
-  const RowSlots<bf16, kM, Tile::BK> rows(m0, M, 1, 1);
-  float acc[Tile::ACC];
-  zero(acc);
-  for (int k0 = 0; k0 < K; k0 += Tile::BK) {
-    rows.centre(sa, x, k0, K);
-    Tile::load_w(sw, w, k0, K, n0, N, N);
-    __syncthreads();
-    Tile::mma(acc, sa, LDA, sw);
-    __syncthreads();
+  const uint32_t raw = dfc::smem_u32(smem_raw);
+  const uint32_t otile = (raw + 1023u) & ~1023u;  // [2 warpgroups][4 column blocks][64 rows][128 bytes]
+  const R ring{otile + kGemmOutBytes};
+  auto empty = [&](int g) { return ring.full(0) + R::kBarBytes + 8 * (g % S); };
+  const int tiles_n = (N + kGemmBN - 1) / kGemmBN;
+  const int tiles = ((M + kGemmBM - 1) / kGemmBM) * tiles_n, steps = (K + wgconv::kBK - 1) / wgconv::kBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      wgconv::mbar_init(ring.full(s), 1);
+      wgconv::mbar_init(empty(s), 128 * kGemmConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  store_tile(acc, out, m0, n0, M, N);
+  __syncthreads();
+
+  if (wg == kGemmConsumers) {  // the producer: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x % 128 == 0) {
+      int g = 0;  // steps issued, over all of this block's tiles
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / tiles_n) * kGemmBM, n0 = (t % tiles_n) * kGemmBN;
+        // w's 64-column boxes that start inside N (the others would only feed columns never stored)
+        const int blocks = min(kGemmBN / 64, (N - n0 + 63) / 64);
+        for (int k = 0; k < steps; ++k, ++g) {
+          if (g >= S) wgconv::mbar_wait(empty(g), ((g / S) & 1) ^ 1);  // step g - S has freed the stage
+          wgconv::mbar_expect_tx(ring.full(g), R::kABytes + blocks * wgconv::kBlock);
+          wgconv::tma_load(ring.a(g), &maps.x, ring.full(g), k * wgconv::kBK, m0, 0);
+          for (int blk = 0; blk < blocks; ++blk)
+            wgconv::tma_load(ring.b(g) + blk * wgconv::kBlock, &maps.w, ring.full(g), n0 + 64 * blk,
+                             k * wgconv::kBK, 0);
+        }
+      }
+    }
+  } else {  // the consumers: 64 rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x % 32, lr = ((threadIdx.x % 128) / 32) * 16 + lane / 4;
+    const uint32_t mine = otile + wg * (kGemmOutBytes / kGemmConsumers);
+    unsigned char* const so = smem_raw + (mine - raw);
+    float acc[kGemmBN / 2];
+#pragma unroll
+    for (int i = 0; i < kGemmBN / 2; ++i) acc[i] = 0.f;
+    int g = 0;  // steps consumed
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / tiles_n) * kGemmBM, n0 = (t % tiles_n) * kGemmBN;
+      for (int k = 0; k < steps; ++k, ++g) {
+        wgconv::mbar_wait(ring.full(g), (g / S) & 1);
+        dfc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < wgconv::kBK / 16; ++kk)  // the tile's first product overwrites acc
+          dfc::wgmma_ss(acc, wgconv::a_desc(ring.a(g) + wg * (64 * 128), kk), wgconv::b_desc(ring.b(g), 0, kk),
+                        k > 0 || kk > 0);
+        dfc::wgmma_commit();
+        dfc::wgmma_wait<1>();
+        dfc::fence_regs(acc);
+        if (k > 0) wgconv::mbar_arrive(empty(g - 1));  // step g - 1's products are done
+      }
+      dfc::wgmma_wait<0>();
+      dfc::fence_regs(acc);
+      wgconv::mbar_arrive(empty(g - 1));
+
+      // epilogue: bf16 into this warpgroup's half of the output tile (the 128-byte swizzle of 64-column
+      // blocks), once the previous tile's stores have read it; then four TMA stores
+      if (threadIdx.x % 128 == 0) wgconv::bulk_wait_all<true>();
+      wgconv::named_sync(1 + wg, 128);
+#pragma unroll
+      for (int j = 0; j < kGemmBN / 8; ++j) {
+        const int blk = j / 8, cb = (j % 8) * 16 + (lane % 4) * 4;  // byte of the column pair in its block's row
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(so + blk * wgconv::kBlock + dfc::swizzle128((lr + 8 * h) * 128 + cb)) =
+              dfc::pack2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wgconv::named_sync(1 + wg, 128);
+      if (threadIdx.x % 128 == 0) {  // the boxes that start inside the output
+        for (int blk = 0; blk < kGemmBN / 64 && n0 + 64 * blk < N && m0 + 64 * wg < M; ++blk)
+          wgconv::tma_store(&maps.out, mine + blk * wgconv::kBlock, n0 + 64 * blk, m0 + 64 * wg, 0);
+        wgconv::bulk_commit();
+      }
+    }
+    if (threadIdx.x % 128 == 0) wgconv::bulk_wait_all<false>();
+  }
 }
 
-// NDX taps per row of the weight: 3 (cat, w3 [3][3*Cin][Cout]) or 1 (9dot, w9
-// [9][Cin][Cout]).  Tap t, channel c lies in row (t % NDX)*Cin + c of block t / NDX.
-template <int NDX>
+// ---------------------------------------------------------------- the conv probes
+
 __global__ void __launch_bounds__(wgconv::kThreads, 1)
-probe_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ out,
-                  int P, int H, int W, int cin, int cout) {
-  wgconv::conv3x3_wgmma(x, w, out, P, H, W, cin, cout, [cin](int tap, int c) {
-    return (size_t)(tap / NDX) * NDX * cin + (size_t)(tap % NDX) * cin + c;
-  });
+probe_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ out, int P, int H,
+                  int W, int cin, int cout) {
+  wgconv::conv3x3_wgmma<wgconv::kBN, wgconv::kStages, false>(x, w, nullptr, out, P, H, W, cin, cout,
+                                                             wgconv::NoEpilogue{});
 }
 
-template <int NDX>
-int launch_conv(const void* x, const void* w, void* out, int P, int H, int W, int cin, int cout,
-                void* stream) {
-  const cudaError_t err = cudaFuncSetAttribute(probe_conv_kernel<NDX>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, wgconv::kSmemBytes);
+// w: [9 * Cin][Cout] in either layout (w3 [3][3*Cin][Cout] and w9 [9][Cin][Cout] are that matrix)
+int launch_conv(const void* x, const void* w, void* out, int P, int H, int W, int cin, int cout, void* stream) {
+  constexpr int smem = wgconv::conv_smem_bytes<wgconv::kBN, wgconv::kStages, false>();
+  const cudaError_t err = cudaFuncSetAttribute(probe_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(dfc::ceil_div(cout, wgconv::kBN), dfc::ceil_div(P, wgconv::kBM));
-  probe_conv_kernel<NDX><<<grid, wgconv::kThreads, wgconv::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(out), P, H, W,
-      cin, cout);
+  const dim3 grid(dfc::ceil_div(P, wgconv::kBM), dfc::ceil_div(cout, wgconv::kBN));
+  probe_conv_kernel<<<grid, wgconv::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(out), P, H, W, cin, cout);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// x [M][K], w [K][N], out [M][N]; K and N multiples of 8 (TMA's 16-byte strides), all 16-byte aligned
 extern "C" int probe_matmul_bf16(const void* x, const void* w, void* out, int M, int K, int N,
                                  void* stream) {
-  const size_t smem = sizeof(bf16) * ((size_t)kM * (Tile::BK + kPad) + Tile::SW_ELEMS);
-  const dim3 grid(dfc::ceil_div(N, kNT), dfc::ceil_div(M, kM));
-  probe_matmul_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(out), M, K, N);
+  if (!wgconv::encode_tiled()) return static_cast<int>(cudaErrorNotSupported);
+  GemmMaps maps;
+  if (!wgconv::tile_map(&maps.x, x, K, M, 1, kGemmBM) || !wgconv::tile_map(&maps.w, w, N, K, 1, 64) ||
+      !wgconv::tile_map(&maps.out, out, N, M, 1, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(probe_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = (long long)dfc::ceil_div(M, kGemmBM) * dfc::ceil_div(N, kGemmBN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  probe_matmul_kernel<<<grid, kGemmThreads, kGemmSmemBytes, static_cast<cudaStream_t>(stream)>>>(M, K, N, maps);
   return static_cast<int>(cudaGetLastError());
 }
 
 // w3: [3][3*Cin][Cout]
 extern "C" int probe_conv_cat_bf16(const void* x, const void* w3, void* out, int P, int H, int W,
                                    int cin, int cout, void* stream) {
-  return launch_conv<3>(x, w3, out, P, H, W, cin, cout, stream);
+  return launch_conv(x, w3, out, P, H, W, cin, cout, stream);
 }
 
 // w9: [9][Cin][Cout]
 extern "C" int probe_conv_9dot_bf16(const void* x, const void* w9, void* out, int P, int H, int W,
                                     int cin, int cout, void* stream) {
-  return launch_conv<1>(x, w9, out, P, H, W, cin, cout, stream);
+  return launch_conv(x, w9, out, P, H, W, cin, cout, stream);
 }

@@ -1,7 +1,8 @@
 // Hopper's warpgroup matrix multiply (wgmma) for the port's kernels, sm_90a only.
 //
-// Shared by conv3x3_wgmma.cuh (the conv probes), dfc_tail.cu (the DFC tail) and mha.cu
-// (multi-head attention): the 128-byte swizzle of shared-memory tiles, the operand
+// Shared by conv3x3_wgmma.cuh (the bf16 conv3x3_bn_relu and the conv probes), dfc_tail.cu
+// (the DFC tail), mxu_probes.cu (the GEMM of probe_matmul) and mha.cu (multi-head
+// attention): the 128-byte swizzle of shared-memory tiles, the operand
 // descriptors, the fence / commit / wait of a warpgroup's asynchronous products, and the
 // products themselves for the widths the kernels use, bf16 in, f32 accumulators.
 //
@@ -54,9 +55,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
 
 // d += A . B for a 64 x N x 16 product, N = 2 R: A K-major and B MN-major (transpose
 // flag 1), both in shared memory.  d[4j + r] is row 16*warp + lane/4 (+8 for r >= 2),
-// column 8j + 2*(lane%4) + (r & 1) of the warpgroup's 64 x N tile.
+// column 8j + 2*(lane%4) + (r & 1) of the warpgroup's 64 x N tile.  With accumulate = 0
+// the product overwrites d (d = A . B), so a new tile needs no zeroed registers.
 template <int R>
-__device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t desc_a, uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t desc_a, uint64_t desc_b, int accumulate = 1) {
   static_assert(R == 32 || R == 64 || R == 128, "N is 64, 128 or 256");
   if constexpr (R == 32) {
     asm volatile(
@@ -69,7 +71,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t desc_a, uint64_
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(desc_a), "l"(desc_b), "r"(1));
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
   } else if constexpr (R == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -87,7 +89,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t desc_a, uint64_
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(desc_a), "l"(desc_b), "r"(1));
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
   } else if constexpr (R == 128) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -117,7 +119,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t desc_a, uint64_
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(desc_a), "l"(desc_b), "r"(1));
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
   }
 }
 

@@ -7,8 +7,13 @@ on CUDA tensors.  Layout NHWC; weights in the JAX layout: wc [3,3,Cin,C]
 (HWIO), wg [2C,C] ordered [local|a], wf [3C,C] ordered [fused|local|a],
 wr [Cin,C] with res_scale folded in; weights in the activation dtype,
 biases f32.  The kernels mask every image edge, so any H and W work; the
-bf16 tail takes any Cin, which the wrapper zero-pads to a multiple of 8.
+bf16 kernels take any Cin, which the wrappers zero-pad to a multiple of 8.
+The bf16 conv walks K = 9 Cin8 flat in 64-deep steps (``conv_tiling``,
+``pack_conv_taps``), so at down1's Cin = 3 a step packs eight taps, and reads
+down1's 3-channel x as it is.
 """
+
+from collections import namedtuple
 
 import torch
 import torch.nn.functional as F
@@ -16,6 +21,9 @@ import torch.nn.functional as F
 from dfc_sa_unet_torch.ops import _build
 
 TAIL_CHANNELS = (32, 64, 128, 256, 512)  # C of the tail: one block holds all C
+CONV_BLOCK_PIXELS = 128  # pixels a block of the bf16 conv's ring: wgconv::kBM of csrc/conv3x3_wgmma.cuh
+NARROW_BLOCK_PIXELS = 64  # pixels a tile of its persistent kernel (Cin <= 8): wgconv::kNarrowBM
+ConvTiling = namedtuple("ConvTiling", "cin steps nb bm stages smem_bytes")
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 LAUNCHES = {"conv3x3_bn_relu": 0, "dfc_tail": 0}
@@ -56,6 +64,37 @@ def pad_cin(x, wc, wr, multiple=8):
     return F.pad(x, (0, pad)), F.pad(wc, (0, 0, 0, pad)), F.pad(wr, (0, 0, 0, pad))
 
 
+def conv_tiling(cin: int, cout: int) -> ConvTiling:
+    """The bf16 conv kernel's tiling (csrc/dfc_tail.cu::conv_wgmma_dispatch instantiates exactly
+    these).  K is 9 taps of Cin8 rows (Cin zero-padded to a multiple of 8, ``pack_conv_taps``),
+    walked in ``steps`` 64-deep steps (one tap a step where Cin is a multiple of 64, eight where it
+    is 8); the B tile is ``nb`` columns wide from Cout; ``bm`` pixels a tile.  ``stages`` of the ring
+    (128 pixels a block), or 0 for Cin <= 8 and Cout <= 64 (down1): the persistent kernel without a
+    ring (64-pixel tiles, one warpgroup a block), which keeps the weight resident.  ``cin``: the channels of x the kernel reads, zero-padded to Cin8 by the
+    wrapper, except 3 (RGB), which the persistent kernel reads as it is.  Dynamic shared memory: 1
+    KB of alignment slack, then the ring (an A tile of 128 x 64 and a B tile of 64 x nb in bf16 and
+    a TMA barrier a stage), or two A tiles, two 64 x 64 B tiles and the output tile (64 x 64
+    bf16)."""
+    cin_p = -(-cin // 8) * 8
+    steps = -(-9 * cin_p // 64)
+    nb = 64 if cout <= 64 else 128 if cout <= 128 else 256
+    bm = CONV_BLOCK_PIXELS
+    if cin_p == 8 and nb == 64:
+        return ConvTiling(3 if cin == 3 else 8, steps, nb, NARROW_BLOCK_PIXELS, 0,
+                          1024 + 3 * NARROW_BLOCK_PIXELS * 128 + 2 * 64 * 128)
+    return ConvTiling(cin_p, steps, nb, bm, 4, 1024 + 4 * (bm * 128 + nb * 128 + 8))
+
+
+def pack_conv_taps(w: torch.Tensor) -> torch.Tensor:
+    """HWIO w [3,3,Cin,Cout] -> the bf16 conv kernel's weight [9 * Cin8, Cout], Cin zero-padded to
+    Cin8, a multiple of 8: row tap * Cin8 + c is tap (dy+1)*3 + (dx+1), channel c, the order of
+    the kernel's flat K walk (step s, 16-byte chunk q -> K row 64 s + 8 q)."""
+    pad = -w.shape[2] % 8
+    if pad:
+        w = F.pad(w, (0, 0, 0, pad))
+    return w.reshape(9 * w.shape[2], w.shape[3])
+
+
 def _check(name, x, tensors, weights, biases):
     dev = x.device
     if x.dim() != 4:
@@ -93,8 +132,17 @@ def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.
     out = torch.empty((bsz, h, width, cout), dtype=x.dtype, device=x.device)
     if out.numel():
         name = f"conv3x3_bn_relu_{_DTYPES[x.dtype]}"
-        err = _build.kernel(name)(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                  bsz * h * width, h, width, cin, cout, _build.stream_handle(x.device))
+        npix, stream = bsz * h * width, _build.stream_handle(x.device)
+        if x.dtype == torch.bfloat16:  # the wgmma kernels: the flat K walk's weight, x with the channels they read
+            t = conv_tiling(cin, cout)
+            if t.cin != cin:
+                x = F.pad(x, (0, t.cin - cin))
+            wk = pack_conv_taps(w)
+            err = _build.kernel(name)(x.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(), npix, h, width,
+                                      t.cin, cout, t.nb, t.stages, stream)
+        else:
+            err = _build.kernel(name)(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), npix, h, width,
+                                      cin, cout, stream)
         _build.check(err, name)
         LAUNCHES["conv3x3_bn_relu"] += 1
     return out

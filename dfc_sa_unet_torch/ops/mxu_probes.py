@@ -19,11 +19,11 @@ All accumulate in f32 and round once to x's dtype.  The two conv layouts
 hold the same weights: ``w3 = w.reshape(3, 3*Cin, Cout)`` and
 ``w9 = w.reshape(9, Cin, Cout)`` of one HWIO ``w [3,3,Cin,Cout]``.  The
 conv kernels run on the pipelined wgmma mainloop of csrc/conv3x3_wgmma.cuh
-(the same shared memory a block whatever Cin), the matmul on the mma.sync
-mainloop of csrc/conv3x3_mainloop.cuh.  The kernels
-take bf16 (the probe's type); the plain versions any float type.  On CPU
-tensors a wrapper runs its plain version; on CUDA tensors it launches its
-kernel or raises.
+(the same shared memory a block whatever Cin), the matmul is a persistent
+wgmma GEMM whose operands come by TMA (one block an SM walks 128 x 256
+output tiles, so M has no grid limit).  The kernels take bf16 (the probe's
+type); the plain versions any float type.  On CPU tensors a wrapper runs its
+plain version; on CUDA tensors it launches its kernel or raises.
 """
 
 import torch
@@ -31,8 +31,7 @@ import torch.nn.functional as F
 
 from dfc_sa_unet_torch.ops import _build
 
-BLOCK_ROWS = 128          # pixels or rows a block: kM of csrc/mxu_probes.cu, wgconv::kBM of conv3x3_wgmma.cuh
-_MAX_GRID_Y = 65535
+BLOCK_ROWS = 128  # rows or pixels a tile: kGemmBM of csrc/mxu_probes.cu, wgconv::kBM of conv3x3_wgmma.cuh
 
 LAUNCHES = {"probe_matmul": 0, "probe_conv_cat": 0, "probe_conv_9dot": 0}
 
@@ -98,9 +97,9 @@ def probe_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{name}: shapes x {tuple(x.shape)}, w {tuple(w.shape)}")
     m, k = x.shape
     n = w.shape[1]
-    if k % 8 or n % 8 or k == 0 or not 0 < m <= _MAX_GRID_Y * BLOCK_ROWS:
-        raise ValueError(f"{name}: M={m} (1 .. {_MAX_GRID_Y * BLOCK_ROWS}), K={k} and N={n} (multiples of 8) "
-                         f"not supported by the kernel")
+    if k % 8 or n % 8 or k == 0 or n == 0 or not 0 < m < 2**31:
+        raise ValueError(f"{name}: M={m} (1 .. 2^31 - 1), K={k} and N={n} (multiples of 8: the 16-byte strides "
+                         f"of its TMA maps) not supported by the kernel")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     err = _build.kernel("probe_matmul_bf16")(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
                                              _build.stream_handle(x.device))
@@ -119,9 +118,9 @@ def _probe_conv(name, taps_per_pass, x, w):
         raise ValueError(f"{name}: w has shape {tuple(w.shape)}; x {tuple(x.shape)} needs "
                          f"{(9 // taps_per_pass, taps_per_pass * cin, cout)}")
     npix = bsz * h * width
-    if cin % 8 or cout % 8 or cin == 0 or not 0 < npix <= _MAX_GRID_Y * BLOCK_ROWS:
+    if cin % 8 or cout % 8 or cin == 0 or not 0 < npix < 2**31:
         raise ValueError(f"{name}: Cin={cin} and Cout={cout} (multiples of 8) or {npix} pixels "
-                         f"(1 .. {_MAX_GRID_Y * BLOCK_ROWS}) not supported by the kernel")
+                         f"(1 .. 2^31 - 1) not supported by the kernel")
     out = torch.empty((bsz, h, width, cout), dtype=x.dtype, device=x.device)
     err = _build.kernel(f"{name}_bf16")(x.data_ptr(), w.data_ptr(), out.data_ptr(), npix, h, width, cin, cout,
                                         _build.stream_handle(x.device))

@@ -2,16 +2,15 @@
 """Matrix-unit probes on one GPU: how close does a hand-written product get to
 the library's, and which tap schedule should a conv mainloop use?
 
-    python3 scripts/bench_torch_mxu.py [--batch 128] [--iters 10] [--seed 0]
+    python3 scripts/bench_torch_mxu.py [--root DIR] [--batch 128] [--iters 10] [--seed 0]
 
 Counterpart of scripts/bench_mxu.py for the PyTorch port.  At the flagship's
 down3 shape (B=128, 56x56, Cin=128, Cout=256), bf16, seeded inputs, it times
 
   torch.matmul     [M, 3*Cin] @ [3*Cin, Cout], M = B*56*56: cuBLAS, the clean
                    matrix-unit reference (the JAX script's xla_matmul)
-  probe_matmul     the same product through the hand-written kernel, on the
-                   mma.sync mainloop of csrc/conv3x3_mainloop.cuh (no overlap
-                   of loads and math; the port's other conv kernels run on it)
+  probe_matmul     the same product through the hand-written kernel, a
+                   persistent wgmma GEMM whose operands come by TMA
   F.conv2d         cuDNN's 3x3 conv (xla_conv)
   probe_conv_cat   the hand-written conv with the weight [3][3*Cin][Cout]
   probe_conv_9dot  the same with the weight [9][Cin][Cout]; both conv probes
@@ -23,7 +22,10 @@ with CUDA events after a warm-up, prints ms and TF/s for each, each kernel's
 largest absolute error against its plain version (at most 2e-2 of the largest
 |reference|, as the port's other bf16 kernels) and the least time the card
 could take: the larger of bytes / 3.35 TB/s (inputs and output once) and
-operations / 989 TFLOP/s.  Needs a CUDA card.
+operations / 989 TFLOP/s.  ``--root DIR`` times the ``dfc_sa_unet_torch`` of
+another checkout (the parent commit, unpacked in a git-ignored directory), so
+that two versions of the kernels are timed by the same script on the same
+card.  Needs a CUDA card.
 """
 
 import argparse
@@ -143,20 +145,34 @@ class Probe:
         return out
 
 
+def _use_root(root):
+    """Time the kernels of the dfc_sa_unet_torch at ``root`` instead of this checkout's."""
+    global launches, ops, reset_launches
+    for name in [m for m in sys.modules if m.split(".")[0] == "dfc_sa_unet_torch"]:
+        del sys.modules[name]
+    sys.path.insert(0, os.path.abspath(root))
+    from dfc_sa_unet_torch.ops import launches, reset_launches
+    from dfc_sa_unet_torch.ops import mxu_probes as ops
+
+
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--root", help="checkout whose dfc_sa_unet_torch is timed (default: this one)")
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: scripts/bench_torch_mxu.py times kernels on a GPU")
+    if args.root:
+        _use_root(args.root)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     m = args.batch * H * W
     print(f"card: {card}; torch {torch.__version__}; B={args.batch} {H}x{W} {CIN}->{COUT} bf16; "
-          f"matmul [{m}x{3 * CIN}]@[{3 * CIN}x{COUT}]")
+          f"matmul [{m}x{3 * CIN}]@[{3 * CIN}x{COUT}]; dfc_sa_unet_torch from "
+          f"{os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(ops.__file__))))}")
     reset_launches()
     with torch.inference_mode():
         probe = Probe(args.batch, gen)

@@ -165,3 +165,40 @@ def test_conv_wrapper_rows_and_shared_memory_match_the_wgmma_mainloop():
     bm = 64 * const["kWarpgroups"]
     assert bm == ops.BLOCK_ROWS
     assert const["kStages"] * 2 * (bm * const["kBK"] + const["kBK"] * const["kBN"]) + 1024 <= 232448
+
+
+def test_matmul_kernel_tile_and_shared_memory_fit_one_block():
+    """csrc/mxu_probes.cu's GEMM: 128-row tiles (the wrapper's BLOCK_ROWS) of 256 columns, two
+    consumer warpgroups of 64 rows and a producer warpgroup, and in shared memory the output tile
+    (bf16), a ring of stages of a 128 x 64 box of x and four 64 x 64 boxes of w, two barriers a
+    stage and 1 KB of alignment slack: within the 232448 bytes an H100 block may use, with at
+    least three stages (the producer two steps ahead of the one in flight)."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(ops.__file__).resolve().parent.parent / "csrc" / "mxu_probes.cu").read_text()
+    const = {name: int(val) for name, val in re.findall(r"constexpr int (kGemm\w+) = (\d+);", src)}
+    bm, bn, stages = const["kGemmBM"], const["kGemmBN"], const["kGemmStages"]
+    assert bm == ops.BLOCK_ROWS == 64 * const["kGemmConsumers"] and bn == 256
+    stage = bm * 64 * 2 + 64 * bn * 2
+    assert stage == 48 * 1024 and stages >= 3
+    assert 1024 + bm * bn * 2 + stages * stage + 2 * 8 * stages <= 232448
+
+
+@pytest.mark.parametrize("m,k,n", [(4 * 56 * 56, 384, 256), (1000, 384, 256), (129, 8, 8), (128 * 56 * 56 + 77, 384, 256)])
+def test_chip_smoke_checks_the_matmul_kernel_at_ragged_and_large_shapes(m, k, n):
+    """chip_smoke.py's phase 3 holds probe_matmul to its plain version (after a NaN launch) at the
+    probe's shape cut in B, at row counts that no 128-row tile divides, at K = N = 8 (one TMA box
+    mostly past the tensor) and at the probe's full M plus a ragged tile, more tiles than blocks
+    on the card's 132 SMs; the wrapper takes them all (no grid limit on M)."""
+    import importlib.util
+    import pathlib
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", pathlib.Path(__file__).resolve().parent.parent
+                                                  / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert (m, k, n) in smoke.PROBE_MATMUL_SHAPES
+    assert k % 8 == 0 and n % 8 == 0 and 0 < m < 2**31
+    if m > 10**5:
+        assert m % ops.BLOCK_ROWS and -(-m // ops.BLOCK_ROWS) > 132
