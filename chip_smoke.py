@@ -10,17 +10,19 @@ any failure exits non-zero:
    turn TF32 off for the f32 checks;
 2. build the CUDA kernels from dfc_sa_unet_torch/csrc; ptxas must neither
    serialize the products (C7515) nor spill in the wgmma kernels of
-   conv3x3_bn_relu and probe_matmul;
+   conv3x3_bn_relu, conv3x3_bias_stats and probe_matmul;
 3. hold every kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and at awkward ones, in f32 and bf16
    (pooled attention: in bf16 the tensor-core kernel at every N from 1 to
    4096, in f32 the 16-row and the two-pass SIMT kernels; conv3x3_bn_relu
    at every flagship level and at the bf16 kernels' tilings, Cin 3 to 520,
    Cout 8 to 1024, ragged pixel counts and one pixel, after a launch on NaN
-   inputs; the three matrix-unit probes in bf16, their only type, the
-   matmul on the TMA-fed wgmma GEMM up to the probe's full M, the two conv
-   probes on the wgmma mainloop), and the backward of the three attention
-   wrappers against autograd through their plain versions;
+   inputs; conv3x3_bias_stats (y, mean and mean2) at its probe's levels and
+   at Cin 3 to 520, Cout 8 to 520, ragged pixel counts and one pixel, after a
+   launch on NaN inputs; the three matrix-unit probes in bf16, their only
+   type, the matmul on the TMA-fed wgmma GEMM up to the probe's full M, the
+   two conv probes on the wgmma mainloop), and the backward of the three
+   attention wrappers against autograd through their plain versions;
 4. serve the flagship DFC-SA-Res-Block at full width (224x224, features
    64/128/256/512, pool 8, seeded weights, BatchNorm statistics fitted to
    a slice of the batch so that the logits spread O(1)):
@@ -43,9 +45,10 @@ any failure exits non-zero:
    and, for the attention kernels, its exponentials over the rate of the
    special-function units (132 SMs x 16 a clock x the maximum SM clock;
    ``bound_by`` says "bytes" or "operations", ``bound_term`` which of the
-   three); the tail and the conv are held to their plain versions at each
-   level's B=128 inputs (after a launch on NaN inputs) before they are
-   timed, and the kernels line keeps both level by level (``levels``);
+   three); the tail, the conv and conv3x3_bias_stats are held to their
+   plain versions at each level's B=128 inputs (after a launch on NaN
+   inputs) before they are timed, and the kernels line keeps the three
+   level by level (``levels``);
 8. train at full width through the port's Trainer (train_epoch and
    validate_epoch) on synthetic ellipses made in memory, bce_dice 0.5/0.5
    and SGD as configs/config_dfc-sa-res-block.yaml: the flagship for 16
@@ -61,7 +64,9 @@ any failure exits non-zero:
    per step; one more step at the YAML's 0.1 must launch none) and
    TransUNet (12 fused_mha_sep launches per step);
 9. run the BatchNorm-statistics probe (the conv3x3_bias_stats kernel's own
-   path, scripts/bench_torch_bn_stats.py) at its four levels, B=128, bf16;
+   path, scripts/bench_torch_bn_stats.py) at its four levels, B=128, bf16,
+   each level twice: y, mean and mean2 must be the same bits both times
+   (no atomics), and the statistics must normalise y;
 10. serve the DFC zoo at full width: the vanilla UNet (64..1024) and the
    eight ablations (features 64/128/256/512, pool 8) at 224x224,
    UNet_FullResAttention at 64x64 (its attention takes N = H*W <= 4096),
@@ -133,6 +138,14 @@ TAIL_ODD_SHAPES = [(3, 13, 17, 512, 512), (1, 9, 7, 1024, 512), (3, 13, 17, 128,
 CONV_ODD_SHAPES = [(3, 13, 17, 3, 64), (3, 13, 17, 8, 40), (2, 9, 7, 16, 8), (3, 13, 17, 24, 1024),
                    (2, 9, 7, 520, 40), (3, 5, 3, 16, 64), (2, 9, 7, 3, 1024), (1, 1, 1, 3, 64),
                    (1, 1, 1, 520, 1024)]
+# phase 3's extra conv3x3_bias_stats checks (B, H, W, Cin, Cout): in bf16 the persistent kernel at Cin 3
+# and 8 (Cout 64 and 40), the ring at Cin 16 (taps packed into a step), 24 (a step across taps), 64 and
+# 520 (a step across a tap's end), Cin 3 on the ring (zero-padded to 8) at Cout 128, B tiles of 64, 128
+# and 256 columns, ragged at Cout 8, 40 and 520, two column tiles at 512; pixel counts below one tile,
+# just past one and ragged (phantom rows must not count), and one pixel
+STATS_ODD_SHAPES = [(3, 13, 17, 3, 64), (3, 13, 17, 8, 40), (2, 9, 7, 16, 8), (3, 13, 17, 24, 128),
+                    (2, 9, 7, 520, 40), (3, 5, 3, 16, 512), (2, 9, 7, 3, 128), (1, 11, 12, 8, 64),
+                    (1, 11, 12, 64, 520), (1, 1, 1, 3, 64), (1, 1, 1, 520, 512)]
 # phase 3's probe_matmul checks (M, K, N): the probe's shape cut in B, rows that no 128-row tile
 # divides, a tiny K and N, and the probe's full M plus a ragged tile (more tiles than blocks)
 PROBE_MATMUL_SHAPES = [(4 * 56 * 56, 384, 256), (1000, 384, 256), (129, 8, 8), (BATCH * 56 * 56 + 77, 384, 256)]
@@ -267,10 +280,11 @@ def main():
         regs = [ln.split("Used")[1].split(",")[0].strip() for ln in log.read_text().splitlines() if "Used" in ln]
         spills = sum("0 bytes spill stores" not in ln for ln in log.read_text().splitlines() if "spill stores" in ln)
         print(f"    {log.stem}: registers per kernel instance {regs}; instances with spills: {spills}")
-    # the wgmma kernels of conv3x3_bn_relu (the ring's and the persistent one) and probe_matmul: ptxas
-    # must neither serialize their products (C7515) nor spill
+    # the wgmma kernels of conv3x3_bn_relu and conv3x3_bias_stats (the ring's and the persistent one)
+    # and probe_matmul: ptxas must neither serialize their products (C7515) nor spill
     for stem, kernel in (("dfc_tail", "conv3x3_bn_relu_wgmma_kernel"), ("dfc_tail", "conv3x3_bn_relu_narrow_kernel"),
-                         ("mxu_probes", "probe_matmul_kernel")):
+                         ("conv_bn_stats", "conv3x3_bias_stats_wgmma_kernel"),
+                         ("conv_bn_stats", "conv3x3_bias_stats_narrow_kernel"), ("mxu_probes", "probe_matmul_kernel")):
         text = (_build.BUILD_DIR / f"{stem}.log").read_text()
         entry, found = "", []
         for ln in text.splitlines():
@@ -336,7 +350,10 @@ def main():
             bad.append(f"{name} {label}")
 
     def check_stats(args, label):
-        """y to TOL of max(1, max|y|); mean and mean2 to TOL of max(1, max|plain|) each."""
+        """y to TOL of max(1, max|y|); mean and mean2 to TOL of max(1, max|plain|) each; after a launch
+        on NaN inputs, as ``check``'s poison."""
+        stats_ops.conv3x3_bias_stats(torch.full_like(args[0], float("nan")), *args[1:])
+        torch.cuda.synchronize()
         got = stats_ops.conv3x3_bias_stats(*args)
         torch.cuda.synchronize()
         want = stats_ops.conv3x3_bias_stats_plain(*args)
@@ -423,6 +440,11 @@ def main():
             check_stats(conv_inputs(4, h, cin, c, dtype), f"{dn} {name} B=4 {h}x{h} {cin}->{c}")
         check_stats((randn(3, 13, 17, 24, dtype=dtype), randn(3, 3, 24, 40, dtype=dtype, scale=216 ** -0.5), randn(40)),
                     f"{dn} B=3 13x17 24->40")
+        # the bf16 kernels' tilings: the persistent kernel and the ring, ragged pixels and columns, one pixel
+        for b, h, w, cin, c in STATS_ODD_SHAPES:
+            tiling = stats_ops.stats_tiling(cin, c)
+            check_stats(conv_inputs(b, h, cin, c, dtype, w),
+                        f"{dn} B={b} {h}x{w} {cin}->{c} ({tiling.steps} steps, NB {tiling.nb}, bm {tiling.bm})")
         before = launches()
         check_backward("pooled_attention", attn_ops.pooled_attention, attn_ops.pooled_attention_plain,
                        attn_inputs(8, 64, 256, dtype), (), f"{dn} B=8 N=64 C=256")
@@ -610,6 +632,7 @@ def main():
 
     tail_levels = []  # the tail's seven launches, level by level, kept in the kernels line
     conv_levels = []  # the same for the conv's two
+    stats_levels = []  # and for the probe's four
     with torch.inference_mode():
         for name, h, cin, c in BLOCK_SHAPES:
             q, k, v = attn_inputs(BATCH, 64, c, bf)
@@ -667,14 +690,15 @@ def main():
         # the probe's own shapes: B=128 at the four encoder levels (scripts/bench_torch_bn_stats.py)
         for name, h, cin, c in probe.LEVELS:
             x, w, b = probe.inputs(BATCH, h, cin, c, gen)
+            # held to the plain version at the probe's own shapes before it is timed
+            check_stats((x, w, b), f"bfloat16 {name} B={BATCH} {h}x{h} {cin}->{c}")
             kc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            npix = BATCH * h * h
-            add("conv3x3_bias_stats", name,
-                timed(lambda: stats_ops.conv3x3_bias_stats(x, w, b), 3),
-                timed(lambda: stats_ops.conv3x3_bias_stats_plain(x, w, b), 2),
-                timed(lambda: probe.library(x, kc, b), 3),
-                2 * npix * (cin + c) + 2 * 9 * cin * c + 4 * c,
-                2 * npix * c * 9 * cin)
+            ms = (timed(lambda: stats_ops.conv3x3_bias_stats(x, w, b), 5),
+                  timed(lambda: stats_ops.conv3x3_bias_stats_plain(x, w, b), 2),
+                  timed(lambda: probe.library(x, kc, b), 5))
+            add("conv3x3_bias_stats", name, *ms, *probe.work(BATCH, h, cin, c))
+            stats_levels.append({"level": name, "ms": ms[0], "plain_ms": ms[1], "library_ms": ms[2],
+                                 "bound_ms": probe.bound_ms(BATCH, h, cin, c)[0]})
             del x, w, b, kc
 
         # the full-resolution model's nine launches at 64x64 (N = H*H tokens).  The plain version holds
@@ -898,18 +922,24 @@ def main():
         for name, h, cin, c in probe.LEVELS:
             x, w, b = probe.inputs(BATCH, h, cin, c, gen)
             y, mean, mean2 = stats_ops.conv3x3_bias_stats(x, w, b)
+            # no atomics and partial rows per tile of pixels: a second launch gives the same bits
+            again = stats_ops.conv3x3_bias_stats(x, w, b)
+            if not all(torch.equal(u, v) for u, v in zip((y, mean, mean2), again)):
+                fail(f"probe level {name}: two launches on the same inputs gave different bits")
+            del again
             var = mean2 - mean * mean
             ok = (y.shape == (BATCH, h, h, c) and mean.shape == var.shape == (c,) and bool(torch.isfinite(y).all())
                   and bool((var > 0).all()))
             # BatchNorm with these statistics gives unit variance: the use the sums are for
             normed = ((y.float() - mean) * torch.rsqrt(var + 1e-5)).var(dim=(0, 1, 2), unbiased=False)
-            print(f"    {name}: y {tuple(y.shape)}, batch variance {var.min().item():.3e} .. {var.max().item():.3e}, "
-                  f"variance after normalising {normed.min().item():.4f} .. {normed.max().item():.4f}", flush=True)
+            print(f"    {name}: y {tuple(y.shape)}, the same bits from two launches, batch variance "
+                  f"{var.min().item():.3e} .. {var.max().item():.3e}, variance after normalising "
+                  f"{normed.min().item():.4f} .. {normed.max().item():.4f}", flush=True)
             if not ok or not bool(((normed - 1).abs() < 2e-2).all()):
                 fail(f"probe level {name}: the statistics do not normalise y")
             del x, w, b, y
     probe_launches = launches()  # the probe's path ends here
-    if probe_launches["conv3x3_bias_stats"] != len(probe.LEVELS):
+    if probe_launches["conv3x3_bias_stats"] != 2 * len(probe.LEVELS):
         fail(f"the probe launched {probe_launches}")
     main_launches = {k: main_launches[k] + probe_launches[k] for k in main_launches}
     print(f"    flagship training step bf16 B={fits}: {train_ms[False]:.1f} ms/step = "
@@ -1028,6 +1058,7 @@ def main():
                "probe_matmul": ("dfc_sa_unet_torch/csrc/mxu_probes.cu", "scripts/bench_mxu.py:58"),
                "probe_conv_cat": ("dfc_sa_unet_torch/csrc/mxu_probes.cu", "scripts/bench_mxu.py:129"),
                "probe_conv_9dot": ("dfc_sa_unet_torch/csrc/mxu_probes.cu", "scripts/bench_mxu.py:134")}
+    levels = {"dfc_tail": tail_levels, "conv3x3_bn_relu": conv_levels, "conv3x3_bias_stats": stats_levels}
     kernels = []
     for name, r in rows.items():
         terms = {"bytes": r["bytes"] / HBM_BYTES_PER_S, "operations": r["ops"] / PEAK_OPS["bf16"],
@@ -1042,8 +1073,7 @@ def main():
             "bound_by": "bytes" if max(terms, key=terms.get) == "bytes" else "operations",
             "bound_term": max(terms, key=terms.get),
             "library_ms": r["library_ms"],
-            **({"levels": {"dfc_tail": tail_levels, "conv3x3_bn_relu": conv_levels}[name]}
-               if name in ("dfc_tail", "conv3x3_bn_relu") else {}),
+            **({"levels": levels[name]} if name in levels else {}),
         })
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,18 +1,16 @@
-// The mma.sync / SIMT 3x3 conv mainloop of the port's older conv kernels, for
-// Hopper (sm_90a).
+// The SIMT 3x3 conv mainloop of the port's f32 conv kernels, for Hopper
+// (sm_90a).
 //
 // An implicit GEMM: a block owns M pixels x NT output channels, gathers the
 // nine taps straight from NHWC x (every image edge masked, so no padded copy
 // of x and any H and W), streams the HWIO weight in BK-deep chunks through
-// shared memory and accumulates in f32 registers.  bf16 runs on the tensor
-// cores (mma.sync m16n8k16; 8 warps as 2 x 4 over the M x N tile); f32 runs
-// on the SIMT units (each warp TM pixel rows, each lane the channels
-// lane + 32*j), exact to f32.  Operands are staged with no overlap of loads
-// and math.
+// shared memory and accumulates in f32 registers on the SIMT units (each warp
+// TM pixel rows, each lane the channels lane + 32*j), exact to f32 for the
+// 1e-5 parity mode (wgmma has no f32 path; TF32 would break it).  Operands
+// are staged with no overlap of loads and math.
 //
-// It carries conv3x3_bias_stats (conv_bn_stats.cu, bf16 and f32) and the f32
-// paths of dfc_tail.cu (conv3x3_bn_relu and the tail).  The bf16
-// conv3x3_bn_relu, the bf16 tail and the matrix-unit probes run on wgmma
+// It carries the f32 paths: conv3x3_bias_stats (conv_bn_stats.cu) and
+// conv3x3_bn_relu and the tail (dfc_tail.cu).  Every bf16 conv runs on wgmma
 // (conv3x3_wgmma.cuh).  Each includer is its own translation unit, so
 // everything here sits in an unnamed namespace.
 #pragma once
@@ -24,14 +22,13 @@
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kPad = 8;        // row padding of shared operands: conflict-free mma loads
+constexpr int kPad = 8;        // row padding of shared operands
 
-// ---------------------------------------------------------------- tilings
-// A tiling maps the block's M x NT output tile onto the 256 threads: each
-// thread holds ACC accumulators, element e at (row(e), col(e)) of the tile.
-// sw holds a weight chunk of BK rows (k) x NT columns (n).
-
-// f32 (any T): SIMT FMAs; warp w owns rows w*TM.., lane l columns l + 32*j
+// ---------------------------------------------------------------- the tiling
+// SimtTile maps the block's M x NT output tile onto the 256 threads: each
+// thread holds ACC accumulators, element e at (row(e), col(e)) of the tile;
+// warp w owns rows w*TM.., lane l columns l + 32*j.  sw holds a weight chunk
+// of BK rows (k) x NT columns (n).
 template <typename T, int M, int NT>
 struct SimtTile {
   static constexpr int TM = M / 8, TN = NT / 32, ACC = TM * TN;
@@ -70,99 +67,6 @@ struct SimtTile {
         for (int j = 0; j < TN; ++j) acc[i * TN + j] = fmaf(av[i], bv[j], acc[i * TN + j]);
     }
   }
-};
-
-// bf16: tensor cores.  Warps 2 (rows) x 4 (columns); a warp's WM x WN tile
-// is MT x NTT mma tiles of 16 x 8; element e = ((mt*NTT + nt)*4 + r) is the
-// fragment register r of tile (mt, nt) (PTX ISA, mma.m16n8k16 layouts).
-template <int M, int NT>
-struct MmaTile {
-  static constexpr int WM = M / 2, WN = NT / 4, MT = WM / 16, NTT = WN / 8;
-  static constexpr int ACC = MT * NTT * 4;
-  static constexpr int BK = 32;
-  static constexpr int LDW = BK + kPad;
-  static constexpr int SW_ELEMS = NT * LDW;  // sw is [NT][LDW]: k contiguous per column
-  static_assert(WM % 16 == 0 && WN % 8 == 0, "tile too small for mma.m16n8k16");
-
-  __device__ static int row(int e) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    return (warp / 4) * WM + (e / (4 * NTT)) * 16 + lane / 4 + ((e & 2) ? 8 : 0);
-  }
-  __device__ static int col(int e) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    return (warp % 4) * WN + ((e / 4) % NTT) * 8 + (lane % 4) * 2 + (e & 1);
-  }
-
-  // sw[n][k] <- w[k0+k][n0+n], two k rows packed per 32-bit word; cout and
-  // ldw are multiples of 8 (the wrappers check), so 16-byte loads of 8 columns
-  __device__ static void load_w(__nv_bfloat16* sw, const __nv_bfloat16* __restrict__ w, int k0,
-                                int K, int n0, int cout, int ldw) {
-    for (int e = threadIdx.x; e < (BK / 2) * (NT / 8); e += kThreads) {
-      const int kp = e % (BK / 2), nn = (e / (BK / 2)) * 8;
-      const int kidx = k0 + 2 * kp, n = n0 + nn;
-      uint4 r0 = make_uint4(0, 0, 0, 0), r1 = r0;
-      if (n < cout) {
-        if (kidx < K) r0 = *reinterpret_cast<const uint4*>(w + (size_t)kidx * ldw + n);
-        if (kidx + 1 < K) r1 = *reinterpret_cast<const uint4*>(w + (size_t)(kidx + 1) * ldw + n);
-      }
-      const __nv_bfloat16* v0 = reinterpret_cast<const __nv_bfloat16*>(&r0);
-      const __nv_bfloat16* v1 = reinterpret_cast<const __nv_bfloat16*>(&r1);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        __nv_bfloat162 pair;
-        pair.x = v0[j];
-        pair.y = v1[j];
-        *reinterpret_cast<__nv_bfloat162*>(sw + (nn + j) * LDW + 2 * kp) = pair;
-      }
-    }
-  }
-
-  __device__ static uint32_t ld2(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-
-  __device__ static void mma(float (&acc)[ACC], const __nv_bfloat16* sa, int lda,
-                             const __nv_bfloat16* sw) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane / 4, t = lane % 4;
-    const __nv_bfloat16* abase = sa + ((warp / 4) * WM + g) * lda + 2 * t;
-    const __nv_bfloat16* bbase = sw + ((warp % 4) * WN + g) * LDW + 2 * t;
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const __nv_bfloat16* p = abase + mt * 16 * lda + ks;
-        a[mt][0] = ld2(p);
-        a[mt][1] = ld2(p + 8 * lda);
-        a[mt][2] = ld2(p + 8);
-        a[mt][3] = ld2(p + 8 * lda + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NTT; ++nt) {
-        const __nv_bfloat16* p = bbase + nt * 8 * LDW + ks;
-        const uint32_t b0 = ld2(p), b1 = ld2(p + 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          float* c = acc + (mt * NTT + nt) * 4;
-          asm volatile(
-              "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-              "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-              : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-              : "r"(a[mt][0]), "r"(a[mt][1]), "r"(a[mt][2]), "r"(a[mt][3]), "r"(b0), "r"(b1));
-        }
-      }
-    }
-  }
-};
-
-template <typename T, int M, int NT>
-struct TileFor {
-  using type = SimtTile<T, M, NT>;
-};
-template <int M, int NT>
-struct TileFor<__nv_bfloat16, M, NT> {
-  using type = MmaTile<M, NT>;
 };
 
 template <int N>

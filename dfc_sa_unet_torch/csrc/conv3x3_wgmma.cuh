@@ -32,17 +32,21 @@
 // csrc/mxu_probes.cu (probe_matmul).  conv3x3_wgmma below (128 pixels x NB
 // channels, two warpgroups of wgmma.m64nNBk16, an epilogue functor on the f32
 // accumulators) carries conv3x3_bn_relu in bf16 (csrc/dfc_tail.cu: bias and
-// ReLU, TMA weight tiles) and the two conv probes (csrc/mxu_probes.cu: no
-// epilogue, cp.async weight tiles).  It writes its step loop out: built on
-// ring_step, ptxas serialized the probes' products (C7515: non-wgmma
-// instructions defining their accumulators inside a pipeline stage) and the
-// probe ran slower on the card, where the tail's loops compile without it.
+// ReLU, TMA weight tiles), conv3x3_bias_stats in bf16 (csrc/conv_bn_stats.cu:
+// bias and BatchNorm's per-tile sums, TMA weight tiles) and the two conv
+// probes (csrc/mxu_probes.cu: no epilogue, cp.async weight tiles).  It writes
+// its step loop out: built on ring_step, ptxas serialized the probes' products
+// (C7515: non-wgmma instructions defining their accumulators inside a pipeline
+// stage) and the probe ran slower on the card, where the tail's loops compile
+// without it.
 // conv3x3_wgmma_narrow (Cin 3 or 8, Cout <= 64: down1) runs the same flat walk
 // without a ring: a persistent block of one warpgroup, the weight resident,
 // x's pixels gathered into registers a tile ahead, the output stored by TMA.
+// Both take the same epilogues.
 //
-// The host half (encode_tiled, tile_map) encodes the tensor maps through
-// cudaGetDriverEntryPointByVersion, so no library links to libcuda.
+// The host half (encode_tiled, tile_map, persistent_blocks) encodes the tensor
+// maps through cudaGetDriverEntryPointByVersion, so no library links to
+// libcuda, and sizes the narrow kernel's persistent grid.
 #pragma once
 
 #include <cuda.h>
@@ -284,18 +288,68 @@ template <int NB, int STAGES, bool TMA>
 constexpr int conv_smem_bytes() {
   return 1024 + ConvRing<NB, STAGES, TMA>::kBytes + ConvRing<NB, STAGES, TMA>::kBarBytes;
 }
+// blocks an SM of a conv3x3_wgmma kernel: as many rings as shared memory holds, at most three (the
+// registers of 768 threads)
+constexpr int conv_blocks(int smem) { return 232448 / smem < 3 ? 232448 / smem : 3; }
 
 // epilogues of the convs: epi(acc, epi.term(n)) is output column n's value from its f32 accumulator,
-// before the one rounding to bf16 (a kernel that walks many tiles loads its columns' terms once)
+// before the one rounding to bf16 (a kernel that walks many tiles loads its columns' terms once).
+// kStats: the epilogue also sums the unrounded values of each column over a tile's pixels
+// (BiasStats); the kernels test it with if constexpr, so the others compile as if it did not exist.
 struct NoEpilogue {
+  static constexpr bool kStats = false;
   __device__ __forceinline__ float term(int) const { return 0.f; }
   __device__ __forceinline__ float operator()(float v, float) const { return v; }
 };
 struct BiasRelu {  // ReLU(acc + b), b [cout] f32
+  static constexpr bool kStats = false;
   const float* __restrict__ b;
   int cout;
   __device__ __forceinline__ float term(int n) const { return n < cout ? b[n] : 0.f; }
   __device__ __forceinline__ float operator()(float v, float bias) const { return fmaxf(v + bias, 0.f); }
+};
+// acc + b (no ReLU), and BatchNorm's sums of it: row `tile` of psum and psq [tiles][cout] f32 is the
+// sum over one tile of pixels of the unrounded acc + b and of its square, per output column.  No
+// atomics: a warp sums its 16 rows with shuffles (warp_sums, one column pair at a time, rows past the
+// last pixel as zero) into the block's scratch red [2][WARPS][NB], then thread c adds column c's
+// WARPS partials in warp order (write_row).  The row is the tile's, not the block's, so the result
+// does not depend on the grid: the same inputs give the same bits run to run and card to card.
+struct BiasStats {
+  static constexpr bool kStats = true;
+  const float* __restrict__ b;
+  int cout;
+  float* __restrict__ psum;
+  float* __restrict__ psq;
+  __device__ __forceinline__ float term(int n) const { return n < cout ? b[n] : 0.f; }
+  __device__ __forceinline__ float operator()(float v, float bias) const { return v + bias; }
+  // columns c, c + 1 of this warp's 16 rows: v0 at row lane / 4, v1 at row lane / 4 + 8 (zero past the
+  // last pixel).  The 8 lanes of one lane % 4 hold the same columns; a butterfly over them that halves
+  // the values a lane keeps at each step (xor 16: the sums or the squares, xor 8: column c or c + 1,
+  // xor 4: the last half) takes four shuffles for the four sums, and leaves each in two lanes, of which
+  // the one with lane & 4 clear writes it to red[warp][c..c+1] (sums) or red[WARPS + warp][c..c+1].
+  template <int WARPS, int NB>
+  __device__ __forceinline__ void warp_sums(float* red, int warp, int c, float2 v0, float2 v1) const {
+    const int lane = threadIdx.x % 32;
+    const bool sq = lane & 16, odd = lane & 8;
+    const float s0 = v0.x + v1.x, s1 = v0.y + v1.y;
+    const float q0 = v0.x * v0.x + v1.x * v1.x, q1 = v0.y * v0.y + v1.y * v1.y;
+    const float a0 = (sq ? q0 : s0) + __shfl_xor_sync(0xffffffffu, sq ? s0 : q0, 16);
+    const float a1 = (sq ? q1 : s1) + __shfl_xor_sync(0xffffffffu, sq ? s1 : q1, 16);
+    float v = (odd ? a1 : a0) + __shfl_xor_sync(0xffffffffu, odd ? a0 : a1, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    if (!(lane & 4)) red[((sq ? WARPS : 0) + warp) * NB + c + (odd ? 1 : 0)] = v;
+  }
+  // after a barrier behind every warp_sums: thread c < NB writes columns n0 + c of row `tile`
+  template <int WARPS, int NB>
+  __device__ __forceinline__ void write_row(const float* red, int tile, int n0) const {
+    const int c = threadIdx.x, n = n0 + c;
+    if (c >= NB || n >= cout) return;
+    float s = 0.f, q = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s += red[w * NB + c], q += red[(WARPS + w) * NB + c];
+    psum[(size_t)tile * cout + n] = s;
+    psq[(size_t)tile * cout + n] = q;
+  }
 };
 
 // out[P, Cout] = epi(the 3x3 conv (zero padding 1) of NHWC x [P, cin] with w [9 * cin][Cout], row
@@ -367,6 +421,8 @@ __device__ __forceinline__ void conv3x3_wgmma(const bf16* __restrict__ x, const 
   constexpr int LD = NB + 8;
   bf16* so = reinterpret_cast<bf16*>(smem_raw + (ring.base - raw));
   const int lane = tid % 32, r = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+  // with statistics: the warps' column sums [2][8][NB] f32 in the ring after the staging tile
+  if constexpr (Epi::kStats) static_assert(kBM * LD * 2 + 2 * 8 * NB * 4 <= R::kBytes, "the scratch fits the ring");
 #pragma unroll
   for (int j = 0; j < NB / 8; ++j) {
     const int c = 8 * j + 2 * (lane % 4);
@@ -375,6 +431,13 @@ __device__ __forceinline__ void conv3x3_wgmma(const bf16* __restrict__ x, const 
     for (int e = 0; e < 2; ++e)
       *reinterpret_cast<__nv_bfloat162*>(so + (r + 8 * e) * LD + c) =
           __floats2bfloat162_rn(epi(acc[4 * j + 2 * e], t0), epi(acc[4 * j + 2 * e + 1], t1));
+    if constexpr (Epi::kStats) {  // the unrounded values, rows past the last pixel as zero
+      const bool ok0 = m0 + r < P, ok1 = m0 + r + 8 < P;
+      epi.template warp_sums<kThreads / 32, NB>(
+          reinterpret_cast<float*>(so + kBM * LD), tid / 32, c,
+          ok0 ? make_float2(epi(acc[4 * j], t0), epi(acc[4 * j + 1], t1)) : make_float2(0.f, 0.f),
+          ok1 ? make_float2(epi(acc[4 * j + 2], t0), epi(acc[4 * j + 3], t1)) : make_float2(0.f, 0.f));
+    }
   }
   __syncthreads();
   for (int e = tid; e < kBM * (NB / 8); e += kThreads) {
@@ -383,6 +446,8 @@ __device__ __forceinline__ void conv3x3_wgmma(const bf16* __restrict__ x, const 
     if (m < P && n < cout)
       *reinterpret_cast<uint4*>(out + (size_t)m * cout + n) = *reinterpret_cast<const uint4*>(so + rr * LD + cc);
   }
+  if constexpr (Epi::kStats)
+    epi.template write_row<kThreads / 32, NB>(reinterpret_cast<float*>(so + kBM * LD), blockIdx.x, n0);
 }
 
 // ------------------------------------------------ the 3x3 conv at Cin = 3 or 8 (down1)
@@ -393,6 +458,8 @@ constexpr int kNarrowTap = 8;        // K rows of a tap in the weight [72][Cout]
 // dynamic shared memory of conv3x3_wgmma_narrow: two A tiles (taps 0..7; tap 8), two 64 x 64 B tiles,
 // the output tile (64 rows of 64 bf16, the 128-byte swizzle) and 1 KB of alignment slack
 constexpr int kNarrowSmemBytes = 1024 + 3 * kNarrowBM * 128 + 2 * static_cast<int>(kBlock);
+// with statistics (BiasStats), the warps' column sums [2][4][64] f32 after the output tile
+constexpr int kNarrowStatsBytes = 2 * (kNarrowThreads / 32) * 64 * 4;
 
 // One pixel's five 16-byte chunks of an A tile (eight channels of one tap each, zero past CIN), as
 // loaded from src [P][CIN]: the loads stay in flight until pack() reads them.
@@ -431,6 +498,8 @@ struct PixelChunks {
 // next tile's loads are in flight during this tile's five products of depth 16 (taps 0..7, then
 // tap 8 beside 8 zero rows) and its epilogue, which writes the output tile in the 128-byte swizzle
 // for one TMA store.  Blocks share nothing after the weight copy, so several an SM run unsynchronised.
+// With Epi::kStats the block also writes row t of the statistics for tile t (kNarrowStatsBytes more of
+// shared memory: the scratch lies past the output tile, which the previous tile's store may still read).
 template <int CIN, class Epi>
 __device__ __forceinline__ void conv3x3_wgmma_narrow(const bf16* __restrict__ x, const bf16* __restrict__ w,
                                                      const CUtensorMap* omap, int P, int H, int W, int cout, Epi epi) {
@@ -495,17 +564,29 @@ __device__ __forceinline__ void conv3x3_wgmma_narrow(const bf16* __restrict__ x,
     wgmma_wait<0>();
     fence_regs(acc);
 #pragma unroll
-    for (int j = 0; j < NB / 8; ++j)
+    for (int j = 0; j < NB / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e)
         *reinterpret_cast<uint32_t*>(base + otile + swizzle128((lr + 8 * e) * 128 + 16 * j + 4 * (lane % 4))) =
             dfc::pack2(epi(acc[4 * j + 2 * e], term[2 * j]), epi(acc[4 * j + 2 * e + 1], term[2 * j + 1]));
+      if constexpr (Epi::kStats) {  // the unrounded values, rows past the last pixel as zero
+        const bool ok0 = t * BM + lr < P, ok1 = t * BM + lr + 8 < P;
+        const float t0 = term[2 * j], t1 = term[2 * j + 1];
+        epi.template warp_sums<kNarrowThreads / 32, NB>(
+            reinterpret_cast<float*>(base + otile + BM * 128), tid / 32, 8 * j + 2 * (lane % 4),
+            ok0 ? make_float2(epi(acc[4 * j], t0), epi(acc[4 * j + 1], t1)) : make_float2(0.f, 0.f),
+            ok1 ? make_float2(epi(acc[4 * j + 2], t0), epi(acc[4 * j + 3], t1)) : make_float2(0.f, 0.f));
+      }
+    }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
     if (tid == 0) {
       tma_store(omap, otile, 0, t * BM, 0);
       bulk_commit();
     }
+    // read before the next tile's warp_sums, which come after two more barriers
+    if constexpr (Epi::kStats)
+      epi.template write_row<kNarrowThreads / 32, NB>(reinterpret_cast<const float*>(base + otile + BM * 128), t, 0);
   }
   if (tid == 0) bulk_wait_all<false>();
 }
@@ -528,6 +609,20 @@ inline EncodeTiled encode_tiled() {
     return reinterpret_cast<EncodeTiled>(p);
   }();
   return fn;
+}
+
+// the grid of a persistent kernel over `tiles` tiles: as many blocks as the card holds at once
+// (kernel's occupancy at `threads` threads and `smem` bytes), at most one a tile; after setting
+// the kernel's dynamic shared memory to smem
+template <class Kernel>
+inline cudaError_t persistent_blocks(Kernel kernel, int threads, int smem, int tiles, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  *blocks = tiles < per_sm * sms ? tiles : per_sm * sms;
+  return err;
 }
 
 // a map of the bf16 tensor [z][rows][cols] at t in boxes of 64 columns (128 bytes, the 128-byte

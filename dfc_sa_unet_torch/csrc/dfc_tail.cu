@@ -81,7 +81,7 @@ conv3x3_bn_relu_kernel(const float* __restrict__ x, const float* __restrict__ w,
                        int cin, int cout) {
   using T = float;
   constexpr int M = 64;
-  using Tile = typename TileFor<T, M, NT>::type;
+  using Tile = SimtTile<T, M, NT>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sa = reinterpret_cast<T*>(smem_raw);
   T* sw = sa + M * (Tile::BK + kPad);
@@ -108,7 +108,7 @@ dfc_tail_kernel(const float* __restrict__ x, const float* __restrict__ a, const 
                 const float* __restrict__ bf, const float* __restrict__ wr, float* __restrict__ out,
                 int P, int H, int W, int cin) {
   using T = float;
-  using Tile = typename TileFor<T, M, C>::type;
+  using Tile = SimtTile<T, M, C>;
   constexpr int LD = C + kPad, BK = Tile::BK, LDA = BK + kPad, ACC = Tile::ACC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s_local = reinterpret_cast<T*>(smem_raw);  // [M][LD] local, rounded
@@ -187,7 +187,7 @@ template <int NT>
 int launch_conv_f32(const void* x, const void* w, const void* b, void* out, int P, int H, int W,
                     int cin, int cout, cudaStream_t stream) {
   constexpr int M = 64;
-  using Tile = typename TileFor<float, M, NT>::type;
+  using Tile = SimtTile<float, M, NT>;
   const size_t smem = sizeof(float) * (M * (Tile::BK + kPad) + Tile::SW_ELEMS);
   cudaFuncSetAttribute(conv3x3_bn_relu_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid(dfc::ceil_div(P, M), dfc::ceil_div(cout, NT));
@@ -197,14 +197,10 @@ int launch_conv_f32(const void* x, const void* w, const void* b, void* out, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// blocks an SM of the bf16 conv: as many rings as shared memory holds, at most three (the registers
-// of 768 threads)
-constexpr int conv_blocks(int smem) { return 232448 / smem < 3 ? 232448 / smem : 3; }
-
 // bf16: ReLU(conv3x3(x) + b) on the wgmma ring; w is [9 * cin][cout] (HWIO with cin a multiple
 // of 8), read by TMA through wmap
 template <int NB, int STAGES>
-__global__ void __launch_bounds__(wgconv::kThreads, conv_blocks(wgconv::conv_smem_bytes<NB, STAGES, true>()))
+__global__ void __launch_bounds__(wgconv::kThreads, wgconv::conv_blocks(wgconv::conv_smem_bytes<NB, STAGES, true>()))
 conv3x3_bn_relu_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ bias,
                              __nv_bfloat16* __restrict__ out, int P, int H, int W, int cin, int cout,
                              const __grid_constant__ CUtensorMap wmap) {
@@ -246,17 +242,11 @@ int launch_conv_narrow(const void* x, const void* w, const void* b, void* out, i
   if (!wgconv::encode_tiled()) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap omap;
   if (!wgconv::tile_map(&omap, out, cout, P, 1, 64)) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(conv3x3_bn_relu_narrow_kernel<CIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv3x3_bn_relu_narrow_kernel<CIN>,
-                                                        wgconv::kNarrowThreads, smem);
+  int blocks = 0;
+  const cudaError_t err = wgconv::persistent_blocks(conv3x3_bn_relu_narrow_kernel<CIN>, wgconv::kNarrowThreads, smem,
+                                                    dfc::ceil_div(P, wgconv::kNarrowBM), &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = dfc::ceil_div(P, wgconv::kNarrowBM), blocks = per_sm * sms;
-  conv3x3_bn_relu_narrow_kernel<CIN><<<tiles < blocks ? tiles : blocks, wgconv::kNarrowThreads, smem, stream>>>(
+  conv3x3_bn_relu_narrow_kernel<CIN><<<blocks, wgconv::kNarrowThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(b), P, H,
       W, cout, omap);
   return static_cast<int>(cudaGetLastError());
@@ -292,7 +282,7 @@ int launch_tail_f32(const void* x, const void* a, const void* wc, const void* bc
                     const void* bg, const void* wf, const void* bf, const void* wr, void* out, int P,
                     int H, int W, int cin, cudaStream_t stream) {
   constexpr int M = C >= 512 ? 32 : C >= 256 ? 64 : 128;
-  using Tile = typename TileFor<float, M, C>::type;
+  using Tile = SimtTile<float, M, C>;
   const size_t smem = sizeof(float) * (3 * M * (C + kPad) + Tile::SW_ELEMS);
   cudaFuncSetAttribute(dfc_tail_kernel<M, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   dfc_tail_kernel<M, C><<<dfc::ceil_div(P, M), kThreads, smem, stream>>>(

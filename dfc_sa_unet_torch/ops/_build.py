@@ -39,7 +39,7 @@ SIGNATURES = {
     "mha_bf16": ("mha", [_P] * 4 + [_I] * 5 + [_P]),
     "mha_wgmma_bf16": ("mha", [_P] * 4 + [_I] * 5 + [_P]),
     "conv3x3_bias_stats_f32": ("conv_bn_stats", [_P] * 6 + [_I] * 5 + [_P]),
-    "conv3x3_bias_stats_bf16": ("conv_bn_stats", [_P] * 6 + [_I] * 5 + [_P]),
+    "conv3x3_bias_stats_bf16": ("conv_bn_stats", [_P] * 6 + [_I] * 7 + [_P]),
     "probe_matmul_bf16": ("mxu_probes", [_P] * 3 + [_I] * 3 + [_P]),
     "probe_conv_cat_bf16": ("mxu_probes", [_P] * 3 + [_I] * 5 + [_P]),
     "probe_conv_9dot_bf16": ("mxu_probes", [_P] * 3 + [_I] * 5 + [_P]),
