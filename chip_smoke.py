@@ -10,7 +10,7 @@ any failure exits non-zero:
    turn TF32 off for the f32 checks;
 2. build the CUDA kernels from dfc_sa_unet_torch/csrc; ptxas must neither
    serialize the products (C7515) nor spill in the wgmma kernels of
-   conv3x3_bn_relu, conv3x3_bias_stats and probe_matmul;
+   conv3x3_bn_relu, conv3x3_bias_stats, probe_matmul and conv3x3_s8;
 3. hold every kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and at awkward ones, in f32 and bf16
    (pooled attention: in bf16 the tensor-core kernel at every N from 1 to
@@ -84,12 +84,34 @@ any failure exits non-zero:
 12. run the matrix-unit probes (scripts/bench_torch_mxu.py: cuBLAS, the
    matmul kernel, cuDNN, the two conv kernels) at B=128, 56x56, 128 -> 256,
    bf16: one launch of each kernel held against its plain version, then
-   the five timed rows.
+   the five timed rows;
+13. int8 serving: the s8 3x3 conv kernel (conv3x3_s8) against its plain
+   version bit for bit (max abs err 0), after a launch on inputs of all +127
+   and -128, in bf16 and f32 out, at the int8 engine's four "auto" levels at
+   B=128 and at Cin 3 (padded to 16), 16, 48 and 272, Cout 8, 40 and 520, odd
+   H and W, ragged pixel counts and one pixel; then the int8 flagship (phase
+   4's weights, bf16, auto int8 levels, the fp levels on the tail and conv
+   kernels) calibrated at percentile 99.9 on 8 synthetic images with 8 more
+   held out (its self-check printed, not gated: the weights are seeded), one
+   B=128 uint8 batch through the Predictor (9 attention, 4 tail, 1 conv3x3
+   and 4 conv3x3_s8 launches a forward), and the f32 int8 engine on the card
+   against the CPU with the same scales: each int8 level's quantized input and
+   s8 products from the same input the same bits, the logits of 2 images
+   within |dlogit| / std max 0.2 and mean 0.025 (the quantize steps make the
+   output discontinuous in its input; DLOGIT_TOL_INT8_CPU says why);
+   then int8 ViT-seg and TransUNet at full width and depth, bf16, B=128 (12
+   fused_mha launches a forward each), calibrated at max |t|, held against
+   their bf16 modules to phase 6's bf16-against-f32 limits, and at percentile
+   99.9, printed beside (INT8_ZOO_PERCENTILES says why); then the kernel's times at the four
+   levels beside its plain version, the bf16 yardstick (cuDNN's bf16 conv +
+   bias + ReLU) and its bound (dense s8: 1979 TOP/s), and the three int8
+   forwards and served img/s beside their bf16 paths.
 
 The launch counts are set to 0 before phase 4 and read after phase 5 (the
 flagship's serving paths), and again around phase 6 (the transformers'),
-around each training run of phase 8 and around each of phases 9 to 12
-(phase 12's before its timed rows).  The line before
+around each training run of phase 8, around each of phases 9 to 12
+(phase 12's before its timed rows) and around each int8 engine's path in
+phase 13 (before its timed rows).  The line before
 the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -154,7 +176,7 @@ BLOCK_SHAPES = [("down1", 224, 3, 64), ("down2", 112, 64, 128), ("down3", 56, 12
                 ("up_conv4", 28, 1024, 512), ("up_conv3", 56, 512, 256),
                 ("up_conv2", 112, 256, 128), ("up_conv1", 224, 128, 64)]
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 without tensor cores
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "s8": 1979e12}  # dense tensor cores (bf16, s8); f32 without them
 SMS, EXP_PER_CLOCK = 132, 16   # H100 SXM: SMs, and exponentials an SM's special-function units give a clock
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # max |kernel - plain| <= TOL * max(1, max|plain|)
 # module path vs engine path in f32: |dprob| <= 1e-3 and |dlogit| <= 1e-2 * std(logit); the
@@ -206,6 +228,25 @@ DLOGIT_TOL_BF16_ZOO = {"ViT-seg": DLOGIT_TOL_BF16, "TransUNet": {"mean": 0.25, "
 # the DFC zoo's bf16 against its f32 on the same images, |dlogit| / std: a sanity gate at
 # TransUNet's limits (printed for every model; a constant output reads about 0.8 on the mean)
 DLOGIT_TOL_BF16_DFC_ZOO = DLOGIT_TOL_BF16_ZOO["TransUNet"]
+# phase 13's extra conv3x3_s8 checks (B, H, W, Cin, Cout): Cin 3 (zero-padded to 16), 16 (taps packed into a
+# step), 48 (a step across taps) and 272 (a step across a tap's end), Cout 8, 40 and 520 (B tiles of 64 and
+# 256 columns, ragged), odd H and W, pixel counts that no 128-pixel block divides, one pixel
+S8_ODD_SHAPES = [(3, 13, 17, 3, 64), (2, 9, 7, 16, 8), (3, 13, 17, 48, 40), (2, 9, 7, 272, 520),
+                 (1, 11, 12, 16, 40), (1, 1, 1, 16, 8), (1, 1, 1, 272, 520)]
+INT8_CALIB_IMAGES = 8
+INT8_PERCENTILE = 99.9
+# the int8 transformers are calibrated both ways and the max |t| one is held to phase 6's bf16 limits: on
+# seeded ViT-B weights the 99.9th percentile clips LayerNorm outputs (the inputs of qkv and fc1), which
+# costs several times the max |t| error; its agreement is printed beside
+INT8_ZOO_PERCENTILES = (None, INT8_PERCENTILE)
+# the f32 int8 flagship on the card against the CPU, the same scales, on 2 images.  Given the same block input
+# an int8 level's quantized input and s8 products are the same bits on both (checked level by level).  End to
+# end the output is discontinuous in its input: an f32 sum taken in another order moves a value across a
+# rounding boundary of the next quantize, one step, and the steps compound through four int8 levels.  Phase 13
+# prints what the CPU engine reads against itself with its input scaled by 1 + 1e-6, and what int8 reads
+# against fp; the card is held to about twice the former.
+INT8_CPU_IMAGES = 2
+DLOGIT_TOL_INT8_CPU = {"max": 0.2, "mean": 0.025}
 
 
 def model_config(name):
@@ -239,9 +280,13 @@ def main():
         fail(f"dfc_sa_unet_torch is not beside chip_smoke.py ({e})")
     from dfc_sa_unet_torch.infer.engine import AUTO_TAIL_LEVELS, DFCEngine
     from dfc_sa_unet_torch.infer.predictor import Predictor
+    from dfc_sa_unet_torch.infer.quant import Int8DFCEngine, int8_self_check
+    from dfc_sa_unet_torch.infer.quant_transunet import Int8TransUNetEngine
+    from dfc_sa_unet_torch.infer.quant_vit import Int8ViTEngine
     from dfc_sa_unet_torch.models.factory import create_model
     from dfc_sa_unet_torch.ops import _build, launches, reset_launches
     from dfc_sa_unet_torch.ops import conv_bn_stats as stats_ops
+    from dfc_sa_unet_torch.ops import conv_s8 as s8_ops
     from dfc_sa_unet_torch.ops import dfc_tail as tail_ops, mha as mha_ops, pooled_attention as attn_ops
     from dfc_sa_unet_torch.ops import mxu_probes as probe_ops
     from dfc_sa_unet_torch.data.dataset import ArrayDataset
@@ -253,6 +298,7 @@ def main():
     from scripts import bench_torch_bn_stats as probe
     from scripts import bench_torch_conv3x3 as conv_bench
     from scripts import bench_torch_dfc_tail as tail_bench
+    from scripts import bench_torch_int8 as int8_bench
     from scripts import bench_torch_mxu as mxu
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -284,7 +330,8 @@ def main():
     # and probe_matmul: ptxas must neither serialize their products (C7515) nor spill
     for stem, kernel in (("dfc_tail", "conv3x3_bn_relu_wgmma_kernel"), ("dfc_tail", "conv3x3_bn_relu_narrow_kernel"),
                          ("conv_bn_stats", "conv3x3_bias_stats_wgmma_kernel"),
-                         ("conv_bn_stats", "conv3x3_bias_stats_narrow_kernel"), ("mxu_probes", "probe_matmul_kernel")):
+                         ("conv_bn_stats", "conv3x3_bias_stats_narrow_kernel"), ("mxu_probes", "probe_matmul_kernel"),
+                         ("conv3x3_s8", "conv3x3_s8_kernel")):
         text = (_build.BUILD_DIR / f"{stem}.log").read_text()
         entry, found = "", []
         for ln in text.splitlines():
@@ -325,7 +372,7 @@ def main():
 
     max_err = {"pooled_attention": 0.0, "dfc_tail": 0.0, "conv3x3_bn_relu": 0.0, "fused_mha": 0.0,
                "fused_mha_sep": 0.0, "conv3x3_bias_stats": 0.0, "probe_matmul": 0.0, "probe_conv_cat": 0.0,
-               "probe_conv_9dot": 0.0}
+               "probe_conv_9dot": 0.0, "conv3x3_s8": 0.0}
     bad = []
 
     def check(name, kernel, plain, args, label, poison=()):
@@ -615,7 +662,7 @@ def main():
     import torch.nn.functional as F
 
     rows = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0,
-                "exps": 0.0} for k in max_err}
+                "exps": 0.0, "peak": PEAK_OPS["bf16"]} for k in max_err}
 
     def add(name, level, ms, plain_ms, lib_ms, nbytes, ops, exps=0):
         r = rows[name]
@@ -1048,6 +1095,216 @@ def main():
         del mx
     main_launches = {k: main_launches[k] + mxu_launches[k] for k in main_launches}
 
+    # ------------------------------------------------------------ phase 13
+    print(f"[13] int8 serving, B={BATCH} ({card})", flush=True)
+
+    def check_s8(args, out_dtype, label):
+        """conv3x3_s8 against its plain version bit for bit, after a launch on +127 / -128 inputs."""
+        try:
+            err = int8_bench.check(s8_ops, *args, out_dtype)
+        except RuntimeError as e:
+            print(f"    conv3x3_s8       {label:38s} FAIL: {e}", flush=True)
+            bad.append(f"conv3x3_s8 {label}")
+            return
+        print(f"    conv3x3_s8       {label:38s} max_abs_err {err:.1e} ok", flush=True)
+
+    with torch.inference_mode():
+        for out_dtype in (torch.bfloat16, torch.float32):
+            dn = str(out_dtype).split(".")[-1]
+            for name, h, cin, c in int8_bench.LEVELS:
+                check_s8(int8_bench.inputs(BATCH, h, h, cin, c, gen), out_dtype,
+                         f"{dn} {name} B={BATCH} {h}x{h} {cin}->{c}")
+            for b, h, w, cin, c in S8_ODD_SHAPES:
+                check_s8(int8_bench.inputs(b, h, w, cin, c, gen), out_dtype,
+                         f"{dn} B={b} {h}x{w} {cin}->{c} (NB {s8_ops.s8_tiling(c)})")
+    if bad:
+        fail(f"conv3x3_s8 disagrees with its plain version: {bad}")
+
+    # phase 4's weights; calibration images: synthetic ellipses, the first 8 and 8 more held out
+    model = init_random_(create_model(CONFIG, device="cpu"), torch.Generator().manual_seed(seed))
+    model = model.to(dev, memory_format=torch.channels_last)
+    calib = normalize(torch.from_numpy(batch[:16]).to(dev), torch.float32).permute(0, 3, 1, 2)
+    weights = calibrate_batch_stats_(model, calib).state_dict()
+    del model
+    synthetic = np.stack([img for _, img, _ in samples(n=2 * INT8_CALIB_IMAGES, size=IMG, seed=seed)])
+    cal8, held8 = (normalize(torch.from_numpy(synthetic[i:i + INT8_CALIB_IMAGES]).to(dev), bf).permute(0, 3, 1, 2)
+                   for i in (0, INT8_CALIB_IMAGES))
+    xs = torch.from_numpy(batch).to(dev)
+    xn = normalize(xs, bf).permute(0, 3, 1, 2)
+    int8_launches = {k: 0 for k in max_err}
+    speed = []  # (label, int8 forward ms, fp forward ms, int8 served img/s, fp served img/s)
+
+    def self_check(label, engine):
+        chk = int8_self_check(engine)
+        print(f"    {label} self-check (printed, not gated: seeded weights): flip rate {chk['flip_rate']:.3%}, mean "
+              f"|dprob| {chk['mean_abs_dprob']:.5f}; held out: flip rate {chk['holdout_flip_rate']:.3%}, mean |dprob| "
+              f"{chk['holdout_mean_abs_dprob']:.5f}", flush=True)
+
+    def serve(label, pred, want):
+        """One B=128 uint8 batch through the Predictor: the launches of one forward must be ``want``."""
+        before = launches()
+        with torch.inference_mode():
+            probs = pred.predict_probs(batch)
+        delta = {k: v - before[k] for k, v in launches().items()}
+        print(f"    {label}: probs {probs.shape}, launches {delta}", flush=True)
+        if delta != {**none, **want}:
+            fail(f"{label} forward launched {delta}, expected {want}")
+        if probs.shape != (BATCH, IMG, IMG) or not np.isfinite(probs).all():
+            fail(f"{label} probabilities: shape {probs.shape} or non-finite values")
+        return probs
+
+    def close_path():
+        for k, v in launches().items():
+            int8_launches[k] += v
+
+    def time_paths(label, int8_pred, fp_pred):
+        with torch.inference_mode():
+            ms = [timed(lambda: p.model(xn), 3) for p in (int8_pred, fp_pred)]
+            served = []
+            for p in (int8_pred, fp_pred):
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    p.predict_probs(batch)
+                served.append(2 * BATCH / (time.perf_counter() - t0))
+        speed.append((label, *ms, *served))
+
+    # the int8 flagship: calibration, self-check, a B=128 request, the f32 engine against the CPU
+    reset_launches()  # the int8 flagship's path starts here
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        q_flag = Int8DFCEngine(CONFIG, weights, dtype=bf, device=dev, calib_batches=[cal8],
+                               calib_percentile=INT8_PERCENTILE, holdout_batch=held8, tail_kernel_levels="auto",
+                               conv_kernel_levels="auto")
+    print(f"    int8 flagship: int8 levels {sorted(q_flag.int8_levels)}, tail kernel {sorted(q_flag.tail_kernel_levels)}, "
+          f"conv kernel {sorted(q_flag.conv_kernel_levels)}; built and calibrated on {INT8_CALIB_IMAGES} images at "
+          f"percentile {INT8_PERCENTILE} in {time.perf_counter() - t0:.2f} s", flush=True)
+    self_check("int8 flagship", q_flag)
+    pred_q = Predictor(q_flag, compute_dtype=bf, device=dev)
+    probs_q = serve("int8 flagship bf16", pred_q,
+                    {"pooled_attention": 9, "dfc_tail": 4, "conv3x3_bn_relu": 1, "conv3x3_s8": 4})
+    with torch.inference_mode():
+        q32 = Int8DFCEngine(CONFIG, weights, dtype=torch.float32, device=dev, act_scales=q_flag.act_scales,
+                            tail_kernel_levels="auto", conv_kernel_levels="auto")
+        q32_cpu = Int8DFCEngine(CONFIG, {k: v.cpu() for k, v in weights.items()}, dtype=torch.float32, device="cpu",
+                                act_scales=q_flag.act_scales)
+        # each int8 level from the same input, about 40 quantization steps wide: x8, local and a0 the same bits
+        for name, h, cin, _ in BLOCK_SHAPES:
+            if name not in q32.int8_levels:
+                continue
+            xb = torch.randn(INT8_CPU_IMAGES, cin, h, h, generator=torch.Generator().manual_seed(seed))
+            xb = (xb * (40 * q_flag.act_scales[f"{name}.x"])).contiguous(memory_format=torch.channels_last)
+            got, want = q32._x_branches(name, xb.to(dev)), q32_cpu._x_branches(name, xb)
+            same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+            print(f"    int8 flagship f32 {name}: x8, local (conv3x3_s8) and a0 (s8_matmul) from the same input on the "
+                  f"card and the CPU: {'the same bits' if same else 'DIFFERENT'}", flush=True)
+            if not same:
+                fail(f"the int8 products of {name} differ between the card and the CPU")
+        x2 = normalize(torch.from_numpy(batch[:INT8_CPU_IMAGES]), torch.float32).permute(0, 3, 1, 2)
+        card_logit = q32(x2.to(dev))[:, 0].cpu().numpy()
+        cpu_logit, cpu_nudged = (q32_cpu(x2 * f)[:, 0].numpy() for f in (1.0, 1.0 + 1e-6))
+        fp_cpu = DFCEngine(CONFIG, {k: v.cpu() for k, v in weights.items()}, dtype=torch.float32, device="cpu")
+        fp_logit = fp_cpu(x2)[:, 0].numpy()
+    close_path()  # the int8 flagship's path ends here
+    for what, other in (("its input scaled by 1 + 1e-6", cpu_nudged), ("the f32 fp engine", fp_logit)):
+        d = np.abs(cpu_logit - other) / float(cpu_logit.std())
+        print(f"    int8 flagship f32 on the CPU against {what}: |dlogit| / std max {d.max():.3e}, mean {d.mean():.3e}",
+              flush=True)
+    d_cpu = np.abs(card_logit - cpu_logit) / float(card_logit.std())
+    tol = DLOGIT_TOL_INT8_CPU
+    print(f"    int8 flagship f32, card vs CPU on {INT8_CPU_IMAGES} images, the same scales: logit std "
+          f"{card_logit.std():.3e}; |dlogit| / std max {d_cpu.max():.3e} (tol {tol['max']}), mean {d_cpu.mean():.3e} "
+          f"(tol {tol['mean']}); masks agree on {((card_logit > 0) == (cpu_logit > 0)).mean():.4%} of pixels",
+          flush=True)
+    if card_logit.std() < MIN_LOGIT_STD or not (d_cpu.max() <= tol["max"] and d_cpu.mean() <= tol["mean"]):
+        fail("the f32 int8 flagship on the card and on the CPU disagree")
+    del q32, q32_cpu
+    pred_fp = Predictor(DFCEngine(CONFIG, weights, dtype=bf, device=dev, tail_kernel_levels="auto",
+                                  conv_kernel_levels="auto"), compute_dtype=bf, device=dev)
+    with torch.inference_mode():
+        probs_fp = pred_fp.predict_probs(batch)
+    fl, ql = logit_of(probs_fp), logit_of(probs_q)
+    dq = np.abs(ql - fl) / fl.std()
+    print(f"    int8 flagship vs the bf16 engine on the request (printed): logit std {fl.std():.3e}; |dlogit| / std max "
+          f"{dq.max():.3e}, mean {dq.mean():.3e}; masks agree on {((probs_q > 0.5) == (probs_fp > 0.5)).mean():.4%} of "
+          f"pixels", flush=True)
+    time_paths("flagship: int8 engine vs --engine", pred_q, pred_fp)
+    del q_flag, pred_q, pred_fp, probs_q, probs_fp, weights
+
+    # int8 ViT-seg and TransUNet: phase 6's weights, held against their bf16 modules
+    for label, (cfg, _) in ZOO.items():
+        zoo_model = init_random_(create_model(cfg, device="cpu"), torch.Generator().manual_seed(seed))
+        zoo_model = zoo_model.to(dev, memory_format=torch.channels_last)
+        zoo_weights = calibrate_batch_stats_(zoo_model, calib).state_dict()
+        del zoo_model
+        engine_cls = Int8ViTEngine if label == "ViT-seg" else Int8TransUNetEngine
+        reset_launches()  # this int8 transformer's path starts here
+        zoo_probs = {}
+        for pct in INT8_ZOO_PERCENTILES:
+            tag = f"int8 {label} ({'max |t|' if pct is None else f'percentile {pct}'})"
+            with torch.inference_mode():
+                q_zoo = engine_cls(cfg, zoo_weights, dtype=bf, device=dev, calib_batches=[cal8],
+                                   calib_percentile=pct, holdout_batch=held8)
+            self_check(tag, q_zoo)
+            pred = Predictor(q_zoo, compute_dtype=bf, device=dev)
+            zoo_probs[pct] = serve(f"{tag} bf16", pred, {"fused_mha": LAYERS})
+            if pct is None:
+                pred_q = pred  # the gated one, timed below
+            del q_zoo, pred
+        close_path()  # and ends here
+        fp_mod = create_model(cfg, dtype=bf, device=dev)
+        fp_mod.load_state_dict(zoo_weights, strict=True)
+        pred_fp = Predictor(fp_mod, compute_dtype=bf, device=dev)
+        with torch.inference_mode():
+            probs_fp = pred_fp.predict_probs(batch)
+        fl = logit_of(probs_fp)
+        zstd = float(fl.std())
+        tol = DLOGIT_TOL_BF16_ZOO[label]
+        for pct, probs_q in zoo_probs.items():
+            dq = np.abs(logit_of(probs_q) - fl) / zstd
+            gated = pct is None
+            print(f"    int8 {label} ({'max |t|' if gated else f'percentile {pct}'}) vs its bf16 module: logit std "
+                  f"{zstd:.3e}; |dlogit| / std max {dq.max():.3e}, mean {dq.mean():.3e}"
+                  + (f" (tol {tol['max']} and {tol['mean']})" if gated else " (printed)")
+                  + f"; masks agree on {((probs_q > 0.5) == (probs_fp > 0.5)).mean():.4%} of pixels", flush=True)
+            if gated and (zstd < MIN_LOGIT_STD or not (dq.max() <= tol["max"] and dq.mean() <= tol["mean"])):
+                fail(f"int8 {label} and its bf16 module disagree")
+        time_paths(f"{label}: int8 engine vs bf16 module", pred_q, pred_fp)
+        del pred_q, fp_mod, pred_fp, zoo_weights, zoo_probs, probs_fp
+    print(f"    int8 main-path launches: {int8_launches}", flush=True)
+    if min(int8_launches[k] for k in ("conv3x3_s8", "pooled_attention", "dfc_tail", "conv3x3_bn_relu",
+                                      "fused_mha")) < 1:
+        fail(f"a kernel of the int8 paths never launched: {int8_launches}")
+    main_launches = {k: main_launches[k] + int8_launches[k] for k in main_launches}
+    del calib, cal8, held8, xs, xn
+    torch.cuda.empty_cache()
+
+    # the kernel's times at the auto levels (held to its plain version at these shapes above)
+    s8_levels = []
+    r = rows["conv3x3_s8"]
+    r.update(library_ms=None, bf16_ms=0.0, peak=PEAK_OPS["s8"])
+    with torch.inference_mode():
+        for name, h, cin, c in int8_bench.LEVELS:
+            x8, w8, scale, bias = int8_bench.inputs(BATCH, h, h, cin, c, gen)
+            ms = (timed(lambda: s8_ops.conv3x3_s8(x8, w8, scale, bias), 5),
+                  timed(lambda: s8_ops.conv3x3_s8_plain(x8, w8, scale, bias), 2),
+                  timed(int8_bench.yardstick(BATCH, h, cin, c, gen), 5))
+            bound, by = int8_bench.bound_ms(BATCH, h, cin, c)
+            nbytes, nops = int8_bench.work(BATCH, h, cin, c)
+            for key, v in (("ms", ms[0]), ("plain_ms", ms[1]), ("bf16_ms", ms[2]), ("bound_ms", bound),
+                           ("bytes", nbytes), ("ops", nops)):
+                r[key] += v
+            s8_levels.append({"level": name, "ms": ms[0], "plain_ms": ms[1], "bf16_yardstick_ms": ms[2],
+                              "bound_ms": bound, "bound_term": by})
+            print(f"    conv3x3_s8       {name:18s} kernel {ms[0]:8.3f} ms ({nops / ms[0] / 1e9:6.1f} TOP/s)  plain "
+                  f"{ms[1]:8.3f} ms  bf16 yardstick {ms[2]:8.3f} ms  bound {bound:7.3f} ms ({by})", flush=True)
+            del x8, w8, scale, bias
+    print(f"    conv3x3_s8, the four levels: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bf16 yardstick "
+          f"{r['bf16_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({card})", flush=True)
+    for label, q_ms, f_ms, q_img, f_img in speed:
+        print(f"    {label}, bf16 B={BATCH}: forward {q_ms:.2f} ms ({BATCH / q_ms * 1e3:.1f} img/s on device) against "
+              f"{f_ms:.2f} ms ({BATCH / f_ms * 1e3:.1f}); predict_probs {q_img:.1f} img/s against {f_img:.1f} ({card})",
+              flush=True)
+
     sources = {"pooled_attention": ("dfc_sa_unet_torch/csrc/pooled_attention.cu",
                                     "dfc_sa_unet_tpu/ops/pallas_attention.py:74"),
                "dfc_tail": ("dfc_sa_unet_torch/csrc/dfc_tail.cu", "dfc_sa_unet_tpu/ops/pallas_conv.py:198"),
@@ -1057,11 +1314,14 @@ def main():
                "conv3x3_bias_stats": ("dfc_sa_unet_torch/csrc/conv_bn_stats.cu", "scripts/bench_bn_stats.py:80"),
                "probe_matmul": ("dfc_sa_unet_torch/csrc/mxu_probes.cu", "scripts/bench_mxu.py:58"),
                "probe_conv_cat": ("dfc_sa_unet_torch/csrc/mxu_probes.cu", "scripts/bench_mxu.py:129"),
-               "probe_conv_9dot": ("dfc_sa_unet_torch/csrc/mxu_probes.cu", "scripts/bench_mxu.py:134")}
-    levels = {"dfc_tail": tail_levels, "conv3x3_bn_relu": conv_levels, "conv3x3_bias_stats": stats_levels}
+               "probe_conv_9dot": ("dfc_sa_unet_torch/csrc/mxu_probes.cu", "scripts/bench_mxu.py:134"),
+               # no Pallas kernel: the JAX int8 engine's s8 3x3 conv is an XLA convolution
+               "conv3x3_s8": ("dfc_sa_unet_torch/csrc/conv3x3_s8.cu", "dfc_sa_unet_tpu/infer/quant.py:240")}
+    levels = {"dfc_tail": tail_levels, "conv3x3_bn_relu": conv_levels, "conv3x3_bias_stats": stats_levels,
+              "conv3x3_s8": s8_levels}
     kernels = []
     for name, r in rows.items():
-        terms = {"bytes": r["bytes"] / HBM_BYTES_PER_S, "operations": r["ops"] / PEAK_OPS["bf16"],
+        terms = {"bytes": r["bytes"] / HBM_BYTES_PER_S, "operations": r["ops"] / r["peak"],
                  "exponentials": r["exps"] / exps_per_s}
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
@@ -1073,6 +1333,7 @@ def main():
             "bound_by": "bytes" if max(terms, key=terms.get) == "bytes" else "operations",
             "bound_term": max(terms, key=terms.get),
             "library_ms": r["library_ms"],
+            **({"bf16_yardstick_ms": r["bf16_ms"]} if "bf16_ms" in r else {}),
             **({"levels": levels[name]} if name in levels else {}),
         })
     print(f"card: {card}")

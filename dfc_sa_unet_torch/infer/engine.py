@@ -18,6 +18,13 @@ Numerically the module's eval forward, built for serving:
 Both take ``None``, a set of block names or ``"auto"``, and must not
 overlap.  A block in neither set runs on cuDNN convs and torch ops.
 
+``_fwd(x, ranges)`` is the one forward: with a dict ``ranges`` it records the
+int8 quantization points of every block (``{name}.x``, the block's input;
+``{name}.c2``, the concat [local|a]; ``{name}.c3``, [fused|local|a]) through
+``quant.range_tap``, and every block then runs its tail as torch ops, since
+the tail kernel never materialises the two concats (the JAX engine's taps,
+dfc_sa_unet_tpu/infer/engine.py:179-262).  Without ``ranges`` nothing changes.
+
 Takes normalised NCHW activations (channels_last) like the module and
 returns NCHW logits in the compute dtype.
 """
@@ -60,6 +67,28 @@ def _levels(levels, auto):
     return levels
 
 
+def fold_block(sd, name):
+    """The f32 weights of block ``name`` of a state dict with BatchNorm folded in (OIHW kernels, f32
+    biases): "conv", "attn0", "kg", "kf" as (kernel, bias), "kr" the residual 1x1 kernel with
+    res_scale folded in (None for the identity residual, whose scale is "res_scale"), "lsa" the
+    attention's query / key / value (kernel, bias), "gamma" its scale."""
+    def p(key):
+        return sd[f"{name}.{key}"]
+
+    def fold(conv, bn):
+        return fold_conv_bn(p(f"{conv}.weight"), p(f"{conv}.bias"), p(f"{bn}.weight"),
+                            p(f"{bn}.bias"), p(f"{bn}.running_mean"), p(f"{bn}.running_var"))
+
+    res_scale = p("res_scale")
+    lsa = "attn_branch.3"
+    f = {"conv": fold("conv_branch.0", "conv_branch.1"), "attn0": fold("attn_branch.0", "attn_branch.1"),
+         "kg": fold("gate.0", "gate.1"), "kf": fold("fusion_conv.0", "fusion_conv.1"), "res_scale": res_scale,
+         "kr": p("residual_conv.weight") * res_scale if f"{name}.residual_conv.weight" in sd else None,
+         "lsa": {key: (p(f"{lsa}.{key}_conv.weight"), p(f"{lsa}.{key}_conv.bias"))
+                 for key in ("query", "key", "value")}, "gamma": p(f"{lsa}.gamma")}
+    return f
+
+
 def _conv(x, weight, bias, padding=0):
     """Folded conv: emitted in x's dtype, f32 bias added before the cast."""
     return (F.conv2d(x, weight, padding=padding) + bias.view(-1, 1, 1)).to(x.dtype)
@@ -84,51 +113,50 @@ class DFCEngine:
             raise ValueError(f"blocks {sorted(both)} are in both tail_kernel_levels and conv_kernel_levels")
         if isinstance(weights, nn.Module):
             weights = weights.state_dict()
-        sd = {k: v.detach().to(self.device, torch.float32) for k, v in weights.items()
+        # folded on the CPU, whose sqrt is correctly rounded (CUDA's reads an ulp off in places): the folded
+        # weights, and the int8 engine's s8 weights and scales from them, are then the same on every device
+        sd = {k: v.detach().to("cpu", torch.float32) for k, v in weights.items()
               if not k.endswith("num_batches_tracked")}
         self.blocks = {name: self._fold_block(sd, name) for name in BLOCKS}
-        self.ups = {f"up{i}": (sd[f"up{i}.weight"].to(dtype), sd[f"up{i}.bias"]) for i in range(1, 5)}
-        self.final = (sd["final_conv.weight"].to(dtype), sd["final_conv.bias"])
+        dev = self.device
+        self.ups = {f"up{i}": (sd[f"up{i}.weight"].to(dev, dtype), sd[f"up{i}.bias"].to(dev)) for i in range(1, 5)}
+        self.final = (sd["final_conv.weight"].to(dev, dtype), sd["final_conv.bias"].to(dev))
 
     # ------------------------------------------------------------- folding
 
     def _fold_block(self, sd, name):
-        def p(key):
-            return sd[f"{name}.{key}"]
+        """Block ``name``'s weights in the compute dtype and the kernels' layouts."""
+        return self._cast_block(fold_block(sd, name))
 
-        def fold(conv, bn):
-            return fold_conv_bn(p(f"{conv}.weight"), p(f"{conv}.bias"), p(f"{bn}.weight"),
-                                p(f"{bn}.bias"), p(f"{bn}.running_mean"), p(f"{bn}.running_var"))
+    def _cast_block(self, f):
+        """The folded f32 weights ``f`` on the engine's device, the kernels in the compute dtype."""
+        dev, dt = self.device, self.dtype
 
-        dt = self.dtype
-        kc, bc = fold("conv_branch.0", "conv_branch.1")
-        ka, ba = fold("attn_branch.0", "attn_branch.1")
-        kg, bg = fold("gate.0", "gate.1")
-        kf, bf = fold("fusion_conv.0", "fusion_conv.1")
-        c = kc.shape[0]
-        res_scale = p("res_scale")
+        def w(t):
+            return t.to(dev, dt)
+
+        def b(t):
+            return t.to(dev)
+
+        kc, kg, kf = f["conv"][0], f["kg"][0], f["kf"][0]
         d = {
-            "conv": (kc.to(dt), bc), "attn0": (ka.to(dt), ba), "kg": (kg.to(dt), bg),
-            "kf": (kf.to(dt), bf),
+            "conv": (w(kc), b(f["conv"][1])), "attn0": (w(f["attn0"][0]), b(f["attn0"][1])),
+            "kg": (w(kg), b(f["kg"][1])), "kf": (w(kf), b(f["kf"][1])),
             # the kernels' layout: HWIO 3x3 weight, [K, C] 1x1 weights
-            "wc": kc.permute(2, 3, 1, 0).contiguous().to(dt),
-            "wg": kg[:, :, 0, 0].t().contiguous().to(dt),
-            "wf": kf[:, :, 0, 0].t().contiguous().to(dt),
+            "wc": w(kc.permute(2, 3, 1, 0).contiguous()),
+            "wg": w(kg[:, :, 0, 0].t().contiguous()),
+            "wf": w(kf[:, :, 0, 0].t().contiguous()),
         }
-        if f"{name}.residual_conv.weight" in sd:
-            kr = p("residual_conv.weight") * res_scale
-            d["kr"] = kr.to(dt)
-            d["wr"] = kr[:, :, 0, 0].t().contiguous().to(dt)
+        kr = f["kr"]
+        if kr is not None:
+            d["kr"] = w(kr)
+            d["wr"] = w(kr[:, :, 0, 0].t().contiguous())
         else:  # identity residual (Cin == C): eye * res_scale
             d["kr"] = None
-            d["res_scale"] = res_scale
-            d["wr"] = (torch.eye(c, device=self.device) * res_scale).to(dt)
-        lsa = "attn_branch.3"
-        d["lsa"] = {
-            key: (p(f"{lsa}.{key}_conv.weight").to(dt), p(f"{lsa}.{key}_conv.bias"))
-            for key in ("query", "key", "value")
-        }
-        d["lsa"]["gamma"] = p(f"{lsa}.gamma")
+            d["res_scale"] = b(f["res_scale"])
+            d["wr"] = w(torch.eye(kc.shape[0]) * f["res_scale"])
+        d["lsa"] = {key: (w(kk), b(bb)) for key, (kk, bb) in f["lsa"].items()}
+        d["lsa"]["gamma"] = b(f["gamma"])
         return d
 
     # ------------------------------------------------------------- forward
@@ -141,12 +169,23 @@ class DFCEngine:
         o = resize_bilinear(nchw(pooled_attention(q, k, v)), (h, w))
         return (d["gamma"] * o.float() + a.float()).to(a.dtype)
 
-    def _tail_lax(self, d, local, a, x):
-        """The module tail with BN folded: concat + 1x1 convs."""
+    def _tap(self, ranges, key, t):
+        """Calibration mode (``ranges`` a dict): record t's range under ``key`` (quant.range_tap)."""
+        if ranges is not None:
+            from dfc_sa_unet_torch.infer.quant import range_tap
+
+            range_tap(ranges, key, t, getattr(self, "calib_percentile", None))
+
+    def _tail_lax(self, d, local, a, x, name=None, ranges=None):
+        """The module tail with BN folded: concat + 1x1 convs.  With ``ranges`` the int8
+        quantization points c2 (combined) and c3 (cat3) are recorded."""
         combined = torch.cat([local, a], 1)
+        self._tap(ranges, f"{name}.c2", combined)
         g = torch.sigmoid(_conv(combined, *d["kg"]).float())
         fused = (g * local.float() + (1.0 - g) * a.float()).to(local.dtype)
-        o = torch.relu(_conv(torch.cat([fused, combined], 1), *d["kf"]).float())
+        cat3 = torch.cat([fused, combined], 1)
+        self._tap(ranges, f"{name}.c3", cat3)
+        o = torch.relu(_conv(cat3, *d["kf"]).float())
         if d["kr"] is not None:
             o = o + F.conv2d(x, d["kr"])
         else:
@@ -157,9 +196,12 @@ class DFCEngine:
         a = torch.relu(_conv(x, *d["attn0"]).float()).to(x.dtype)
         return self._lsa(d["lsa"], a)
 
-    def _block(self, name, x):
+    def _block(self, name, x, ranges=None):
+        """Block ``name``.  With ``ranges`` (calibration) its input x is recorded as ``{name}.x`` and
+        the tail runs as torch ops, which materialise the concats the tail kernel keeps on chip."""
         d = self.blocks[name]
-        if name in self.tail_kernel_levels:
+        self._tap(ranges, f"{name}.x", x)
+        if ranges is None and name in self.tail_kernel_levels:
             a = self._attn_branch(d, x)
             out = dfc_tail(nhwc(x), nhwc(a), d["wc"], d["conv"][1], d["wg"], d["kg"][1],
                            d["wf"], d["kf"][1], d["wr"])
@@ -171,23 +213,28 @@ class DFCEngine:
             y3 = F.conv2d(x, d["conv"][0], padding=1).to(x.dtype)
             local = torch.relu(y3.float() + d["conv"][1].view(-1, 1, 1)).to(x.dtype)
         a = self._attn_branch(d, x)
-        return self._tail_lax(d, local, a, x)
+        return self._tail_lax(d, local, a, x, name, ranges)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _fwd(self, x, ranges=None):
+        """The one forward: serving (``ranges`` None) and int8 calibration (``ranges`` a dict that
+        collects the quantization points' statistics) share it, so they cannot drift apart."""
         x = x.to(self.device, self.dtype, memory_format=torch.channels_last)
         skips = []
         h = x
         for i in range(1, 5):
-            h = self._block(f"down{i}", h)
+            h = self._block(f"down{i}", h, ranges)
             skips.append(h)
             h = max_pool(h, 2, 2)
-        h = self._block("bottleneck", h)
+        h = self._block("bottleneck", h, ranges)
         for i in range(4, 0, -1):
             skip = skips[i - 1]
             h = conv_transpose_2x2(h, *self.ups[f"up{i}"])
             if h.shape[2:] != skip.shape[2:]:
                 h = resize_bilinear(h, skip.shape[2:])
-            h = self._block(f"up_conv{i}", torch.cat([h, skip], 1))
+            h = self._block(f"up_conv{i}", torch.cat([h, skip], 1), ranges)
         return _conv(h, *self.final)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._fwd(x)
 
     __call__ = forward

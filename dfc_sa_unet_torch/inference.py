@@ -4,6 +4,7 @@
         --input DIR [--output DIR] [--csv_dir DIR] [--threshold 0.5]
         [--tile_size 224] [--overlap 50] [--resize W H] [--no_slide_window]
         [--tta] [--bf16 | --no_bf16] [--engine] [--batch_size 128] [--serial]
+        [--int8 [--int8_percentile 99.9 | --int8_maxabs] [--no_int8_check] [--strict]]
         [--device cuda]
 
 WEIGHTS is a reference-layout PyTorch ``.pth`` (raw state dict or trainer
@@ -22,8 +23,15 @@ DIR holds ``original/`` and ``mask/``, per-image and micro-averaged global
 metrics are printed and written to CSV, with a combined view per image; a
 ``mask/`` without ``original/`` is served without evaluation, with a warning.
 An ``inference: {bf16: true}`` section of the config serves in bfloat16 unless
-``--no_bf16`` is given.  Runs on the card; ``--device cpu`` runs the plain
-PyTorch path on the CPU.
+``--no_bf16`` is given.  ``--int8`` serves the flagship, ViT-seg or TransUNet
+through its int8 engine (``infer/quant*.py``; it takes precedence over
+``--engine``), with static activation scales calibrated on the first 8
+images (a percentile of |t|, 99.9 by default, or max |t| with
+``--int8_maxabs``), and, unless ``--no_int8_check``, a self-check of the int8
+masks against the fp ones on those images and on images 8..16 (``--strict``
+refuses to serve when it fails); any other model is served as without
+``--int8``.  Runs on the card; ``--device cpu`` runs the plain PyTorch path on
+the CPU.
 """
 
 import argparse
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 from dfc_sa_unet_torch.config import load_config, merge_bf16_flag
+from dfc_sa_unet_torch.data.normalize import normalize
 from dfc_sa_unet_torch.infer.predictor import Predictor, load_image, prefetch
 from dfc_sa_unet_torch.metrics import confusion_counts, metrics_from_counts
 from dfc_sa_unet_torch.models.factory import create_model
@@ -99,6 +108,75 @@ def build_predictor(config, weights, bf16=False, engine=False, device=None) -> P
     return Predictor(model, compute_dtype=dtype, device=dev)
 
 
+INT8_MODELS = ("DFC-SA-Res-Block", "VisionTransformerSegmentation", "TransformerUNet", "TransUNet")
+CALIB_IMAGES = 8
+
+
+def _calibration_batches(config, image_files, args, dtype, dev):
+    """(calibration batch, held-out batch or None): the first 8 images and images 8..16, cycled to
+    the calibration batch's size, at the model's working side, normalised as the Predictor does."""
+    name = config["model"]["name"]
+    img = config.get("dataset", {}).get("img_size", [224, 224])
+    img_size = (img, img) if isinstance(img, int) else tuple(img)
+    side = args.tile_size if not args.no_slide_window else img_size[0]
+    if name == "VisionTransformerSegmentation":
+        side = config["model"].get("img_dim", 224)  # ViT-seg takes img_dim inputs only
+    elif name in ("TransformerUNet", "TransUNet"):
+        side = img_size[0]  # its position embeddings are sized from dataset.img_size
+
+    def images(paths):
+        return [im for im, _ in (load_image(p, target_size=(side, side)) for p in paths) if im is not None]
+
+    def to_input(ims):
+        return normalize(torch.from_numpy(np.stack(ims)).to(dev), dtype).permute(0, 3, 1, 2)
+
+    calib = images(image_files[:CALIB_IMAGES])
+    if not calib:
+        raise SystemExit("--int8: no readable calibration images")
+    held = images(image_files[CALIB_IMAGES:2 * CALIB_IMAGES])
+    if held:
+        held = (held * ((len(calib) + len(held) - 1) // len(held)))[:len(calib)]
+    return to_input(calib), to_input(held) if held else None, len(calib)
+
+
+def build_int8_predictor(config, weights, image_files, args) -> Predictor:
+    """The model's int8 engine, calibrated on the input images, self-checked unless
+    ``--no_int8_check``, in a Predictor."""
+    from dfc_sa_unet_torch.infer.quant import int8_self_check
+
+    dev = resolve_device(args.device)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    percentile = None if args.int8_maxabs else args.int8_percentile
+    xs, holdout, n = _calibration_batches(config, image_files, args, dtype, dev)
+    kw = dict(dtype=dtype, device=dev, calib_batches=[xs], calib_percentile=percentile, holdout_batch=holdout)
+    name = config["model"]["name"]
+    if name == "VisionTransformerSegmentation":
+        from dfc_sa_unet_torch.infer.quant_vit import Int8ViTEngine
+
+        engine = Int8ViTEngine(config, weights, **kw)
+        print(f"Using the int8 transformer serving engine (all four linears x {engine.num_layers} blocks; "
+              f"calibrated on {n} images).")
+    elif name in ("TransformerUNet", "TransUNet"):
+        from dfc_sa_unet_torch.infer.quant_transunet import Int8TransUNetEngine
+
+        engine = Int8TransUNetEngine(config, weights, **kw)
+        print(f"Using the int8 TransUNet serving engine (all four encoder linears x {engine.num_layers} "
+              f"blocks; calibrated on {n} images).")
+    else:
+        from dfc_sa_unet_torch.infer.quant import Int8DFCEngine
+
+        engine = Int8DFCEngine(config, weights, tail_kernel_levels="auto", conv_kernel_levels="auto", **kw)
+        print(f"Using the int8 quantized serving engine (levels: {sorted(engine.int8_levels)}; "
+              f"calibrated on {n} images).")
+    if not args.no_int8_check:
+        chk = int8_self_check(engine, strict=args.strict)
+        if chk is not None:
+            extra = (f"; held-out flip rate {chk['holdout_flip_rate']:.3%}" if "holdout_flip_rate" in chk else "")
+            print(f"int8 self-check: mask flip rate {chk['flip_rate']:.3%}, mean |dprob| "
+                  f"{chk['mean_abs_dprob']:.5f}{extra}")
+    return Predictor(engine, compute_dtype=dtype, device=dev)
+
+
 def main(args):
     import cv2
 
@@ -110,13 +188,10 @@ def main(args):
     model_path = _norm(model_path)
     if os.path.isdir(model_path):
         raise SystemExit(f"{model_path}: the port loads torch.save files only (a reference .pth, or the "
-                         f"best_model or a checkpoint of dfc_sa_unet_torch.train), not an Orbax directory (ROADMAP.md)")
-    predictor = build_predictor(config, load_state_dict_file(model_path), bf16=args.bf16,
-                                engine=args.engine, device=args.device)
-    print(f"Loaded {model_path}; model {config['model']['name']} on {predictor.device} in "
-          f"{str(predictor.compute_dtype).split('.')[-1]}" + (" (folded engine)" if args.engine else ""))
-    print("Mode: " + ("direct prediction" if args.no_slide_window else "sliding window")
-          + (", TTA" if args.tta else ""))
+                         f"best_model or a checkpoint of dfc_sa_unet_torch.train), not an Orbax directory: "
+                         f"convert it first, on a machine with JAX, with python scripts/convert_checkpoint.py "
+                         f"--config CFG --ckpt DIR --out W.pth --to_torch")
+    weights = load_state_dict_file(model_path)
 
     output_dir = _norm(args.output)
     os.makedirs(output_dir, exist_ok=True)
@@ -134,6 +209,22 @@ def main(args):
     if not image_files:
         print(f"No image files found in {original_dir}.")
         return
+
+    name = config["model"]["name"]
+    int8 = args.int8 and name in INT8_MODELS
+    if args.int8 and not int8:
+        print("(--int8 supports DFC-SA-Res-Block, VisionTransformerSegmentation, and TransformerUNet; "
+              "using standard path)")
+    if int8:
+        predictor = build_int8_predictor(config, weights, image_files, args)
+    else:
+        predictor = build_predictor(config, weights, bf16=args.bf16, engine=args.engine and not args.int8,
+                                    device=args.device)
+    kind = " (int8 engine)" if int8 else " (folded engine)" if args.engine and not args.int8 else ""
+    print(f"Loaded {model_path}; model {name} on {predictor.device} in "
+          f"{str(predictor.compute_dtype).split('.')[-1]}{kind}")
+    print("Mode: " + ("direct prediction" if args.no_slide_window else "sliding window")
+          + (", TTA" if args.tta else ""))
 
     def decoded():
         for image_path in image_files:
@@ -237,6 +328,19 @@ def parse_args(argv=None):
     parser.add_argument("--engine", action="store_true",
                         help="folded inference engine: the fused DFC-tail kernel on its 7 'auto' "
                              "levels, the 3x3 conv kernel on the other two")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 serving engine (DFC-SA-Res-Block, VisionTransformerSegmentation, "
+                             "TransformerUNet), calibrated on the first input images; takes precedence over "
+                             "--engine")
+    parser.add_argument("--int8_percentile", type=float, default=99.9,
+                        help="with --int8: activation scales from this percentile of |t| (default 99.9)")
+    parser.add_argument("--int8_maxabs", action="store_true",
+                        help="with --int8: activation scales from max |t| instead of a percentile")
+    parser.add_argument("--no_int8_check", action="store_true",
+                        help="with --int8: skip the int8-vs-fp self-check on the calibration images")
+    parser.add_argument("--strict", action="store_true",
+                        help="with --int8: refuse to serve (instead of warning) when the self-check's mask "
+                             "flip rate exceeds its gate")
     parser.add_argument("--batch_size", type=int, default=128)
     parser.add_argument("--serial", action="store_true", help="no decode/compute pipelining")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")

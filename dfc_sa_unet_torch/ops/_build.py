@@ -43,6 +43,8 @@ SIGNATURES = {
     "probe_matmul_bf16": ("mxu_probes", [_P] * 3 + [_I] * 3 + [_P]),
     "probe_conv_cat_bf16": ("mxu_probes", [_P] * 3 + [_I] * 5 + [_P]),
     "probe_conv_9dot_bf16": ("mxu_probes", [_P] * 3 + [_I] * 5 + [_P]),
+    "conv3x3_s8_bf16": ("conv3x3_s8", [_P] * 5 + [_I] * 6 + [_P]),
+    "conv3x3_s8_f32": ("conv3x3_s8", [_P] * 5 + [_I] * 6 + [_P]),
 }
 
 _functions = None

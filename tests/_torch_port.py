@@ -171,3 +171,42 @@ def assert_step_matches(tm, jm, port_sd, jax_sd, init):
         d_jax, d_port = want - init[name], got - init[name]
         tol = 1e-3 * np.abs(d_jax).max() + 1e-7
         assert np.abs(d_port - d_jax).max() <= tol, (name, np.abs(d_port - d_jax).max(), tol)
+
+
+def train_on_synthetic(tmp_path, model, model_cfg, size, epochs, lr):
+    """``model`` trained by the port's Trainer on 16 synthetic ellipse images (seed 3) with 8 held out
+    (seed 4), batch 8, bce_dice, SGD: the setting of the JAX int8 tests' Dice gates.  Returns (the model
+    in eval mode, the config, the training samples, the held-out samples)."""
+    from dfc_sa_unet_torch.data.dataset import ArrayDataset
+    from dfc_sa_unet_torch.data.loader import BatchLoader
+    from dfc_sa_unet_torch.data.synthetic import samples
+    from dfc_sa_unet_torch.train.trainer import Trainer
+
+    cfg = train_config(tmp_path, model_cfg, num_epochs=epochs, batch_size=8, learning_rate=lr)
+    cfg["dataset"]["img_size"] = [size, size]
+    train = list(samples(n=16, size=size, seed=3))
+    val = list(samples(n=8, size=size, seed=4))
+    trainer = Trainer(model, BatchLoader(ArrayDataset(train), 8, shuffle=True, num_workers=1, seed=0),
+                      BatchLoader(ArrayDataset(val), 8, shuffle=False, num_workers=1, seed=0), cfg, seed=0,
+                      device="cpu", progress=False)
+    for epoch in range(epochs):
+        trainer.train_epoch(epoch)
+    return trainer.model.eval(), cfg, train, val
+
+
+def micro_dice(engine, items):
+    """Micro-averaged Dice of ``engine``'s masks (probability > 0.5) on (name, image, mask) items."""
+    from dfc_sa_unet_torch.data.normalize import normalize
+    from dfc_sa_unet_torch.metrics import confusion_counts, metrics_from_counts
+
+    xs = normalize(torch.from_numpy(np.stack([img for _, img, _ in items]))).permute(0, 3, 1, 2)
+    gt = torch.from_numpy(np.stack([m for _, _, m in items]) > 127)
+    with torch.no_grad():
+        pred = torch.sigmoid(engine(xs))[:, 0] > 0.5
+    return metrics_from_counts(**confusion_counts(pred, gt))["dice_f1"]
+
+
+def normalised(items):
+    from dfc_sa_unet_torch.data.normalize import normalize
+
+    return normalize(torch.from_numpy(np.stack([img for _, img, _ in items]))).permute(0, 3, 1, 2)
