@@ -105,20 +105,40 @@ any failure exits non-zero:
    99.9, printed beside (INT8_ZOO_PERCENTILES says why); then the kernel's times at the four
    levels beside its plain version, the bf16 yardstick (cuDNN's bf16 conv +
    bias + ReLU) and its bound (dense s8: 1979 TOP/s), and the three int8
-   forwards and served img/s beside their bf16 paths.
+   forwards and served img/s beside their bf16 paths;
+14. multi-device: (a) the flagship's data-parallel training step (the
+   Trainer with a mesh, as the training CLI builds it) over NCCL in a group
+   of one process, bf16 B=64, 3 steps, beside the single-device Trainer on the
+   same weights and batches (both ms/step printed; 9 attention launches a
+   step), then both in f32 at B=16, losses and state within 1e-4; (b) two
+   processes on this card over Gloo (this script with --dp_worker; NCCL
+   refuses two ranks on one GPU), f32, global batch 8, 2 steps, held to one
+   process at tests/test_parallel_fast.py's limits, under a hard time limit;
+   (c) 8 synthetic images served through the inference CLI (engine, bf16) by
+   two processes under torch.distributed.run (this script with
+   --serve_worker, which calls the CLI's main and saves its launch counts):
+   the merged CSV must be the single-process run's, row for row, metrics
+   within 1e-6, and each process must launch 9 attention, 7 tail and 2
+   conv3x3 kernels a batch.
 
 The launch counts are set to 0 before phase 4 and read after phase 5 (the
 flagship's serving paths), and again around phase 6 (the transformers'),
 around each training run of phase 8, around each of phases 9 to 12
-(phase 12's before its timed rows) and around each int8 engine's path in
-phase 13 (before its timed rows).  The line before
+(phase 12's before its timed rows), around each int8 engine's path in
+phase 13 (before its timed rows) and around each multi-device run of phase
+14 (the data-parallel Trainer's two runs in this process; each process of
+(b) and (c) counts its own; the single-process references are not
+counted).  The line before
 the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -247,6 +267,293 @@ INT8_ZOO_PERCENTILES = (None, INT8_PERCENTILE)
 # against fp; the card is held to about twice the former.
 INT8_CPU_IMAGES = 2
 DLOGIT_TOL_INT8_CPU = {"max": 0.2, "mean": 0.025}
+# phase 14: the data-parallel path at world size 1 against the single-device Trainer, f32, B=16 (both fit at
+# once), 3 steps: losses and every tensor of the state dict within 1e-4 of the largest magnitude (the only
+# difference is the cross-replica BatchNorm arithmetic, E[x^2] - E[x]^2 over one process)
+DP_F32_BATCH, DP_TOL = 16, 1e-4
+# phase 14(b): two processes on the one card over Gloo (NCCL refuses two ranks on one GPU), f32, global
+# batch 8, 2 steps, against one process: tests/test_parallel_fast.py:89-93's limits
+DP_BATCH, DP_STEPS = 8, 2
+DP_LOSS_TOL = {"atol": 1e-5, "rtol": 1e-5}
+DP_STATE_TOL = {"atol": 1e-5, "rtol": 1e-4}
+DP_CHILD_TIMEOUT_S = 300  # a hang fails the phase
+# phase 14(c): 8 synthetic images served by two processes through the CLI, merged, against one process; both
+# runs take batches of 4 tiles, so each image meets the same shapes and the same library algorithms
+SERVE_IMAGES, SERVE_BATCH = 8, 4
+
+
+def seeded_trainer(cfg, batch, data, bf16, device, log_dir, seed, remat=False, weight_seed=None, mesh=None):
+    """A Trainer of ``cfg`` (phase 8's training section) with weights seeded by ``weight_seed``
+    (default ``seed``) over the synthetic samples ``data``; with ``mesh`` each process loads its
+    chunk of every batch (``BatchLoader(shard=...)``) as the training CLI does.  ``step_log``
+    records each step's metrics and its time: train_step ends on a read of the loss."""
+    import torch
+
+    from dfc_sa_unet_torch.data.dataset import ArrayDataset
+    from dfc_sa_unet_torch.data.loader import BatchLoader
+    from dfc_sa_unet_torch.models.factory import create_model
+    from dfc_sa_unet_torch.train.trainer import Trainer
+    from dfc_sa_unet_torch.utils.weights import init_random_
+
+    dtype = torch.bfloat16 if bf16 else None
+    config = {**cfg, "training": {**TRAINING, "batch_size": batch},
+              "logging": {"log_dir": log_dir, "images_dir": os.path.join(log_dir, "images")}}
+    net = init_random_(create_model(config, dtype=dtype, device="cpu", remat=remat),
+                       torch.Generator().manual_seed(seed if weight_seed is None else weight_seed))
+    shard = None if mesh is None else (mesh.rank, mesh.world_size)
+    train = BatchLoader(ArrayDataset(data), batch, shuffle=True, num_workers=2, seed=seed, shard=shard,
+                        partial="replicate")
+    val = BatchLoader(ArrayDataset(data[:2 * batch]), batch, shuffle=False, num_workers=2, seed=seed, shard=shard)
+    trainer = Trainer(net, train, val, config, mesh=mesh, seed=seed, compute_dtype=dtype, device=device,
+                      progress=False)
+    trainer.step_log = []
+    step = trainer.train_step
+
+    def logged_step(*batch_tensors, **kw):
+        t0 = time.perf_counter()
+        metrics = step(*batch_tensors, **kw)
+        trainer.step_log.append({**metrics, "ms": (time.perf_counter() - t0) * 1e3})
+        return metrics
+
+    trainer.train_step = logged_step
+    return trainer
+
+
+def dp_worker(args):
+    """One process of phase 14(b): the flagship at full width, f32, one rank of a Gloo group of
+    ``--dp_world`` processes on cuda:0, DP_STEPS steps at a global batch of DP_BATCH (its chunk of
+    each); saves its step log, launch counts and state dict into ``--dp_out``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dfc_sa_unet_torch.data.synthetic import samples
+    from dfc_sa_unet_torch.ops import launches, reset_launches
+    from dfc_sa_unet_torch.parallel.mesh import data_parallel_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = data_parallel_mesh("cuda:0", backend="gloo", coordinator=args.dp_coordinator,
+                              num_processes=args.dp_world, process_id=args.dp_worker, timeout_s=DP_CHILD_TIMEOUT_S)
+    try:
+        data = list(samples(n=DP_STEPS * DP_BATCH, size=IMG, seed=args.seed))
+        trainer = seeded_trainer(CONFIG, DP_BATCH, data, False, mesh.device,
+                                 os.path.join(args.dp_out, f"rank{args.dp_worker}"), args.seed, mesh=mesh)
+        reset_launches()
+        trainer.train_epoch(0)
+        torch.save({"step_log": trainer.step_log, "launches": launches(),
+                    "state": {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}},
+                   os.path.join(args.dp_out, f"rank{args.dp_worker}.pt"))
+    finally:
+        mesh.close()
+
+
+def serve_worker(args, cli_argv):
+    """One process of phase 14(c) under torch.distributed.run: the inference CLI's main on
+    ``cli_argv`` with the launch counts from 0, then its counts into ``--serve_worker``."""
+    from dfc_sa_unet_torch import inference as serve_cli
+    from dfc_sa_unet_torch.ops import launches, reset_launches
+
+    reset_launches()
+    serve_cli.main(serve_cli.parse_args(cli_argv))
+    with open(os.path.join(args.serve_worker, f"launches.rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(launches(), f)
+
+
+def multi_device(seed, card, dev, fits, batch, items, run_epochs):
+    """Phase 14: the data-parallel training step and multi-process serving.  ``fits`` is phase
+    8's bf16 batch, ``items`` its synthetic samples and ``run_epochs`` its epoch check, ``batch``
+    phase 4's uint8 images; the two processes of (b) and (c) share cuda:0.  Returns the launch
+    counts of the multi-device runs: the data-parallel Trainer's in this process and every
+    process's of (b) and (c); the single-process references' are not counted."""
+    import csv
+
+    import torch
+    import yaml
+
+    from dfc_sa_unet_torch import inference as serve_cli
+    from dfc_sa_unet_torch.data.normalize import normalize
+    from dfc_sa_unet_torch.data.synthetic import generate, samples
+    from dfc_sa_unet_torch.models.factory import create_model
+    from dfc_sa_unet_torch.ops import launches, reset_launches
+    from dfc_sa_unet_torch.parallel.mesh import data_parallel_mesh, local_coordinator
+    from dfc_sa_unet_torch.utils.weights import calibrate_batch_stats_, init_random_
+
+    print(f"[14] multi-device training and serving, seed {seed} ({card})", flush=True)
+
+    tmp = tempfile.TemporaryDirectory()
+    path = {k: 0 for k in launches()}  # the multi-device runs' launches
+    run_counts = {}  # each run's, printed
+
+    def count(label, got):
+        run_counts[label] = {k: v for k, v in got.items() if v}
+        for k, v in got.items():
+            path[k] += v
+
+    def epoch(tr, label, counted):
+        """Phase 8's epoch check (9 attention launches a step and nothing else); a data-parallel
+        run's launches go into the path's."""
+        reset_launches()
+        run_epochs(tr, [0], "pooled_attention", 9, label)
+        if counted:
+            count(label, launches())
+
+    # (a) the data-parallel training step over NCCL at world size 1, in this process, beside the
+    # single-device Trainer on the same weights and batches
+    mesh = data_parallel_mesh(dev, coordinator=local_coordinator(), num_processes=1, process_id=0,
+                              timeout_s=DP_CHILD_TIMEOUT_S)
+    if mesh.group is None or mesh.backend != "nccl" or mesh.world_size != 1:
+        fail(f"expected an NCCL group of one process, got {mesh}")
+    dp_ms = {}
+    for label, m in (("data-parallel, NCCL, 1 process", mesh), ("single-device Trainer", None)):
+        tr = seeded_trainer(CONFIG, fits, items[:3 * fits], True, dev, os.path.join(tmp.name, "bf16"), seed, mesh=m)
+        epoch(tr, f"(a) flagship bf16 B={fits}, {label}", m is not None)
+        dp_ms[label] = float(np.median([r["ms"] for r in tr.step_log[1:]]))
+        print(f"    flagship bf16 B={fits}, {label}: losses {[round(r['loss'], 4) for r in tr.step_log]}; "
+              f"{dp_ms[label]:.1f} ms/step (median of steps 2-3) = {fits / dp_ms[label] * 1e3:.1f} img/s ({card})",
+              flush=True)
+        del tr
+        torch.cuda.empty_cache()
+    pair = []  # (step log, state dict on the host) of the data-parallel path, then of the Trainer
+    for m in (mesh, None):
+        tr = seeded_trainer(CONFIG, DP_F32_BATCH, items[:3 * DP_F32_BATCH], False, dev, os.path.join(tmp.name, "f32"),
+                            seed, mesh=m)
+        epoch(tr, f"(a) flagship f32 B={DP_F32_BATCH}, " + ("data-parallel" if m is not None else "single-device"),
+              m is not None)
+        pair.append((tr.step_log, {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}))
+        del tr
+        torch.cuda.empty_cache()
+    rel_loss = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(pair[0][0], pair[1][0]))
+    sd_dp, sd_one = pair[0][1], pair[1][1]
+    rel_state = max(float((sd_dp[k].double() - v.double()).abs().max() / v.double().abs().max().clamp(min=1e-12))
+                    for k, v in sd_one.items() if v.is_floating_point())
+    tracked = all(torch.equal(sd_dp[k], v) for k, v in sd_one.items() if not v.is_floating_point())
+    print(f"    data-parallel path vs the single-device Trainer, f32 B={DP_F32_BATCH}, 3 steps: relative loss "
+          f"difference {rel_loss:.2e}, largest state-dict difference {rel_state:.2e} of the tensor's largest "
+          f"magnitude (tol {DP_TOL})", flush=True)
+    if not (rel_loss <= DP_TOL and rel_state <= DP_TOL and tracked):
+        fail("the data-parallel training step at world size 1 disagrees with the single-device Trainer")
+    del pair, sd_dp, sd_one
+    mesh.close()
+    torch.cuda.empty_cache()
+
+    # (b) two processes on this card over Gloo, against one process at the same global batch
+    dp_out = os.path.join(tmp.name, "two")
+    os.makedirs(dp_out)
+    coordinator = local_coordinator()
+    children = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seed", str(seed), "--dp_worker",
+                                  str(r), "--dp_world", "2", "--dp_coordinator", coordinator, "--dp_out", dp_out],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [c.communicate(timeout=DP_CHILD_TIMEOUT_S)[0] for c in children]
+    except subprocess.TimeoutExpired:
+        logs = None
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.communicate()
+    if logs is None or any(c.returncode for c in children):
+        for i, log in enumerate(logs or []):
+            print(f"    rank {i}: {log[-3000:]}")
+        fail("phase 14(b): a process of the Gloo group failed or hung (limit "
+             f"{DP_CHILD_TIMEOUT_S} s); its output is above")
+    ranks = [torch.load(os.path.join(dp_out, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    one = seeded_trainer(CONFIG, DP_BATCH, list(samples(n=DP_STEPS * DP_BATCH, size=IMG, seed=seed)), False, dev,
+                         os.path.join(tmp.name, "one"), seed)
+    epoch(one, f"flagship f32 B={DP_BATCH}, one process", False)
+    want_loss = [r["loss"] for r in one.step_log]
+    want_state = {k: v.detach().cpu() for k, v in one.model.state_dict().items()}
+    bad = []
+    for r, got in enumerate(ranks):
+        loss = [s["loss"] for s in got["step_log"]]
+        if got["launches"] != {**{k: 0 for k in got["launches"]}, "pooled_attention": 9 * DP_STEPS}:
+            bad.append(f"rank {r} launched {got['launches']}")
+        if not np.allclose(loss, want_loss, **DP_LOSS_TOL) or len(loss) != DP_STEPS:
+            bad.append(f"rank {r} losses {loss} against {want_loss}")
+        for k, v in want_state.items():
+            if not torch.allclose(got["state"][k].double(), v.double(), **DP_STATE_TOL):
+                bad.append(f"rank {r} {k}: max difference {(got['state'][k].double() - v.double()).abs().max():.3e}")
+        count(f"(b) rank {r}", got["launches"])
+    two_ms = float(np.median([s["ms"] for s in ranks[0]["step_log"][1:]]))
+    one_ms = float(np.median([s["ms"] for s in one.step_log[1:]]))
+    print(f"    two processes on one card over Gloo, f32, global batch {DP_BATCH} ({DP_BATCH // 2} a process), "
+          f"{DP_STEPS} steps: losses {[round(s['loss'], 6) for s in ranks[0]['step_log']]} against one process's "
+          f"{[round(v, 6) for v in want_loss]}; {two_ms:.1f} ms/step (rank 0, step 2) against one process's "
+          f"{one_ms:.1f} ({card})", flush=True)
+    if bad:
+        fail("phase 14(b): two processes disagree with one: " + "; ".join(bad[:8]))
+    del one, ranks, want_state
+    torch.cuda.empty_cache()
+
+    # (c) serving through the CLI: two processes (torchrun, Gloo barrier, primary merges) against one
+    data_dir = generate(os.path.join(tmp.name, "serve"), n=SERVE_IMAGES, size=IMG, seed=seed)
+    serve_model = init_random_(create_model(CONFIG, device="cpu"), torch.Generator().manual_seed(seed)).to(dev)
+    calibrate_batch_stats_(serve_model, normalize(torch.from_numpy(batch[:16]).to(dev)).permute(0, 3, 1, 2))
+    weights_path = os.path.join(tmp.name, "serve.pth")
+    torch.save({k: v.cpu() for k, v in serve_model.state_dict().items()}, weights_path)
+    del serve_model
+    cfg_path = os.path.join(tmp.name, "serve.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({**CONFIG, "dataset": {"img_size": [IMG, IMG]}, "training": {}, "logging": {}}, f)
+    common = ["--config", cfg_path, "--model", weights_path, "--input", data_dir, "--tile_size", str(IMG),
+              "--overlap", "0", "--engine", "--bf16", "--batch_size", str(SERVE_BATCH), "--device", "cuda:0"]
+
+    def served(got, n_images):
+        """The launches of serving ``n_images`` in batches of SERVE_BATCH: 9/7/2 a batch."""
+        n = -(-n_images // SERVE_BATCH)
+        return got == {**{k: 0 for k in got}, "pooled_attention": 9 * n, "dfc_tail": 7 * n, "conv3x3_bn_relu": 2 * n}
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # the CLI's per-image lines and table
+        serve_cli.main(serve_cli.parse_args([*common, "--output", os.path.join(tmp.name, "one")]))
+    one_s = time.perf_counter() - t0
+    if not served(launches(), SERVE_IMAGES):
+        fail(f"one serving process launched {launches()}")
+    counts_dir = os.path.join(tmp.name, "serve_counts")
+    os.makedirs(counts_dir)
+    t0 = time.perf_counter()
+    # its own session, so that a hang is ended with torchrun's workers, not only torchrun; each
+    # worker runs the CLI's main (python -m dfc_sa_unet_torch.inference's) and saves its counts
+    run = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+                            os.path.abspath(__file__), "--serve_worker", counts_dir, "--",
+                            *common, "--output", os.path.join(tmp.name, "two"), "--data_parallel"],
+                           cwd=os.path.dirname(os.path.abspath(__file__)),
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        log = run.communicate(timeout=DP_CHILD_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(run.pid, signal.SIGKILL)
+        run.communicate()
+        fail(f"phase 14(c): two serving processes did not finish in {DP_CHILD_TIMEOUT_S} s")
+    two_s = time.perf_counter() - t0
+    if run.returncode:
+        print(log[-6000:])
+        fail("phase 14(c): two serving processes failed")
+
+    def csv_rows(run):
+        with open(os.path.join(tmp.name, run, "evaluation_metrics.csv"), newline="") as f:
+            return list(csv.DictReader(f))
+
+    want_rows, got_rows = csv_rows("one"), csv_rows("two")
+    worst = max((abs(float(g[k]) - float(w[k])) for g, w in zip(got_rows, want_rows) for k in w if k != "file"),
+                default=float("inf"))
+    names = [r["file"] for r in got_rows]
+    print(f"    serving {SERVE_IMAGES} images (engine, bf16, batches of {SERVE_BATCH}): one process {one_s:.1f} s, "
+          f"two processes through torchrun {two_s:.1f} s with start-up; merged CSV rows {names}; largest metric "
+          f"difference {worst:.1e} (tol 1e-6) ({card})", flush=True)
+    if names != [r["file"] for r in want_rows] or len(names) != SERVE_IMAGES or not worst <= 1e-6:
+        fail("phase 14(c): the merged CSV of two processes is not the single-process CSV")
+    for r in range(2):
+        with open(os.path.join(counts_dir, f"launches.rank{r}.json")) as f:
+            got = json.load(f)
+        if not served(got, SERVE_IMAGES // 2):
+            fail(f"phase 14(c): serving process {r} launched {got}, expected 9/7/2 a batch of {SERVE_BATCH}")
+        count(f"(c) rank {r}", got)
+    print(f"    multi-device launches, run by run: {run_counts}; the path's {path}", flush=True)
+    tmp.cleanup()
+    return path
+
 
 
 def model_config(name):
@@ -266,7 +573,17 @@ def logit_of(p):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    seed = ap.parse_args().seed
+    # phase 14(b)'s child processes: this script run as one rank of a group
+    ap.add_argument("--dp_worker", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp_world", type=int, default=2, help=argparse.SUPPRESS)
+    ap.add_argument("--dp_coordinator", type=str, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp_out", type=str, default=None, help=argparse.SUPPRESS)
+    # phase 14(c)'s serving processes: the inference CLI on the arguments after "--"
+    ap.add_argument("--serve_worker", type=str, default=None, help=argparse.SUPPRESS)
+    argv = sys.argv[1:]
+    cut = argv.index("--") if "--" in argv else len(argv)
+    cli = ap.parse_args(argv[:cut])
+    seed = cli.seed
 
     # ------------------------------------------------------------ phase 1
     import torch
@@ -278,6 +595,10 @@ def main():
         import dfc_sa_unet_torch  # noqa: F401
     except ImportError as e:
         fail(f"dfc_sa_unet_torch is not beside chip_smoke.py ({e})")
+    if cli.dp_worker is not None:
+        return dp_worker(cli)
+    if cli.serve_worker is not None:
+        return serve_worker(cli, argv[cut + 1:])
     from dfc_sa_unet_torch.infer.engine import AUTO_TAIL_LEVELS, DFCEngine
     from dfc_sa_unet_torch.infer.predictor import Predictor
     from dfc_sa_unet_torch.infer.quant import Int8DFCEngine, int8_self_check
@@ -289,11 +610,8 @@ def main():
     from dfc_sa_unet_torch.ops import conv_s8 as s8_ops
     from dfc_sa_unet_torch.ops import dfc_tail as tail_ops, mha as mha_ops, pooled_attention as attn_ops
     from dfc_sa_unet_torch.ops import mxu_probes as probe_ops
-    from dfc_sa_unet_torch.data.dataset import ArrayDataset
-    from dfc_sa_unet_torch.data.loader import BatchLoader
     from dfc_sa_unet_torch.data.normalize import normalize
     from dfc_sa_unet_torch.data.synthetic import samples
-    from dfc_sa_unet_torch.train.trainer import Trainer
     from dfc_sa_unet_torch.utils.weights import calibrate_batch_stats_, init_random_, load_state_dict_file
     from scripts import bench_torch_bn_stats as probe
     from scripts import bench_torch_conv3x3 as conv_bench
@@ -810,26 +1128,8 @@ def main():
         """A Trainer of ``cfg`` with seeded weights over the first ``n`` synthetic samples (of
         ``data``, or of the 224x224 ``items``)."""
         data = items if data is None else data
-        dtype = torch.bfloat16 if bf16 else None
-        log_dir = os.path.join(tmp.name, tag)
-        config = {**cfg, "training": {**TRAINING, "batch_size": batch},
-                  "logging": {"log_dir": log_dir, "images_dir": os.path.join(log_dir, "images")}}
-        net = init_random_(create_model(config, dtype=dtype, device="cpu", remat=remat),
-                           torch.Generator().manual_seed(weight_seed))
-        train = BatchLoader(ArrayDataset(data[:n]), batch, shuffle=True, num_workers=2, seed=seed)
-        val = BatchLoader(ArrayDataset(data[:min(n, 2 * batch)]), batch, shuffle=False, num_workers=2, seed=seed)
-        trainer = Trainer(net, train, val, config, seed=seed, compute_dtype=dtype, device=device, progress=False)
-        trainer.step_log = []  # each step's metrics and its time: train_step ends on a read of the loss
-        step = trainer.train_step
-
-        def logged_step(*batch_tensors):
-            t0 = time.perf_counter()
-            metrics = step(*batch_tensors)
-            trainer.step_log.append({**metrics, "ms": (time.perf_counter() - t0) * 1e3})
-            return metrics
-
-        trainer.train_step = logged_step
-        return trainer
+        return seeded_trainer(cfg, batch, data[:n], bf16, device, os.path.join(tmp.name, tag), seed, remat,
+                              weight_seed)
 
     def run_epochs(trainer, epochs, kernel_name, per_step, label):
         """train_epoch over ``epochs``: every step finite and applied, ``per_step`` launches of
@@ -1304,6 +1604,10 @@ def main():
         print(f"    {label}, bf16 B={BATCH}: forward {q_ms:.2f} ms ({BATCH / q_ms * 1e3:.1f} img/s on device) against "
               f"{f_ms:.2f} ms ({BATCH / f_ms * 1e3:.1f}); predict_probs {q_img:.1f} img/s against {f_img:.1f} ({card})",
               flush=True)
+
+    # ------------------------------------------------------------ phase 14
+    multi = multi_device(seed, card, dev, fits, batch, items, run_epochs)
+    main_launches = {k: main_launches[k] + multi[k] for k in main_launches}
 
     sources = {"pooled_attention": ("dfc_sa_unet_torch/csrc/pooled_attention.cu",
                                     "dfc_sa_unet_tpu/ops/pallas_attention.py:74"),

@@ -25,13 +25,30 @@ def load_config(path: str) -> Dict[str, Any]:
     return config
 
 
-def merge_bf16_flag(args, config: Dict[str, Any], section: str = "training"):
-    """``args.bf16`` from the YAML's ``<section>.bf16`` (``training`` for the
-    training CLI, ``inference`` for the inference CLI) where the flag was not
-    given (None); ``--bf16`` / ``--no_bf16`` win both ways.  The part of the
-    JAX package's ``merge_parallel_flags`` that a one-card run has."""
-    if args.bf16 is None:
-        args.bf16 = bool((config.get(section) or {}).get("bf16", False))
+def merge_parallel_flags(args, config: Dict[str, Any], sections=("training",)):
+    """``data_parallel`` / ``spatial_parallel`` / ``multihost`` / ``bf16`` from the YAML where the
+    flags were not given (copied from dfc_sa_unet_tpu/config.py:29-59).  ``sections`` is searched
+    in order (the training CLI reads ``training:``, the inference CLI ``inference:``).  The parsers
+    leave these flags None when not given, so ``--data_parallel`` / ``--no_data_parallel`` (and an
+    explicit ``--spatial_parallel 1``) win over the config both ways, and the config fills only
+    unset flags.  Mutates and returns ``args``."""
+    def get(key, default):
+        for s in sections:
+            v = (config.get(s) or {}).get(key)
+            if v is not None:
+                return v
+        return default
+
+    def tri(flag_val, key):
+        # None = flag not given -> config fills; True/False = CLI wins
+        return bool(get(key, False)) if flag_val is None else bool(flag_val)
+
+    args.data_parallel = tri(getattr(args, "data_parallel", None), "data_parallel")
+    if getattr(args, "spatial_parallel", None) is None:
+        args.spatial_parallel = int(get("spatial_parallel", 1) or 1)
+    args.multihost = tri(getattr(args, "multihost", None), "multihost")
+    if hasattr(args, "bf16"):
+        args.bf16 = tri(args.bf16, "bf16")
     return args
 
 

@@ -10,10 +10,18 @@ dfc_sa_unet_tpu/data/loader.py).
 * the next batch is decoded while the current step runs (``prefetch``);
 * the order of an epoch and every sample's augmentation seed come from
   ``(seed, epoch)`` alone, with the JAX loader's arithmetic, so both
-  packages see the same batches and a resumed run repeats them.
-
-The multi-host ``shard=`` branch of the JAX loader is not ported (ROADMAP.md,
-Queue A 11): passing it raises.
+  packages see the same batches and a resumed run repeats them;
+* ``shard=(process_id, process_count)`` loads this process's contiguous
+  chunk of every global batch, with the JAX loader's arithmetic
+  (dfc_sa_unet_tpu/data/loader.py:47-70, 140-182): every process takes the
+  same order, each global batch of g rows is conceptually zero-padded to
+  ``process_count`` chunks of ``ceil(g / process_count)`` rows (rounded up
+  to ``shard_pad_multiple``), and a chunk that holds padding carries a
+  ``valid`` [chunk] f32 mask (``partial="pad"``, for evaluation); with
+  ``partial="replicate"`` (training) a batch that does not divide is
+  loaded whole on every process and carries ``replicated: True``.  A
+  sharded batch lists the global batch's names in ``filename_global``;
+  ``filename`` lists this chunk's real rows.
 """
 
 import queue
@@ -42,13 +50,18 @@ def to_device(batch: dict, device) -> tuple:
 class BatchLoader:
     """Iterable over dict batches {'image' u8 [B,H,W,3], 'mask' u8 [B,H,W],
     'filename' list}; the arrays are torch tensors on the host.
-    Deterministic given (seed, epoch)."""
+    Deterministic given (seed, epoch).  ``shard``: see the module's docstring."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool, num_workers: int = 2,
-                 drop_last: bool = False, seed: int = 0, prefetch: int = 2, shard=None):
-        if shard is not None:
-            raise NotImplementedError("BatchLoader(shard=...): multi-host loading is not ported (ROADMAP.md, "
-                                      "Queue A 11)")
+                 drop_last: bool = False, seed: int = 0, prefetch: int = 2, shard=None,
+                 shard_pad_multiple: int = 1, partial: str = "pad"):
+        if shard is not None and not 0 <= shard[0] < shard[1]:
+            raise ValueError(f"shard id {shard[0]} out of range for {shard[1]} processes")
+        if partial not in ("pad", "replicate"):
+            raise ValueError(f"partial must be 'pad' or 'replicate', got {partial!r}")
+        self.shard = shard
+        self.shard_pad_multiple = max(1, int(shard_pad_multiple))
+        self.partial = partial
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -72,8 +85,8 @@ class BatchLoader:
             return np.random.default_rng((self.seed, self.epoch)).permutation(n)
         return np.arange(n)
 
-    def _stack(self, arrays) -> torch.Tensor:
-        out = torch.from_numpy(np.stack(arrays))
+    def _stack(self, array: np.ndarray) -> torch.Tensor:
+        out = torch.from_numpy(array)
         return out.pin_memory() if self.pin_memory else out
 
     def __iter__(self) -> Iterator[dict]:
@@ -86,12 +99,43 @@ class BatchLoader:
         def load_one(i):
             return self.dataset.__getitem__(int(order[i]), rng=np.random.default_rng(int(seeds[i])))
 
-        def make_batch(b, pool):
-            rows = range(b * self.batch_size, min((b + 1) * self.batch_size, n))
+        def load_rows(rows, pool):
             samples = list(pool.map(load_one, rows))
-            return {"image": self._stack([s["image"] for s in samples]),
-                    "mask": self._stack([s["mask"] for s in samples]),
+            return {"image": np.stack([s["image"] for s in samples]),
+                    "mask": np.stack([s["mask"] for s in samples]),
                     "filename": [s["filename"] for s in samples]}
+
+        def make_batch(b, pool):
+            lo, hi = b * self.batch_size, min((b + 1) * self.batch_size, n)
+            batch = load_rows(range(lo, hi), pool) if self.shard is None else shard_rows(lo, hi, pool)
+            batch["image"], batch["mask"] = self._stack(batch["image"]), self._stack(batch["mask"])
+            return batch
+
+        def shard_rows(lo, hi, pool):
+            pid, nproc = self.shard
+            g = hi - lo
+            m = self.shard_pad_multiple
+            per_proc = -(-g // nproc)  # ceil(g / nproc)
+            chunk = -(-per_proc // m) * m  # rounded up to the multiple
+            names_global = [self.dataset.samples[int(order[i])][2] for i in range(lo, hi)]
+            if chunk * nproc != g and self.partial == "replicate":
+                batch = load_rows(range(lo, hi), pool)
+                batch.update(replicated=True, filename_global=names_global)
+                return batch
+            start = lo + pid * chunk
+            if start < hi:
+                batch = load_rows(range(start, min(start + chunk, hi)), pool)
+            else:  # this process holds padding only: one sample for the shapes, then no rows of it
+                probe = load_rows(range(lo, lo + 1), pool)
+                batch = {"image": probe["image"][:0], "mask": probe["mask"][:0], "filename": []}
+            pad = chunk - batch["image"].shape[0]
+            if pad:
+                for key in ("image", "mask"):
+                    batch[key] = np.concatenate([batch[key], np.zeros((pad, *batch[key].shape[1:]), batch[key].dtype)])
+            if chunk * nproc != g:
+                batch["valid"] = np.concatenate([np.ones(chunk - pad, np.float32), np.zeros(pad, np.float32)])
+            batch["filename_global"] = names_global
+            return batch
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -147,14 +191,18 @@ class DataLoaderFactory:
         self.cache = ds.get("cache", "auto")
         self.seed = seed
 
-    def get_train_loader(self, drop_last: bool = False) -> BatchLoader:
+    def get_train_loader(self, drop_last: bool = False, shard=None, shard_pad_multiple: int = 1) -> BatchLoader:
+        """``partial='replicate'``: a padded train batch would change the BatchNorm statistics."""
         transform = build_transforms(self.img_size, augment=self.use_augmentation)
         dataset = SegmentationDataset(self.train_dir, transform, self.img_size, cache=self.cache)
         return BatchLoader(dataset, self.batch_size, shuffle=True, num_workers=self.num_workers,
-                           drop_last=drop_last, seed=self.seed)
+                           drop_last=drop_last, seed=self.seed, shard=shard, shard_pad_multiple=shard_pad_multiple,
+                           partial="replicate")
 
-    def get_val_loader(self) -> BatchLoader:
+    def get_val_loader(self, shard=None, shard_pad_multiple: int = 1) -> BatchLoader:
+        """``partial='pad'``: the trainer's eval step masks the padding."""
         transform = build_transforms(self.img_size, augment=False)
         dataset = SegmentationDataset(self.val_dir, transform, self.img_size, cache=self.cache)
         return BatchLoader(dataset, self.batch_size, shuffle=False, num_workers=self.num_workers,
-                           drop_last=False, seed=self.seed)
+                           drop_last=False, seed=self.seed, shard=shard, shard_pad_multiple=shard_pad_multiple,
+                           partial="pad")

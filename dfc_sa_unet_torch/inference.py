@@ -5,7 +5,10 @@
         [--tile_size 224] [--overlap 50] [--resize W H] [--no_slide_window]
         [--tta] [--bf16 | --no_bf16] [--engine] [--batch_size 128] [--serial]
         [--int8 [--int8_percentile 99.9 | --int8_maxabs] [--no_int8_check] [--strict]]
-        [--device cuda]
+        [--device cuda] [--data_parallel] [--multihost] [--coordinator HOST:PORT
+        --num_processes N --process_id I]
+
+    torchrun --nproc_per_node N -m dfc_sa_unet_torch.inference ... --data_parallel
 
 WEIGHTS is a reference-layout PyTorch ``.pth`` (raw state dict or trainer
 checkpoint), or the ``best_model`` or a checkpoint that
@@ -32,21 +35,36 @@ masks against the fp ones on those images and on images 8..16 (``--strict``
 refuses to serve when it fails); any other model is served as without
 ``--int8``.  Runs on the card; ``--device cpu`` runs the plain PyTorch path on
 the CPU.
+
+Several processes (``--data_parallel`` under torchrun, one process per card
+on ``cuda:LOCAL_RANK`` or ``--device``; or ``--multihost`` / ``--coordinator``)
+serve as the JAX CLI does across processes: every process lists the global
+file list (int8 calibration runs on its first images), serves
+``files[rank::world]`` on its own card with no collective, and writes
+``evaluation_metrics.part{rank}.json`` into the output directory, which
+must be shared; after a barrier over a Gloo group the primary merges the
+rows into the global file order and writes the CSV and the summary.  In
+JAX ``--data_parallel`` splits a batch over one process's devices; either
+way each image gets the same probabilities.  ``--spatial_parallel`` above 1
+(row sharding) raises: not ported yet (ROADMAP.md, Queue A 4).
 """
 
 import argparse
 import csv
 import glob
+import json
 import os
 
 import numpy as np
 import torch
 
-from dfc_sa_unet_torch.config import load_config, merge_bf16_flag
+from dfc_sa_unet_torch.config import load_config, merge_parallel_flags
 from dfc_sa_unet_torch.data.normalize import normalize
 from dfc_sa_unet_torch.infer.predictor import Predictor, load_image, prefetch
 from dfc_sa_unet_torch.metrics import confusion_counts, metrics_from_counts
 from dfc_sa_unet_torch.models.factory import create_model
+from dfc_sa_unet_torch.parallel import multihost as mh
+from dfc_sa_unet_torch.parallel.mesh import ROW_SHARDING, add_parallel_flags, mesh_from_flags
 from dfc_sa_unet_torch.utils.device import resolve_device
 from dfc_sa_unet_torch.utils.visualization import create_combined_visualization
 from dfc_sa_unet_torch.utils.weights import load_state_dict_file
@@ -139,12 +157,12 @@ def _calibration_batches(config, image_files, args, dtype, dev):
     return to_input(calib), to_input(held) if held else None, len(calib)
 
 
-def build_int8_predictor(config, weights, image_files, args) -> Predictor:
+def build_int8_predictor(config, weights, image_files, args, device=None) -> Predictor:
     """The model's int8 engine, calibrated on the input images, self-checked unless
-    ``--no_int8_check``, in a Predictor."""
+    ``--no_int8_check``, in a Predictor on ``device`` (default ``args.device``)."""
     from dfc_sa_unet_torch.infer.quant import int8_self_check
 
-    dev = resolve_device(args.device)
+    dev = resolve_device(args.device if device is None else device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     percentile = None if args.int8_maxabs else args.int8_percentile
     xs, holdout, n = _calibration_batches(config, image_files, args, dtype, dev)
@@ -178,10 +196,22 @@ def build_int8_predictor(config, weights, image_files, args) -> Predictor:
 
 
 def main(args):
+    config = load_config(_norm(args.config))
+    merge_parallel_flags(args, config, sections=("inference",))
+    if args.spatial_parallel > 1:
+        raise NotImplementedError(f"--spatial_parallel {args.spatial_parallel}: {ROW_SHARDING}")
+    # a group only for the barrier before the merge: Gloo, whatever the device
+    mesh = mesh_from_flags(args, backend="gloo")
+    try:
+        serve(args, config, mesh)
+    finally:
+        mesh.close()
+
+
+def serve(args, config, mesh):
     import cv2
 
-    config = load_config(_norm(args.config))
-    merge_bf16_flag(args, config, "inference")
+    nproc, pid, primary = mesh.world_size, mesh.rank, mesh.is_primary
     model_path = args.model or config["model"].get("pretrained_path")
     if not model_path:
         raise SystemExit("no weights: pass --model or set model.pretrained_path in the config")
@@ -210,16 +240,24 @@ def main(args):
         print(f"No image files found in {original_dir}.")
         return
 
+    # the global file order drives int8 calibration and the merged CSV; each process serves a strided shard
+    global_files = image_files
+    if nproc > 1:
+        image_files = image_files[pid::nproc]
+        if primary:
+            print(f"Multi-process serving: {nproc} processes, one card each; the file list shards round-robin; "
+                  f"the output dir must be shared.")
+
     name = config["model"]["name"]
     int8 = args.int8 and name in INT8_MODELS
     if args.int8 and not int8:
         print("(--int8 supports DFC-SA-Res-Block, VisionTransformerSegmentation, and TransformerUNet; "
               "using standard path)")
     if int8:
-        predictor = build_int8_predictor(config, weights, image_files, args)
+        predictor = build_int8_predictor(config, weights, global_files, args, device=mesh.device)
     else:
         predictor = build_predictor(config, weights, bf16=args.bf16, engine=args.engine and not args.int8,
-                                    device=args.device)
+                                    device=mesh.device)
     kind = " (int8 engine)" if int8 else " (folded engine)" if args.engine and not args.int8 else ""
     print(f"Loaded {model_path}; model {name} on {predictor.device} in "
           f"{str(predictor.compute_dtype).split('.')[-1]}{kind}")
@@ -284,6 +322,10 @@ def main(args):
         save_prediction(original, prob, pred_binary, output_dir, filename, gt_mask=gt_mask)
         print(f"[{n_done}/{len(image_files)}] {filename}")
 
+    if evaluate and nproc > 1:
+        rows, totals = merge_parts(output_dir, pid, nproc, rows, totals, global_files)
+        if not primary:
+            return
     if evaluate and rows:
         keys = ["iou", "dice_f1", "accuracy", "recall", "precision", "tp", "fp", "fn", "tn"]
         print(f"{'File':<30}" + "".join(f"{k.upper():>12}" for k in keys))
@@ -304,7 +346,36 @@ def main(args):
             writer.writeheader()
             writer.writerows(rows)
         print(f"Metrics CSV saved to: {csv_path}")
-    print(f"Inference complete. Results saved to {output_dir}")
+    if primary:
+        print(f"Inference complete. Results saved to {output_dir}")
+
+
+def merge_parts(output_dir, pid, nproc, rows, totals, global_files):
+    """Every process writes its rows and totals beside the output; after a barrier the primary
+    reads every part (and removes it) and returns the rows in the global file order and the summed
+    totals; the other processes return (None, None)."""
+    part = os.path.join(output_dir, f"evaluation_metrics.part{pid}.json")
+    with open(part, "w", encoding="utf-8") as f:
+        json.dump({"rows": rows, "totals": totals}, f)
+    mh.sync("eval_parts")
+    if pid != 0:
+        return None, None
+    rows, totals = [], {k: 0 for k in totals}
+    for p in range(nproc):
+        path = os.path.join(output_dir, f"evaluation_metrics.part{p}.json")
+        if not os.path.exists(path):
+            print(f"Warning: the evaluation rows of process {p} are missing (is the output dir shared?); "
+                  f"the summary covers the rest")
+            continue
+        with open(path, encoding="utf-8") as f:
+            d = json.load(f)
+        rows.extend(d["rows"])
+        for k in totals:
+            totals[k] += d["totals"][k]
+        os.remove(path)
+    order = {os.path.splitext(os.path.basename(fp))[0]: i for i, fp in enumerate(global_files)}
+    rows.sort(key=lambda m: order.get(m["file"], len(order)))
+    return rows, totals
 
 
 def parse_args(argv=None):
@@ -343,7 +414,9 @@ def parse_args(argv=None):
                              "flip rate exceeds its gate")
     parser.add_argument("--batch_size", type=int, default=128)
     parser.add_argument("--serial", action="store_true", help="no decode/compute pipelining")
-    parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default: cuda:LOCAL_RANK under torchrun), cuda:I or cpu")
+    add_parallel_flags(parser, "serve a strided shard of the files in each process, one process per card")
     return parser.parse_args(argv)
 
 

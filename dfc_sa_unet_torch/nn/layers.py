@@ -9,12 +9,65 @@ bf16 activations.  The convolutions and matrix products go to ``F.conv2d``
 and ``F.linear`` as the JAX package left them to XLA.
 """
 
+import contextlib
+import contextvars
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from dfc_sa_unet_torch.ops.convt import conv_transpose_2x2
 from dfc_sa_unet_torch.ops.dropout import recomputing
+
+
+# Set by parallel.spmd's data-parallel step: every BatchNorm in training mode inside the context
+# takes its batch statistics over the processes of the default group (JAX's bn_cross_replica_axis).
+_CROSS_REPLICA: contextvars.ContextVar = contextvars.ContextVar("bn_cross_replica", default=False)
+
+
+@contextlib.contextmanager
+def bn_cross_replica(enabled: bool = True):
+    """Make every BatchNorm that trains inside this context use global batch statistics."""
+    token = _CROSS_REPLICA.set(enabled)
+    try:
+        yield
+    finally:
+        _CROSS_REPLICA.reset(token)
+
+
+class _CrossReplicaNorm(torch.autograd.Function):
+    """y = (x - mean) * rsqrt(var + eps) * w + b with ``mean`` and ``var`` the global batch's.
+
+    The backward needs the global sums of dy and dy * xhat over the processes (one all-reduce);
+    the weight and bias gradients are this process's own sums, which the trainer's gradient
+    average combines.  Saves x in its own dtype, so a bf16 step keeps no f32 copy of x; the
+    backward reads x and dy in f32 for two sums and two fused multiply-adds."""
+
+    @staticmethod
+    def forward(ctx, x, xf, weight, bias, mean, var, n, eps):
+        """``xf`` is x in f32, made once for the statistics."""
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        return F.batch_norm(xf, mean, var, weight, bias, False, 0.0, eps).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        dims = [0] + list(range(2, x.dim()))
+        xf, dyf = x.float(), dy.float()
+        sum_dy = dyf.sum(dims)
+        sum_dy_xhat = ((dyf * xf).sum(dims) - mean * sum_dy) * invstd
+        both = torch.cat([sum_dy, sum_dy_xhat])
+        dist.all_reduce(both)
+        g_dy, g_dy_xhat = (both / n).chunk(2)
+        # dx = w invstd (dy - g_dy - xhat g_dy_xhat), as a dy + b x + c per channel: two fused passes
+        a = weight * invstd
+        b = -a * invstd * g_dy_xhat
+        c = a * (invstd * g_dy_xhat * mean - g_dy)
+        dx = torch.addcmul(torch.addcmul(c.view(shape), dyf, a.view(shape)), xf, b.view(shape))
+        return dx.to(x.dtype), None, sum_dy_xhat, sum_dy, None, None, None, None
 
 
 class _AddBias(torch.autograd.Function):
@@ -86,9 +139,14 @@ class BatchNorm(nn.BatchNorm2d):
     as the JAX layer does (dfc_sa_unet_tpu/nn/layers.py:273-294), and counts
     ``num_batches_tracked``; the second run of a rematerialised block
     (ops/dropout.py::remat_call) leaves the running statistics alone: it
-    moves throwaway copies, so autograd saves the same set of tensors."""
+    moves throwaway copies, so autograd saves the same set of tensors.
+    Inside ``bn_cross_replica()`` (the data-parallel step) a training
+    BatchNorm takes the global batch's statistics; elsewhere it is
+    ``F.batch_norm`` and no collective."""
 
     def forward(self, x):
+        if self.training and _CROSS_REPLICA.get():
+            return self._cross_replica(x)
         mean, var = self.running_mean, self.running_var
         if self.training:
             if recomputing():
@@ -97,6 +155,30 @@ class BatchNorm(nn.BatchNorm2d):
                 self.num_batches_tracked.add_(1)
         y = F.batch_norm(x.float(), mean, var, self.weight, self.bias, self.training, self.momentum, self.eps)
         return y.to(x.dtype)
+
+    def _cross_replica(self, x):
+        """Training with the global batch's statistics (``bn_cross_replica``), as the JAX layer
+        under an axis: the sums of x and x^2 (from this process's mean and variance, one pass) and
+        the count over the processes in one all-reduce, var = max(E[x^2] - E[x]^2, 0), the running
+        variance moved with the global n's unbiased one.  No host synchronisation."""
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        with torch.no_grad():
+            xf = x.float()
+            var_local, mean_local = torch.var_mean(xf, dims, correction=0)
+            n_local = xf.numel() / c
+            sums = torch.cat([mean_local * n_local, (var_local + mean_local.square()) * n_local,
+                              mean_local.new_full((1,), n_local)])
+            dist.all_reduce(sums)
+            n = sums[2 * c:]
+            mean = sums[:c] / n
+            var = (sums[c:2 * c] / n - mean.square()).clamp(min=0.0)
+            if not recomputing():
+                self.num_batches_tracked.add_(1)
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(m * mean)
+                self.running_var.mul_(1.0 - m).add_(m * var * n / (n - 1.0).clamp(min=1.0))
+        return _CrossReplicaNorm.apply(x, xf, self.weight, self.bias, mean, var, n, self.eps)
 
 
 class GroupNorm(nn.GroupNorm):

@@ -7,22 +7,35 @@ the JAX package's train.py, with its flags).
         [--dice_weight W] [--contour_weight W] [--augmentation true|false]
         [--bf16 | --no_bf16] [--remat [all|l12|deep]] [--seed N]
         [--grad_accum N] [--device cuda|cpu]
+        [--data_parallel] [--multihost] [--coordinator HOST:PORT
+        --num_processes N --process_id I]
+
+    torchrun --nproc_per_node N -m dfc_sa_unet_torch.train --config CFG --data_parallel
 
 Trains any of the factory's twelve models (``--remat`` reaches the flagship
 and the transformers only, as in the JAX package; ``UNet_FullResAttention``
 needs a dataset ``img_size`` of at most 64x64).
 Runs on the card; without CUDA it raises unless ``--device cpu`` is given.
-``--bf16`` computes in bfloat16 with f32 parameters and an f32 loss.  The
-JAX CLI's parallel, multi-host, ``--exe_cache`` and ``--grad_accum_exact``
-flags are not taken (ROADMAP.md), nor ``--use_pallas`` / ``--no_pallas``: on
-the card the attention kernels always run.
+``--bf16`` computes in bfloat16 with f32 parameters and an f32 loss.
+``--data_parallel`` under torchrun trains one process per card, each on
+``cuda:LOCAL_RANK`` (or ``--device``) over its chunk of every global batch,
+NCCL between cards and Gloo on the CPU; the step equals one card's on the
+whole batch.  ``--multihost`` or ``--coordinator`` forms the group from
+explicit ``--num_processes`` / ``--process_id``.  Without torchrun
+``--data_parallel`` trains on one card.  The YAML's ``training:`` section
+may set ``data_parallel``, ``multihost`` and ``bf16``; flags win both ways.
+Not taken yet (ROADMAP.md, Queue A 4): ``--spatial_parallel`` above 1,
+``--grad_accum`` above 1 with a group, ``--exe_cache`` and
+``--grad_accum_exact``; nor ``--use_pallas`` / ``--no_pallas``: on the card
+the attention kernels always run.
 """
 
 import argparse
 
 import torch
 
-from dfc_sa_unet_torch.config import apply_overrides, load_config, merge_bf16_flag
+from dfc_sa_unet_torch.config import apply_overrides, load_config, merge_parallel_flags
+from dfc_sa_unet_torch.parallel.mesh import ROW_SHARDING, ProcessMesh, add_parallel_flags, mesh_from_flags
 from dfc_sa_unet_torch.utils.device import resolve_device
 
 
@@ -53,28 +66,38 @@ def parse_args(argv=None):
                              "batch-coupled losses are computed per microbatch and averaged, and BatchNorm "
                              "statistics thread through the microbatches")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="cuda (default; raises when CUDA is absent) or cpu")
+                        help="cuda (default: cuda:LOCAL_RANK under torchrun; raises when CUDA is absent), "
+                             "cuda:I or cpu")
+    add_parallel_flags(parser, "train data-parallel, one process per card, each on its chunk of every batch")
     return parser.parse_args(argv)
 
 
-def build_trainer(config, args):
-    """The Trainer of ``config`` and the parsed flags (raises without CUDA
-    unless ``args.device`` is the CPU)."""
+def build_trainer(config, args, mesh=None):
+    """The Trainer of ``config``, the parsed flags and ``mesh`` (parallel.mesh.ProcessMesh; None: one
+    process on ``args.device``, raising without CUDA unless it is the CPU); with a group each process
+    loads its chunk of every batch."""
     from dfc_sa_unet_torch.data.loader import DataLoaderFactory
     from dfc_sa_unet_torch.models.factory import create_model
     from dfc_sa_unet_torch.train.trainer import Trainer
     from dfc_sa_unet_torch.utils.weights import load_state_dict_file
 
-    device = resolve_device(args.device)
+    mesh = mesh or ProcessMesh(1, 0, 0, resolve_device(args.device))
+    device = mesh.device
     dtype = torch.bfloat16 if args.bf16 else None
+    torch.manual_seed(args.seed)  # the weights' initialisation follows --seed
     model = create_model(config, dtype=dtype, device=device, remat=args.remat or False)
     pretrained = config["model"].get("pretrained_path")
     if pretrained:
         print(f"Warm-starting from pretrained weights: {pretrained}")
         model.load_state_dict(load_state_dict_file(pretrained), strict=True)
     factory = DataLoaderFactory(config, seed=args.seed)
-    return Trainer(model, factory.get_train_loader(), factory.get_val_loader(), config, seed=args.seed,
-                   compute_dtype=dtype, device=device)
+    if mesh.group is None:
+        train_loader, val_loader = factory.get_train_loader(), factory.get_val_loader()
+    else:
+        shard = (mesh.rank, mesh.world_size)
+        train_loader, val_loader = factory.get_train_loader(drop_last=True, shard=shard), factory.get_val_loader(shard)
+    return Trainer(model, train_loader, val_loader, config, mesh=mesh, seed=args.seed, compute_dtype=dtype,
+                   device=device)
 
 
 def main(argv=None):
@@ -84,10 +107,17 @@ def main(argv=None):
         config["training"]["grad_accum"] = args.grad_accum
     apply_overrides(config, args.loss, args.alpha, args.beta, args.weight_bce, args.weight_dice,
                     args.bce_weight, args.dice_weight, args.contour_weight, args.augmentation)
-    merge_bf16_flag(args, config)
-    trainer = build_trainer(config, args)
-    print(f"Device: {trainer.device}")
-    trainer.train(resume_from=args.resume)
+    merge_parallel_flags(args, config, sections=("training",))
+    if args.spatial_parallel > 1:
+        raise NotImplementedError(f"--spatial_parallel {args.spatial_parallel}: {ROW_SHARDING}")
+    mesh = mesh_from_flags(args)
+    try:
+        trainer = build_trainer(config, args, mesh)
+        print(f"Device: {trainer.device}" + (f" (rank {mesh.rank} of {mesh.world_size}, {mesh.backend})"
+                                             if mesh.group is not None else ""))
+        trainer.train(resume_from=args.resume)
+    finally:
+        mesh.close()
     return trainer
 
 

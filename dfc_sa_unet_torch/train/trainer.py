@@ -15,18 +15,32 @@ Kept from the JAX trainer (reference utils/trainer.py:105-461):
   * loss/Dice/IoU plots and CSVs each epoch, per-epoch sample dumps;
   * resume restores everything (weights, momentum, history, best metrics,
     step) and continues at epoch+1;
-  * SIGTERM/SIGINT ask for a checkpoint and a clean stop.
+  * SIGTERM/SIGINT ask for a checkpoint and a clean stop;
+  * data parallelism over processes (``mesh=``, parallel/mesh.py), one
+    process a card: each process trains on its contiguous chunk of the
+    global batch (``BatchLoader(shard=...)``) with BatchNorm statistics
+    and the loss over the global batch (parallel/spmd.py), the gradients
+    averaged in one flat all-reduce a step, then the clip, the
+    finiteness check and the update, identical on every process; the
+    result equals the single-device step on the global batch.  A train
+    batch that does not divide runs whole on every process with every
+    collective off; a padded eval batch masks its padding
+    (``sample_mask``).  Only the primary process writes files.
 
 The state lives in the trainer (the module, the optimiser, ``step``), where
 the JAX trainer threads a TrainState through pure functions.  Optional bf16
 compute keeps f32 parameters and an f32 loss.  Dropout masks depend on
 (seed, step) alone, like the JAX trainer's ``fold_in(base_key, step)``
-(the numbers differ), so a resumed run repeats them.
+(the numbers differ), so a resumed run repeats them; under data
+parallelism the rank is folded in as well, so processes drop different
+units (as JAX's explicit SPMD step does).
 
-Not ported yet, each raising with a pointer to ROADMAP.md: a mesh,
-multi-host training, ``exe_cache_dir`` and ``grad_accum_exact``.
+Not ported yet, each raising with a pointer to ROADMAP.md: row (spatial)
+sharding, ``grad_accum`` > 1 under data parallelism, ``grad_accum_exact``
+and ``exe_cache_dir``.
 """
 
+import contextlib
 import os
 import signal
 import threading
@@ -35,13 +49,18 @@ from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from dfc_sa_unet_torch.data.loader import BatchLoader, binarize_mask, to_device
 from dfc_sa_unet_torch.data.normalize import normalize
 from dfc_sa_unet_torch.losses import compute_loss
 from dfc_sa_unet_torch.metrics import hard_dice_iou, per_sample_hard_dice_iou
+from dfc_sa_unet_torch.nn.layers import bn_cross_replica
 from dfc_sa_unet_torch.ops.dropout import set_dropout_generator
+from dfc_sa_unet_torch.parallel import multihost as mh, spmd
+from dfc_sa_unet_torch.parallel.mesh import ROW_SHARDING
 from dfc_sa_unet_torch.train import optim
 from dfc_sa_unet_torch.utils import checkpoint as ckpt_util
 from dfc_sa_unet_torch.utils.device import resolve_device
@@ -54,7 +73,7 @@ HISTORY_KEYS = (
 
 
 def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to dfc_sa_unet_torch yet (see ROADMAP.md, Queue A 5 and A 11)")
+    raise NotImplementedError(f"{what} is not ported to dfc_sa_unet_torch yet (see ROADMAP.md, Queue A 4)")
 
 
 def _step_seed(seed: int, step: int) -> int:
@@ -77,25 +96,33 @@ class Trainer:
         device=None,
         progress: bool = True,
     ):
-        """``device`` None means CUDA and raises without it; ``compute_dtype``
-        (None or torch.bfloat16) must be the dtype the model was built with;
-        ``progress`` shows a tqdm bar per epoch."""
-        self.device = resolve_device(device)
-        if mesh is not None:
-            _not_ported("training over a mesh")
+        """``device`` None means the mesh's device, or CUDA (raising without it);
+        ``mesh`` a ``parallel.mesh.ProcessMesh`` (data parallelism when it holds
+        a group); ``compute_dtype`` (None or torch.bfloat16) must be the dtype the
+        model was built with; ``progress`` shows a tqdm bar per epoch."""
+        self.device = resolve_device(mesh.device if device is None and mesh is not None else device)
+        # a flag, not the group: the group is the default one, and a held reference would outlive
+        # destroy_process_group (parallel/mesh.py)
+        self.data_parallel = mesh is not None and mesh.group is not None
+        self.rank, self.world = (mesh.rank, mesh.world_size) if self.data_parallel else (0, 1)
+        self.is_primary = self.rank == 0
         tr = config["training"]
         if tr.get("exe_cache_dir"):
             _not_ported("training.exe_cache_dir")
         if tr.get("grad_accum_exact"):
             _not_ported("training.grad_accum_exact")
-        if tr.get("multihost") or tr.get("data_parallel") or int(tr.get("spatial_parallel", 1) or 1) > 1:
-            _not_ported("multi-device training (data_parallel / spatial_parallel / multihost)")
+        if int(tr.get("spatial_parallel", 1) or 1) > 1:
+            raise NotImplementedError(f"training.spatial_parallel: {ROW_SHARDING}")
+        if self.data_parallel and int(tr.get("grad_accum", 1)) > 1:
+            # JAX's microbatch m under a mesh is the single-device microbatch m split across the
+            # processes; a process splitting its own chunk would put other rows in each BatchNorm batch
+            _not_ported("training.grad_accum > 1 under data parallelism")
         self.model = model.to(self.device, memory_format=torch.channels_last)
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.config = config
         self.compute_dtype = compute_dtype or torch.float32
-        self.progress = progress
+        self.progress = progress and self.is_primary
 
         self.num_epochs = tr["num_epochs"]
         self.save_checkpoint_freq = tr.get("save_checkpoint_freq", 100)
@@ -119,6 +146,8 @@ class Trainer:
         set_dropout_generator(self.model, self.generator)
         self._bn_buffers = [b for m in self.model.modules() if isinstance(m, nn.BatchNorm2d)
                             for b in (m.running_mean, m.running_var, m.num_batches_tracked)]
+        if self.data_parallel:
+            mh.broadcast_tree(self.model.state_dict())  # rank 0's seeded or loaded weights everywhere
         self.step = 0
         self.history = {k: [] for k in HISTORY_KEYS}
         self.epochs: list = []
@@ -138,32 +167,48 @@ class Trainer:
         x = normalize(images_u8, self.compute_dtype).permute(0, 3, 1, 2)
         return x, binarize_mask(masks_u8)
 
-    def train_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor) -> dict:
-        """One update from one uint8 batch on the device.  Returns Python
-        numbers: loss, iou, dice, and ``finite`` (False: the step was skipped)."""
+    def train_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor, replicated: bool = False) -> dict:
+        """One update from one uint8 batch on the device: this process's chunk of the global
+        batch under data parallelism, or the whole batch on every process when ``replicated``.
+        Returns Python numbers: loss, iou, dice, and ``finite`` (False: the step was skipped)."""
         self.model.train()
         x, t = self._inputs(images_u8, masks_u8)
-        self.generator.manual_seed(_step_seed(self.seed, self.step))
+        collective = self.data_parallel and not replicated
+        seed = _step_seed(self.seed, self.step)
+        self.generator.manual_seed(_step_seed(seed, self.rank) if collective else seed)
         stats_before = [b.clone() for b in self._bn_buffers]
         self.optimizer.zero_grad()
         bsz = x.shape[0]
         accum = self.grad_accum if self.grad_accum > 1 and bsz % self.grad_accum == 0 else 1
+        loss_fn = spmd.global_loss if collective else compute_loss
         losses, probs = [], []
-        for xi, ti in zip(x.chunk(accum), t.chunk(accum)):
-            p = torch.sigmoid(self.model(xi).float())
-            loss_i = compute_loss(p, ti, self.loss_type, self.loss_params)
-            (loss_i / accum).backward()
-            losses.append(loss_i.detach())
-            probs.append(p.detach())
+        with bn_cross_replica() if collective else contextlib.nullcontext():
+            for xi, ti in zip(x.chunk(accum), t.chunk(accum)):
+                p = torch.sigmoid(self.model(xi).float())
+                loss_i = loss_fn(p, ti, self.loss_type, self.loss_params)
+                (loss_i / accum).backward()
+                losses.append(loss_i.detach())
+                probs.append(p.detach())
         loss = torch.stack(losses).mean()
         probs = torch.cat(probs)
+        grads = [p.grad for _, p in self.optimizer.named_params if p.grad is not None]
+        bad_loss = (~torch.isfinite(loss)).float().reshape(1)
+        if self.data_parallel:
+            # one all-reduce: the gradients (averaged), the count of processes with a bad loss and,
+            # when the batch is sharded, the global hard-metric counts; every process then takes
+            # the same clip, finiteness decision and update
+            extra = torch.cat([bad_loss, spmd.hard_counts(probs, t)]) if collective else bad_loss
+            flat = _flatten_dense_tensors(grads + [extra])
+            dist.all_reduce(flat)
+            n_grad = flat.numel() - extra.numel()
+            torch._foreach_copy_(grads, _unflatten_dense_tensors(flat[:n_grad].div_(self.world), grads))
+            bad_loss, counts = flat[n_grad:n_grad + 1], flat[n_grad + 1:]
         # finiteness per tensor through its largest magnitude (NaN and inf pass through a max; a
         # squared norm would overflow long before a gradient does), fused over the tensors; one
         # flag, read once
-        grads = [p.grad for _, p in self.optimizer.named_params if p.grad is not None]
         largest = torch.stack(torch._foreach_norm(grads, float("inf"))) if grads else loss.new_zeros(1)
-        finite = torch.isfinite(loss) & torch.isfinite(largest).all()
-        iou, dice = hard_dice_iou(probs, t)
+        finite = (bad_loss == 0).all() & torch.isfinite(largest).all()
+        iou, dice = spmd.dice_iou_from_counts(counts) if collective else hard_dice_iou(probs, t)
         loss_v, iou_v, dice_v, finite_v = torch.stack([loss, iou, dice, finite.float()]).tolist()
         if finite_v:
             self.optimizer.step()
@@ -176,13 +221,22 @@ class Trainer:
         return {"loss": loss_v, "iou": iou_v, "dice": dice_v, "finite": bool(finite_v)}
 
     @torch.no_grad()
-    def eval_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor) -> dict:
-        """Loss, hard IoU and Dice of one batch, and both per sample, in eval mode."""
+    def eval_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor, valid=None, sharded: bool = False) -> dict:
+        """Loss, hard IoU and Dice of one batch, and both per sample, in eval mode.  ``valid`` ([B]
+        of 0/1) marks the real rows of a zero-padded batch: the padding's probabilities are zeroed
+        and the losses skip it, so the metrics are those of the real rows.  ``sharded``: the batch
+        is this process's chunk and loss, IoU and Dice are the global batch's."""
         self.model.eval()
         x, t = self._inputs(images_u8, masks_u8)
         probs = torch.sigmoid(self.model(x).float())
-        loss = compute_loss(probs, t, self.loss_type, self.loss_params)
-        iou, dice = hard_dice_iou(probs, t)
+        if valid is not None:
+            probs = probs * valid.reshape(-1, 1, 1, 1)
+        if sharded:
+            loss = spmd.global_loss(probs, t, self.loss_type, self.loss_params, sample_mask=valid)
+            iou, dice = spmd.global_hard_dice_iou(probs, t)
+        else:
+            loss = compute_loss(probs, t, self.loss_type, self.loss_params, sample_mask=valid)
+            iou, dice = hard_dice_iou(probs, t)
         ps_iou, ps_dice = per_sample_hard_dice_iou(probs, t)
         loss_v, iou_v, dice_v = torch.stack([loss, iou, dice]).tolist()
         return {"loss": loss_v, "iou": iou_v, "dice": dice_v,
@@ -217,25 +271,31 @@ class Trainer:
             wait_s += time.perf_counter() - t0
             if batch is None:
                 break
+            if batch.get("valid") is not None:
+                raise ValueError("a padded batch reached the train step: build the train loader with "
+                                 "partial='replicate' (padding would change the BatchNorm statistics)")
             imgs, masks = to_device(batch, self.device)
-            metrics = self.train_step(imgs, masks)
+            # a partial batch, or a loader that does not shard, runs whole on every process
+            replicated = self.data_parallel and (bool(batch.get("replicated")) or "filename_global" not in batch)
+            metrics = self.train_step(imgs, masks, replicated=replicated)
             timer.tick(items=int(imgs.shape[0]))
             if not metrics["finite"]:
-                print(f"Warning: non-finite loss or gradient at step {self.step}; batch skipped")
+                if self.is_primary:
+                    print(f"Warning: non-finite loss or gradient at step {self.step}; batch skipped")
                 continue
-            if metrics["loss"] > 100:
+            if metrics["loss"] > 100 and self.is_primary:
                 print(f"Warning: very large loss detected: {metrics['loss']:.6f}")
             for k in sums:
                 sums[k] += metrics[k]
             n_used += 1
             if bar is not None:
                 bar.set_postfix(loss=sums["loss"] / n_used, iou=sums["iou"] / n_used, dice=sums["dice"] / n_used)
-            if self._stop_requested.is_set():
+            if self._check_stop():
                 break
         if bar is not None:
             bar.close()
         self.last_epoch_timer, self.last_epoch_applied = timer, n_used
-        if timer.steps:
+        if timer.steps and self.is_primary:
             print(f"  [epoch {epoch + 1}] {timer.summary()}")
         epoch_wall = time.perf_counter() - epoch_t0
         if not self._input_bound_warned and n_used >= 2 and epoch_wall > 0 and wait_s / epoch_wall > 0.3:
@@ -253,16 +313,23 @@ class Trainer:
         n_batches = 0
         sample_records = []  # (dice, iou, filename)
         for batch in loader:
-            metrics = self.eval_step(*to_device(batch, self.device))
+            sharded = self.data_parallel and "filename_global" in batch and not batch.get("replicated")
+            valid = batch.get("valid")
+            valid = None if valid is None else torch.as_tensor(valid, dtype=torch.float32).to(self.device)
+            metrics = self.eval_step(*to_device(batch, self.device), valid=valid, sharded=sharded)
             if not np.isfinite(metrics["loss"]):
-                print("Warning: NaN loss detected in validation; batch skipped")
+                if self.is_primary:
+                    print("Warning: NaN loss detected in validation; batch skipped")
                 continue
             for k in sums:
                 sums[k] += metrics[k]
             n_batches += 1
-            for i, fname in enumerate(batch["filename"]):
-                sample_records.append((float(metrics["per_sample_dice"][i]), float(metrics["per_sample_iou"][i]),
-                                       fname))
+            names = batch["filename_global"] if sharded else batch["filename"]
+            ps_dice, ps_iou = metrics["per_sample_dice"], metrics["per_sample_iou"]
+            if sharded:  # per-sample values in the global batch's order, on every process
+                ps_dice, ps_iou = mh.gather_rows_many([ps_dice, ps_iou], len(names))
+            for i, fname in enumerate(names):
+                sample_records.append((float(ps_dice[i]), float(ps_iou[i]), fname))
         n = max(n_batches, 1)
         sample_records.sort(key=lambda r: r[0])
         k = self.save_k
@@ -288,7 +355,11 @@ class Trainer:
             "best_val_loss": float(self.best_val_loss),
         }
 
-    def save_checkpoint(self, epoch: int, is_best: bool = False) -> str:
+    def save_checkpoint(self, epoch: int, is_best: bool = False) -> Optional[str]:
+        """Written by the primary process only (the state is the same on every process); returns
+        the path, or None on the others."""
+        if not self.is_primary:
+            return None
         tree = self._state_to_tree(epoch)
         path = ckpt_util.save_tree(os.path.join(self.checkpoint_dir, f"checkpoint_epoch_{epoch + 1}"), tree)
         if is_best:
@@ -297,17 +368,21 @@ class Trainer:
         return path
 
     def load_checkpoint(self, path: str):
-        """Restore the full training state; sets start_epoch to epoch+1."""
+        """Restore the full training state; sets start_epoch to epoch+1.  Under data parallelism
+        every process reads the same file, and rank 0's values are then broadcast."""
         tree = ckpt_util.restore_tree(path)
         self.model.load_state_dict(tree["model"], strict=True)
         self.optimizer.load_state_dict(tree["optimizer"])
+        if self.data_parallel:
+            mh.broadcast_tree({"model": self.model.state_dict(), "momentum": self.optimizer.momentum_buffers})
         self.history = {k: [float(x) for x in np.asarray(v)] for k, v in tree["history"].items()}
         self.epochs = list(range(1, len(self.history["train_losses"]) + 1))
         self.best_val_dice = float(tree["best_val_dice"])
         self.best_val_loss = float(tree["best_val_loss"])
         self.start_epoch = int(tree["epoch"]) + 1
         self.step = int(tree["step"])
-        print(f"Resuming from epoch {self.start_epoch}")
+        if self.is_primary:
+            print(f"Resuming from epoch {self.start_epoch}")
 
     # ---------------------------------------------------------------- train
 
@@ -334,6 +409,12 @@ class Trainer:
             save_prediction_samples(x.float().cpu().numpy(), probs.cpu().numpy(), t.cpu().numpy(), [fname],
                                     out_dir, channels_last=False)
 
+    def _check_stop(self) -> bool:
+        """The preemption flag, agreed on by every process (a process leaving the loop alone would
+        block the others in their next collective)."""
+        stop = self._stop_requested.is_set()
+        return mh.any_flag(stop) if self.data_parallel else stop
+
     def _install_preemption_handler(self):
         if threading.current_thread() is not threading.main_thread():
             return
@@ -354,11 +435,12 @@ class Trainer:
         if resume_from:
             self.load_checkpoint(resume_from)
         self._install_preemption_handler()
-        print(f"Using loss: {self.loss_type} params={self.loss_params}")
+        log = print if self.is_primary else (lambda *a, **k: None)
+        log(f"Using loss: {self.loss_type} params={self.loss_params}")
         for epoch in range(self.start_epoch, self.num_epochs):
-            if self._stop_requested.is_set():
+            if self._check_stop():
                 self.save_checkpoint(epoch - 1)
-                print(f"Preemption checkpoint saved at epoch {epoch}; exiting")
+                log(f"Preemption checkpoint saved at epoch {epoch}; exiting")
                 break
             tr_loss, tr_iou, tr_dice = self.train_epoch(epoch)
             val = self.validate_epoch()
@@ -371,18 +453,21 @@ class Trainer:
             self.history["train_iou_scores"].append(tr_iou)
             self.history["val_iou_scores"].append(val["iou"])
 
-            print(f"Epoch [{epoch + 1}/{self.num_epochs}]")
-            print(f"  Train Loss: {tr_loss:.4f}, Dice: {tr_dice:.4f}, IoU: {tr_iou:.4f}")
-            print(f"  Val Loss: {val['loss']:.4f}, Dice: {val['dice']:.4f}, IoU: {val['iou']:.4f}")
+            log(f"Epoch [{epoch + 1}/{self.num_epochs}]")
+            log(f"  Train Loss: {tr_loss:.4f}, Dice: {tr_dice:.4f}, IoU: {tr_iou:.4f}")
+            log(f"  Val Loss: {val['loss']:.4f}, Dice: {val['dice']:.4f}, IoU: {val['iou']:.4f}")
 
+            # the validation metrics are the global batch's on every process: the same decision
             is_best = val["dice"] > self.best_val_dice
             if is_best:
                 self.best_val_dice = val["dice"]
-                print(f"  Saved best model with validation dice: {self.best_val_dice:.4f}")
+                log(f"  Saved best model with validation dice: {self.best_val_dice:.4f}")
             self.best_val_loss = min(self.best_val_loss, val["loss"])
 
             if (epoch + 1) % self.save_checkpoint_freq == 0 or is_best:
                 self.save_checkpoint(epoch, is_best)
+            if not self.is_primary:
+                continue
 
             save_loss_plot(self.history["train_losses"], self.history["val_losses"],
                            os.path.join(self.images_dir, "loss_plot.png"))
@@ -399,6 +484,8 @@ class Trainer:
         total = time.time() - self.start_time
         h, rem = divmod(total, 3600)
         m, s = divmod(rem, 60)
+        if not self.is_primary:
+            return self
         print(f"Training completed in {int(h)}h {int(m)}m {int(s)}s")
         print(f"Best validation dice: {self.best_val_dice:.4f}")
         if os.path.isfile(self.best_model_path):

@@ -2,7 +2,7 @@
 """Where the time of one training step goes, for the PyTorch port on one GPU.
 
     python3 scripts/profile_torch_training.py [--model NAME] [--batch 32] [--f32] [--remat MODE]
-                                              [--seed 0] [--top 25] [--report FILE]
+                                              [--data_parallel] [--seed 0] [--top 25] [--report FILE]
 
 Builds one model at full width with seeded weights (the flagship
 ``DFC-SA-Res-Block`` at 224x224 by default, or a transformer of
@@ -12,8 +12,11 @@ in memory, and the port's Trainer (bce_dice 0.5/0.5, SGD lr 0.01, momentum
 After two warm-up steps it times three ``train_step`` calls with the host
 clock around a synchronise, then traces two more with torch.profiler: device
 time by kernel, the device's busy share of the traced wall time, and the
-peak of allocated device memory.  Prints a summary; ``--report`` also writes
-the profiler's full table to FILE.  Needs a CUDA card.
+peak of allocated device memory.  ``--data_parallel`` runs the Trainer's
+data-parallel step in a group of one process (NCCL): cross-replica BatchNorm,
+the global loss and the flat gradient all-reduce, on the whole batch.  Prints a
+summary; ``--report`` also writes the profiler's full table to FILE.  Needs a
+CUDA card.
 """
 
 import argparse
@@ -33,6 +36,7 @@ from dfc_sa_unet_torch.data.loader import BatchLoader, to_device  # noqa: E402
 from dfc_sa_unet_torch.data.synthetic import samples  # noqa: E402
 from dfc_sa_unet_torch.models.factory import create_model  # noqa: E402
 from dfc_sa_unet_torch.ops import launches, reset_launches  # noqa: E402
+from dfc_sa_unet_torch.parallel.mesh import data_parallel_mesh, local_coordinator  # noqa: E402
 from dfc_sa_unet_torch.train.trainer import Trainer  # noqa: E402
 from dfc_sa_unet_torch.utils.weights import init_random_  # noqa: E402
 from scripts.profile_torch_serving import CONFIGS, _device_us, _is_kernel  # noqa: E402
@@ -41,8 +45,9 @@ TRAINING = {"num_epochs": 1, "learning_rate": 0.01, "momentum": 0.9, "weight_dec
             "loss": {"type": "bce_dice", "params": {"bce_weight": 0.5, "dice_weight": 0.5}}}
 
 
-def build_trainer(model_cfg, batch, bf16, remat, seed, log_dir, device="cuda"):
-    """A Trainer of ``model_cfg`` with seeded weights over ``batch`` synthetic 224x224 samples."""
+def build_trainer(model_cfg, batch, bf16, remat, seed, log_dir, device="cuda", mesh=None):
+    """A Trainer of ``model_cfg`` with seeded weights over ``batch`` synthetic 224x224 samples
+    (data-parallel over ``mesh`` where one is given)."""
     dtype = torch.bfloat16 if bf16 else None
     config = {**model_cfg, "training": {**TRAINING, "batch_size": batch},
               "logging": {"log_dir": log_dir, "images_dir": os.path.join(log_dir, "images")}}
@@ -50,7 +55,8 @@ def build_trainer(model_cfg, batch, bf16, remat, seed, log_dir, device="cuda"):
                          torch.Generator().manual_seed(seed))
     data = ArrayDataset(samples(n=batch, size=224, seed=seed))
     loader = BatchLoader(data, batch, shuffle=True, num_workers=2, seed=seed)
-    return Trainer(model, loader, loader, config, seed=seed, compute_dtype=dtype, device=device, progress=False)
+    return Trainer(model, loader, loader, config, mesh=mesh, seed=seed, compute_dtype=dtype, device=device,
+                   progress=False)
 
 
 def main():
@@ -59,6 +65,8 @@ def main():
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--f32", action="store_true", help="f32 compute instead of bf16")
     ap.add_argument("--remat", choices=["all", "l12", "deep"], default=None)
+    ap.add_argument("--data_parallel", action="store_true",
+                    help="the data-parallel step in an NCCL group of one process")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--report", type=str, default=None, help="file for the full profiler table")
@@ -67,8 +75,12 @@ def main():
         sys.exit("needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
+    mesh = None
+    if args.data_parallel:
+        mesh = data_parallel_mesh("cuda", coordinator=local_coordinator(), num_processes=1, process_id=0)
     with tempfile.TemporaryDirectory() as log_dir:
-        trainer = build_trainer(CONFIGS[args.model], args.batch, not args.f32, args.remat, args.seed, log_dir)
+        trainer = build_trainer(CONFIGS[args.model], args.batch, not args.f32, args.remat, args.seed, log_dir,
+                                mesh=mesh)
         imgs, masks = to_device(next(iter(trainer.train_loader)), trainer.device)
         for _ in range(2):
             trainer.train_step(imgs, masks)
@@ -88,10 +100,13 @@ def main():
                 trainer.train_step(imgs, masks)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+    if mesh is not None:
+        mesh.close()
     averages = prof.key_averages()
     kernels = [e for e in averages if _is_kernel(e)]
     busy_us = sum(_device_us(e) for e in kernels)
-    mode = ("f32" if args.f32 else "bf16") + (f", remat {args.remat}" if args.remat else "")
+    mode = (("f32" if args.f32 else "bf16") + (f", remat {args.remat}" if args.remat else "")
+            + (", data-parallel step, 1 process" if args.data_parallel else ""))
     print(f"card: {card}; torch {torch.__version__}; {args.model}, B={args.batch} {mode} 224x224")
     print(f"train_step {step_ms:.2f} ms = {args.batch / step_ms * 1e3:.1f} img/s (host clock around a synchronise, "
           f"{card}); peak allocated {peak:.2f} GiB; kernel launches per step {counts}; last loss "

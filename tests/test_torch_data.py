@@ -80,8 +80,15 @@ def test_array_dataset_drop_last_and_shard(tmp_path):
     assert [n for b in batches for n in b["filename"]] == [f"sample_{i:03d}.png" for i in order[:4]]
     imgs, masks = tloader.to_device(batches[0], "cpu")
     assert imgs.dtype == torch.uint8 and masks.shape == (2, 16, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tloader.BatchLoader(ds, 2, shuffle=False, shard=(0, 2))
+    # a shard of 2 processes: the second process's contiguous chunk of each batch of 2, and of the last
+    # batch (one row) only padding, marked by ``valid``
+    shard = list(tloader.BatchLoader(ds, 2, shuffle=False, shard=(1, 2)))
+    assert [b["filename"] for b in shard] == [["sample_001.png"], ["sample_003.png"], []]
+    assert [b["filename_global"] for b in shard][-1] == ["sample_004.png"]
+    assert "valid" not in shard[0] and shard[2]["valid"].tolist() == [0.0]
+    assert shard[2]["image"].shape == (1, 16, 16, 3) and not shard[2]["image"].any()
+    with pytest.raises(ValueError, match="out of range"):
+        tloader.BatchLoader(ds, 2, shuffle=False, shard=(2, 2))
 
 
 def test_a_failing_sample_reaches_the_consumer():

@@ -129,8 +129,14 @@ def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
     assert args.device == "cuda" and args.bf16 is None and args.remat is None
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.build_trainer(config, args)
-    with pytest.raises(SystemExit):  # the JAX CLI's parallel flags are not taken
-        cli.parse_args(["--config", "c.yaml", "--data_parallel"])
+    # the JAX CLI's parallel flags are taken; their mesh raises without CUDA unless given the CPU
+    from dfc_sa_unet_torch.parallel.mesh import mesh_from_flags
+
+    dp = cli.parse_args(["--config", "c.yaml", "--data_parallel"])
+    assert dp.data_parallel is True and dp.multihost is None and dp.spatial_parallel is None
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh_from_flags(dp)
+    assert mesh_from_flags(cli.parse_args(["--config", "c.yaml", "--data_parallel", "--device", "cpu"])).group is None
     assert cli.parse_args(["--config", "c.yaml", "--remat"]).remat == "all"
     assert cli.parse_args(["--config", "c.yaml", "--no_bf16"]).bf16 is False
 

@@ -1,0 +1,62 @@
+"""The port's ``BatchLoader(shard=...)`` against the JAX loader's, array for array
+(dfc_sa_unet_tpu/data/loader.py:47-70, 140-182): every process's chunk of every batch, with
+``valid``, ``replicated``, ``filename`` and ``filename_global``, through both packages'
+``DataLoaderFactory`` over the same image files.  Seven 16x16 images in batches of 4: a batch
+that divides among 2 processes, one that does not (3 rows), and among 3 processes a batch of 4
+in which the third process holds padding only; pad multiples 1 and 2; the train loader
+(``partial='replicate'``, shuffled) and the validation loader (``partial='pad'``)."""
+
+import numpy as np
+import pytest
+
+from dfc_sa_unet_tpu.data.loader import DataLoaderFactory as JaxFactory
+from dfc_sa_unet_torch.data.loader import DataLoaderFactory
+from dfc_sa_unet_torch.data.synthetic import generate
+
+KEYS = ("image", "mask", "filename", "valid", "replicated", "filename_global")
+
+
+@pytest.fixture(scope="module")
+def cfg(tmp_path_factory):
+    root = generate(str(tmp_path_factory.mktemp("shard") / "d"), n=7, size=16, seed=8)
+    return {"training": {"batch_size": 4, "num_workers": 1},
+            "dataset": {"train_dir": root, "val_dir": root, "img_size": [16, 16], "augmentation": False,
+                        "cache": False}}
+
+
+def _batches(loader, epoch=1):
+    loader.set_epoch(epoch)
+    return [{k: np.asarray(b[k]) if k in ("image", "mask", "valid") else b[k] for k in KEYS if k in b}
+            for b in loader]
+
+
+@pytest.mark.parametrize("nproc,multiple", [(2, 1), (3, 1), (2, 2)])
+@pytest.mark.parametrize("kind", ["train", "val"])
+def test_shards_equal_the_jax_loaders(cfg, kind, nproc, multiple):
+    seen = []
+    for pid in range(nproc):
+        kw = {"shard": (pid, nproc), "shard_pad_multiple": multiple}
+        get = "get_train_loader" if kind == "train" else "get_val_loader"
+        got = _batches(getattr(DataLoaderFactory(cfg, seed=4), get)(**kw))
+        want = _batches(getattr(JaxFactory(cfg, seed=4), get)(**kw))
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            assert set(g) == set(w), (set(g), set(w))
+            for k in w:
+                if isinstance(w[k], np.ndarray):
+                    assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), k
+                else:
+                    assert g[k] == w[k], k
+        seen.append(got)
+    # what the cases are there for: a batch that divides, one that pads or replicates (of 2
+    # processes the second batch, 3 rows; of 3 the first, 4 rows), and a process that holds padding only
+    uneven = 1 if nproc == 2 else 0
+    for pid, batches in enumerate(seen):
+        if multiple == 1:
+            assert "valid" not in batches[1 - uneven] and not batches[1 - uneven].get("replicated")
+        if kind == "val":
+            assert "valid" in batches[uneven]
+        else:
+            assert batches[uneven].get("replicated")
+    if kind == "val" and nproc == 3:
+        assert seen[2][0]["filename"] == [] and not seen[2][0]["valid"].any()

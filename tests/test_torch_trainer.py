@@ -21,6 +21,7 @@ from _torch_port import (SMALL, assert_step_matches, jax_model_and_variables, po
 from dfc_sa_unet_torch.data.loader import DataLoaderFactory
 from dfc_sa_unet_torch.data.synthetic import generate
 from dfc_sa_unet_torch.models.factory import create_model
+from dfc_sa_unet_torch.parallel.mesh import data_parallel_mesh, local_coordinator, serving_mesh
 from dfc_sa_unet_torch.train import trainer as trainer_mod
 from dfc_sa_unet_torch.train.trainer import Trainer
 from dfc_sa_unet_torch.utils import checkpoint as ckpt_util
@@ -233,11 +234,21 @@ def test_unknown_remat_and_unported_options_raise(tmp_path):
     model = create_model({"model": SMALL}, device="cpu", remat="some")
     with pytest.raises(ValueError, match="remat"):
         model(torch.zeros(1, 3, 32, 32))
-    for key, value in (("grad_accum_exact", True), ("exe_cache_dir", "x"), ("data_parallel", True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for key, value in (("grad_accum_exact", True), ("exe_cache_dir", "x"), ("spatial_parallel", 2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A 4"):
             Trainer(port_model(SMALL), None, None, train_config(tmp_path, **{key: value}), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Trainer(port_model(SMALL), None, None, train_config(tmp_path), mesh=object(), device="cpu")
+    # data_parallel in the YAML is the CLI's to act on; the Trainer takes its mesh
+    Trainer(port_model(SMALL), None, None, train_config(tmp_path, data_parallel=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A 4: row sharding"):
+        serving_mesh(spatial=2)
+    # grad_accum > 1 under a group (here of one process) is not ported yet
+    mesh = data_parallel_mesh("cpu", coordinator=local_coordinator(), num_processes=1, process_id=0, timeout_s=60)
+    try:
+        assert mesh.group is not None and mesh.backend == "gloo"
+        with pytest.raises(NotImplementedError, match="grad_accum > 1 under data parallelism.*Queue A 4"):
+            Trainer(port_model(SMALL), None, None, train_config(tmp_path, grad_accum=2), mesh=mesh, device="cpu")
+    finally:
+        mesh.close()
 
 
 def test_same_seed_gives_the_same_dropout_step_twice(tmp_path):
