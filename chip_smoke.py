@@ -119,7 +119,25 @@ any failure exits non-zero:
    --serve_worker, which calls the CLI's main and saves its launch counts):
    the merged CSV must be the single-process run's, row for row, metrics
    within 1e-6, and each process must launch 9 attention, 7 tail and 2
-   conv3x3 kernels a batch.
+   conv3x3 kernels a batch;
+15. gradient accumulation, the kernels' build directory and the batch
+   policy: (a) the flagship's configured batch of 128, which does not fit
+   in one piece, as grad_accum 2 x 64 in bf16, 3 steps each of the exact
+   path (one loss over both microbatches, each microbatch's forward run
+   again in the backward: 36 attention launches a step) and the default
+   path (18), every step finite, with ms/step, img/s and peak memory
+   beside phase 8's step; (b) the exact path in f32 at B=4 as 2 x 2, 3
+   steps on the card against the CPU (phase 8's limit); (c) the
+   data-parallel Trainer at world size 1 (NCCL), f32, B=16 as 2 x 8,
+   default and exact, against the single-device Trainer (phase 14(a)'s
+   limit), then two Gloo ranks on this card at grad_accum 2, exact, against
+   one process (phase 14(b)'s limits); (d) ``exe_cache``: a child process
+   (this script with --cache_child DIR) builds every library in a fresh
+   directory and serves a first request, a second one loads them and must
+   write or touch no file there, both times to the first launch printed;
+   (e) 150 images through the bf16 engine's ``predict_probs`` under the
+   Predictor's batch policy against the same images served natively as
+   128 + 22 (phase 5's bf16 limits).
 
 The launch counts are set to 0 before phase 4 and read after phase 5 (the
 flagship's serving paths), and again around phase 6 (the transformers'),
@@ -128,7 +146,9 @@ around each training run of phase 8, around each of phases 9 to 12
 phase 13 (before its timed rows) and around each multi-device run of phase
 14 (the data-parallel Trainer's two runs in this process; each process of
 (b) and (c) counts its own; the single-process references are not
-counted).  The line before
+counted) and of phase 15 (its runs on the card, the data-parallel ones,
+each Gloo rank's and each cache child's; not the single-device, CPU and
+native references).  The line before
 the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -145,6 +165,8 @@ import tempfile
 import time
 
 import numpy as np
+
+START = time.perf_counter()  # the cache children of phase 15(d) time their first launch from here
 
 BATCH = 128
 IMG = 224
@@ -280,13 +302,28 @@ DP_CHILD_TIMEOUT_S = 300  # a hang fails the phase
 # phase 14(c): 8 synthetic images served by two processes through the CLI, merged, against one process; both
 # runs take batches of 4 tiles, so each image meets the same shapes and the same library algorithms
 SERVE_IMAGES, SERVE_BATCH = 8, 4
+# phase 15: the configured batch of 128, which does not fit on the card in one piece (phase 8), as
+# grad_accum 2 x 64, bf16, 3 steps of each path.  Pooled-attention launches a step: 9 a forward of each
+# microbatch, and the exact path runs each microbatch's forward again in the backward (the backward
+# itself recomputes attention through the plain version)
+ACCUM, ACCUM_BATCH, ACCUM_STEPS = 2, 128, 3
+ACCUM_ATTENTION = {"exact": 9 * ACCUM * 2, "default": 9 * ACCUM}
+EXACT = {"grad_accum": ACCUM, "grad_accum_exact": True}
+# (b) f32 on the card against the CPU at B=4 as 2 x 2, phase 8's TRAIN_LOSS_TOL_CPU; (c) the data-parallel
+# step at world size 1 against the Trainer at B=16 as 2 x 8, 2 steps, phase 14(a)'s DP_TOL, then 2 Gloo
+# ranks at phase 14(b)'s global batch, limits and steps; (e) a request of 150 images through the engine
+ACCUM_F32_BATCH, ACCUM_DP_BATCH, ACCUM_DP_STEPS = 4, 16, 2
+POLICY_IMAGES = 150
+POLICY_FORWARDS = 1  # infer/predictor.py::Predictor.predict_probs runs a batch as it is (measured, PERF.md §4)
 
 
-def seeded_trainer(cfg, batch, data, bf16, device, log_dir, seed, remat=False, weight_seed=None, mesh=None):
-    """A Trainer of ``cfg`` (phase 8's training section) with weights seeded by ``weight_seed``
-    (default ``seed``) over the synthetic samples ``data``; with ``mesh`` each process loads its
-    chunk of every batch (``BatchLoader(shard=...)``) as the training CLI does.  ``step_log``
-    records each step's metrics and its time: train_step ends on a read of the loss."""
+def seeded_trainer(cfg, batch, data, bf16, device, log_dir, seed, remat=False, weight_seed=None, mesh=None,
+                   training=None):
+    """A Trainer of ``cfg`` (phase 8's training section, with ``training``'s settings over it) with
+    weights seeded by ``weight_seed`` (default ``seed``) over the synthetic samples ``data``; with
+    ``mesh`` each process loads its share of every batch (``BatchLoader(shard=..., microbatches=...)``)
+    as the training CLI does.  ``step_log`` records each step's metrics and its time: train_step ends
+    on a read of the loss."""
     import torch
 
     from dfc_sa_unet_torch.data.dataset import ArrayDataset
@@ -296,13 +333,13 @@ def seeded_trainer(cfg, batch, data, bf16, device, log_dir, seed, remat=False, w
     from dfc_sa_unet_torch.utils.weights import init_random_
 
     dtype = torch.bfloat16 if bf16 else None
-    config = {**cfg, "training": {**TRAINING, "batch_size": batch},
+    config = {**cfg, "training": {**TRAINING, "batch_size": batch, **(training or {})},
               "logging": {"log_dir": log_dir, "images_dir": os.path.join(log_dir, "images")}}
     net = init_random_(create_model(config, dtype=dtype, device="cpu", remat=remat),
                        torch.Generator().manual_seed(seed if weight_seed is None else weight_seed))
     shard = None if mesh is None else (mesh.rank, mesh.world_size)
     train = BatchLoader(ArrayDataset(data), batch, shuffle=True, num_workers=2, seed=seed, shard=shard,
-                        partial="replicate")
+                        partial="replicate", microbatches=config["training"].get("grad_accum", 1))
     val = BatchLoader(ArrayDataset(data[:2 * batch]), batch, shuffle=False, num_workers=2, seed=seed, shard=shard)
     trainer = Trainer(net, train, val, config, mesh=mesh, seed=seed, compute_dtype=dtype, device=device,
                       progress=False)
@@ -320,9 +357,10 @@ def seeded_trainer(cfg, batch, data, bf16, device, log_dir, seed, remat=False, w
 
 
 def dp_worker(args):
-    """One process of phase 14(b): the flagship at full width, f32, one rank of a Gloo group of
-    ``--dp_world`` processes on cuda:0, DP_STEPS steps at a global batch of DP_BATCH (its chunk of
-    each); saves its step log, launch counts and state dict into ``--dp_out``."""
+    """One process of phase 14(b) (and of 15(c) with ``--dp_exact``: grad_accum 2, exact): the
+    flagship at full width, f32, one rank of a Gloo group of ``--dp_world`` processes on cuda:0,
+    DP_STEPS steps at a global batch of DP_BATCH (its share of each); saves its step log, launch
+    counts and state dict into ``--dp_out``."""
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -337,7 +375,8 @@ def dp_worker(args):
     try:
         data = list(samples(n=DP_STEPS * DP_BATCH, size=IMG, seed=args.seed))
         trainer = seeded_trainer(CONFIG, DP_BATCH, data, False, mesh.device,
-                                 os.path.join(args.dp_out, f"rank{args.dp_worker}"), args.seed, mesh=mesh)
+                                 os.path.join(args.dp_out, f"rank{args.dp_worker}"), args.seed, mesh=mesh,
+                                 training=EXACT if args.dp_exact else None)
         reset_launches()
         trainer.train_epoch(0)
         torch.save({"step_log": trainer.step_log, "launches": launches(),
@@ -359,6 +398,86 @@ def serve_worker(args, cli_argv):
         json.dump(launches(), f)
 
 
+def cache_child(args):
+    """One process of phase 15(d): the flagship's module path served through a Predictor whose
+    kernels build in, or load from, ``--cache_child``; prints one JSON line: the seconds from this
+    script's start to the end of the first request (its kernel launches), the launch counts and the
+    build directory."""
+    import torch
+
+    from dfc_sa_unet_torch.infer.predictor import Predictor
+    from dfc_sa_unet_torch.models.factory import create_model
+    from dfc_sa_unet_torch.ops import _build, launches, reset_launches
+
+    model = create_model(CONFIG, dtype=torch.bfloat16, device="cuda")
+    pred = Predictor(model, compute_dtype=torch.bfloat16, device="cuda", exe_cache_dir=args.cache_child)
+    reset_launches()
+    probs = pred.predict_probs(np.random.default_rng(args.seed).integers(0, 256, (2, IMG, IMG, 3), dtype=np.uint8))
+    print(json.dumps({"first_launch_s": time.perf_counter() - START, "launches": launches(),
+                      "build_dir": str(_build.BUILD_DIR), "finite": bool(np.isfinite(probs).all())}))
+
+
+def gloo_pair_against_one(seed, card, dev, tmp, label, training, run_epochs):
+    """Two processes of this script (``--dp_worker``) on this card over Gloo, the flagship in f32 at a
+    global batch of DP_BATCH for DP_STEPS steps (with ``training``'s settings: ``EXACT`` adds
+    ``--dp_exact``), against one process on the same batches (its launches not counted): losses and
+    state within phase 14(b)'s limits, and each rank's pooled-attention launches those of its steps.
+    Fails ``label`` otherwise, or when a process fails or outlives DP_CHILD_TIMEOUT_S.  Returns each
+    rank's launch counts."""
+    import torch
+
+    from dfc_sa_unet_torch.data.synthetic import samples
+    from dfc_sa_unet_torch.parallel.mesh import local_coordinator
+
+    per_step = ACCUM_ATTENTION["exact"] if training == EXACT else 9
+    dp_out = os.path.join(tmp, "two_exact" if training == EXACT else "two")
+    os.makedirs(dp_out)
+    coordinator = local_coordinator()
+    children = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seed", str(seed), "--dp_worker",
+                                  str(r), "--dp_world", "2", "--dp_coordinator", coordinator, "--dp_out", dp_out,
+                                  *(["--dp_exact"] if training == EXACT else [])],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [c.communicate(timeout=DP_CHILD_TIMEOUT_S)[0] for c in children]
+    except subprocess.TimeoutExpired:
+        logs = None
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.communicate()
+    if logs is None or any(c.returncode for c in children):
+        for i, log in enumerate(logs or []):
+            print(f"    rank {i}: {log[-3000:]}")
+        fail(f"{label}: a process of the Gloo group failed or hung (limit {DP_CHILD_TIMEOUT_S} s); its output is above")
+    ranks = [torch.load(os.path.join(dp_out, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    one = seeded_trainer(CONFIG, DP_BATCH, list(samples(n=DP_STEPS * DP_BATCH, size=IMG, seed=seed)), False, dev,
+                         os.path.join(dp_out, "one"), seed, training=training)
+    run_epochs(one, [0], "pooled_attention", per_step, f"{label}, one process")
+    want_loss = [r["loss"] for r in one.step_log]
+    want_state = {k: v.detach().cpu() for k, v in one.model.state_dict().items()}
+    bad = []
+    for r, got in enumerate(ranks):
+        loss = [s["loss"] for s in got["step_log"]]
+        if got["launches"] != {**{k: 0 for k in got["launches"]}, "pooled_attention": per_step * DP_STEPS}:
+            bad.append(f"rank {r} launched {got['launches']}")
+        if not np.allclose(loss, want_loss, **DP_LOSS_TOL) or len(loss) != DP_STEPS:
+            bad.append(f"rank {r} losses {loss} against {want_loss}")
+        for k, v in want_state.items():
+            if not torch.allclose(got["state"][k].double(), v.double(), **DP_STATE_TOL):
+                bad.append(f"rank {r} {k}: max difference {(got['state'][k].double() - v.double()).abs().max():.3e}")
+    two_ms = float(np.median([s["ms"] for s in ranks[0]["step_log"][1:]]))
+    one_ms = float(np.median([s["ms"] for s in one.step_log[1:]]))
+    setting = f", grad_accum {ACCUM} exact" if training == EXACT else ""
+    print(f"    two processes on one card over Gloo, f32, global batch {DP_BATCH} ({DP_BATCH // 2} a process{setting}), "
+          f"{DP_STEPS} steps: losses {[round(s['loss'], 6) for s in ranks[0]['step_log']]} against one process's "
+          f"{[round(v, 6) for v in want_loss]}; {two_ms:.1f} ms/step (rank 0, step 2) against one process's "
+          f"{one_ms:.1f} ({card})", flush=True)
+    if bad:
+        fail(f"{label}: two processes disagree with one: " + "; ".join(bad[:8]))
+    return [got["launches"] for got in ranks]
+
+
 def multi_device(seed, card, dev, fits, batch, items, run_epochs):
     """Phase 14: the data-parallel training step and multi-process serving.  ``fits`` is phase
     8's bf16 batch, ``items`` its synthetic samples and ``run_epochs`` its epoch check, ``batch``
@@ -372,7 +491,7 @@ def multi_device(seed, card, dev, fits, batch, items, run_epochs):
 
     from dfc_sa_unet_torch import inference as serve_cli
     from dfc_sa_unet_torch.data.normalize import normalize
-    from dfc_sa_unet_torch.data.synthetic import generate, samples
+    from dfc_sa_unet_torch.data.synthetic import generate
     from dfc_sa_unet_torch.models.factory import create_model
     from dfc_sa_unet_torch.ops import launches, reset_launches
     from dfc_sa_unet_torch.parallel.mesh import data_parallel_mesh, local_coordinator
@@ -437,52 +556,8 @@ def multi_device(seed, card, dev, fits, batch, items, run_epochs):
     torch.cuda.empty_cache()
 
     # (b) two processes on this card over Gloo, against one process at the same global batch
-    dp_out = os.path.join(tmp.name, "two")
-    os.makedirs(dp_out)
-    coordinator = local_coordinator()
-    children = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seed", str(seed), "--dp_worker",
-                                  str(r), "--dp_world", "2", "--dp_coordinator", coordinator, "--dp_out", dp_out],
-                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
-    try:
-        logs = [c.communicate(timeout=DP_CHILD_TIMEOUT_S)[0] for c in children]
-    except subprocess.TimeoutExpired:
-        logs = None
-    finally:
-        for c in children:
-            if c.poll() is None:
-                c.kill()
-                c.communicate()
-    if logs is None or any(c.returncode for c in children):
-        for i, log in enumerate(logs or []):
-            print(f"    rank {i}: {log[-3000:]}")
-        fail("phase 14(b): a process of the Gloo group failed or hung (limit "
-             f"{DP_CHILD_TIMEOUT_S} s); its output is above")
-    ranks = [torch.load(os.path.join(dp_out, f"rank{r}.pt"), weights_only=False) for r in range(2)]
-    one = seeded_trainer(CONFIG, DP_BATCH, list(samples(n=DP_STEPS * DP_BATCH, size=IMG, seed=seed)), False, dev,
-                         os.path.join(tmp.name, "one"), seed)
-    epoch(one, f"flagship f32 B={DP_BATCH}, one process", False)
-    want_loss = [r["loss"] for r in one.step_log]
-    want_state = {k: v.detach().cpu() for k, v in one.model.state_dict().items()}
-    bad = []
-    for r, got in enumerate(ranks):
-        loss = [s["loss"] for s in got["step_log"]]
-        if got["launches"] != {**{k: 0 for k in got["launches"]}, "pooled_attention": 9 * DP_STEPS}:
-            bad.append(f"rank {r} launched {got['launches']}")
-        if not np.allclose(loss, want_loss, **DP_LOSS_TOL) or len(loss) != DP_STEPS:
-            bad.append(f"rank {r} losses {loss} against {want_loss}")
-        for k, v in want_state.items():
-            if not torch.allclose(got["state"][k].double(), v.double(), **DP_STATE_TOL):
-                bad.append(f"rank {r} {k}: max difference {(got['state'][k].double() - v.double()).abs().max():.3e}")
-        count(f"(b) rank {r}", got["launches"])
-    two_ms = float(np.median([s["ms"] for s in ranks[0]["step_log"][1:]]))
-    one_ms = float(np.median([s["ms"] for s in one.step_log[1:]]))
-    print(f"    two processes on one card over Gloo, f32, global batch {DP_BATCH} ({DP_BATCH // 2} a process), "
-          f"{DP_STEPS} steps: losses {[round(s['loss'], 6) for s in ranks[0]['step_log']]} against one process's "
-          f"{[round(v, 6) for v in want_loss]}; {two_ms:.1f} ms/step (rank 0, step 2) against one process's "
-          f"{one_ms:.1f} ({card})", flush=True)
-    if bad:
-        fail("phase 14(b): two processes disagree with one: " + "; ".join(bad[:8]))
-    del one, ranks, want_state
+    for r, got in enumerate(gloo_pair_against_one(seed, card, dev, tmp.name, "phase 14(b)", None, run_epochs)):
+        count(f"(b) rank {r}", got)
     torch.cuda.empty_cache()
 
     # (c) serving through the CLI: two processes (torchrun, Gloo barrier, primary merges) against one
@@ -556,6 +631,183 @@ def multi_device(seed, card, dev, fits, batch, items, run_epochs):
 
 
 
+def accumulation_and_cache(seed, card, dev, fits, fits_ms, run_epochs):
+    """Phase 15: gradient accumulation at the configured batch, exact and default, on one process and
+    data-parallel; the kernels' build directory (``exe_cache``) in two child processes; and a request
+    of POLICY_IMAGES images under the Predictor's batch policy.  ``fits`` and ``fits_ms`` are phase 8's
+    bf16 batch and its ms/step, ``run_epochs`` its epoch check.  Returns the launch counts of the
+    phase's runs; the single-device and CPU references and the native request of (e) are not
+    counted."""
+    import torch
+
+    from dfc_sa_unet_torch.data.normalize import normalize
+    from dfc_sa_unet_torch.data.synthetic import samples
+    from dfc_sa_unet_torch.infer.engine import DFCEngine
+    from dfc_sa_unet_torch.infer.predictor import Predictor
+    from dfc_sa_unet_torch.models.factory import create_model
+    from dfc_sa_unet_torch.ops import _build, launches, reset_launches
+    from dfc_sa_unet_torch.parallel.mesh import data_parallel_mesh, local_coordinator
+    from dfc_sa_unet_torch.utils.weights import calibrate_batch_stats_, init_random_
+
+    print(f"[15] gradient accumulation, the kernels' build directory and the batch policy, seed {seed} ({card})",
+          flush=True)
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    path = {k: 0 for k in launches()}  # the phase's launches
+    run_counts = {}  # each run's, printed
+    default = {"grad_accum": ACCUM}
+
+    def count(label, got):
+        run_counts[label] = {k: v for k, v in got.items() if v}
+        for k, v in got.items():
+            path[k] += v
+
+    def epoch(tr, kind, label, counted=True):
+        """One epoch with ACCUM_ATTENTION[kind] attention launches a step, counted into the phase's."""
+        reset_launches()
+        run_epochs(tr, [0], "pooled_attention", ACCUM_ATTENTION[kind], label)
+        if counted:
+            count(label, launches())
+
+    items = list(samples(n=ACCUM_STEPS * ACCUM_BATCH, size=IMG, seed=seed))
+
+    # (a) the configured batch of 128 as 2 x 64, bf16, exact and default
+    for kind, training in (("exact", EXACT), ("default", default)):
+        torch.cuda.reset_peak_memory_stats()
+        label = f"(a) flagship bf16 B={ACCUM_BATCH} as {ACCUM} x {ACCUM_BATCH // ACCUM}, {kind}"
+        tr = seeded_trainer(CONFIG, ACCUM_BATCH, items, True, dev, os.path.join(tmp.name, "a"), seed,
+                            training=training)
+        epoch(tr, kind, label)
+        ms = float(np.median([r["ms"] for r in tr.step_log[1:]]))
+        print(f"    {label}: losses {[round(r['loss'], 4) for r in tr.step_log]}; {ms:.1f} ms/step (median of "
+              f"steps 2-3) = {ACCUM_BATCH / ms * 1e3:.1f} img/s; peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {ACCUM_ATTENTION[kind]} attention launches a "
+              f"step; phase 8's B={fits} step {fits_ms:.1f} ms = {fits / fits_ms * 1e3:.1f} img/s ({card})",
+              flush=True)
+        del tr
+        torch.cuda.empty_cache()
+
+    # (b) f32, B=4 as 2 x 2, exact: 3 steps on the card against the same steps on the CPU
+    n_b = 3 * ACCUM_F32_BATCH
+    on_card = seeded_trainer(CONFIG, ACCUM_F32_BATCH, items[:n_b], False, dev, os.path.join(tmp.name, "b"), seed,
+                             training=EXACT)
+    epoch(on_card, "exact", f"(b) flagship f32 B={ACCUM_F32_BATCH} as {ACCUM} x {ACCUM_F32_BATCH // ACCUM}, exact")
+    on_cpu = seeded_trainer(CONFIG, ACCUM_F32_BATCH, items[:n_b], False, "cpu", os.path.join(tmp.name, "b_cpu"),
+                            seed, training=EXACT)
+    on_cpu.train_epoch(0)
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(on_card.step_log, on_cpu.step_log)]
+    print(f"    (b) f32 B={ACCUM_F32_BATCH} exact: losses of steps 1-3 on the card "
+          f"{[round(m['loss'], 6) for m in on_card.step_log]}, on the CPU {[round(m['loss'], 6) for m in on_cpu.step_log]}; "
+          f"relative difference {max(rel):.2e} (tol {TRAIN_LOSS_TOL_CPU})", flush=True)
+    if not (len(rel) == 3 and max(rel) <= TRAIN_LOSS_TOL_CPU):
+        fail("phase 15(b): the exact accumulation step on the card and on the CPU disagree")
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+
+    # (c) the data-parallel Trainer at world size 1 (NCCL) against the single-device Trainer, f32,
+    # B=16 as 2 x 8, default and exact; then two Gloo ranks on this card at grad_accum 2, exact
+    mesh = data_parallel_mesh(dev, coordinator=local_coordinator(), num_processes=1, process_id=0,
+                              timeout_s=DP_CHILD_TIMEOUT_S)
+    if mesh.group is None or mesh.backend != "nccl" or mesh.world_size != 1:
+        fail(f"expected an NCCL group of one process, got {mesh}")
+    n_c = ACCUM_DP_STEPS * ACCUM_DP_BATCH
+    for kind, training in (("default", default), ("exact", EXACT)):
+        pair = []  # (step log, state dict on the host) of the data-parallel path, then of the Trainer
+        for m in (mesh, None):
+            label = f"(c) flagship f32 B={ACCUM_DP_BATCH} as {ACCUM} x {ACCUM_DP_BATCH // ACCUM}, {kind}, " + (
+                "data-parallel" if m is not None else "single-device")
+            tr = seeded_trainer(CONFIG, ACCUM_DP_BATCH, items[:n_c], False, dev, os.path.join(tmp.name, "c"), seed,
+                                mesh=m, training=training)
+            epoch(tr, kind, label, counted=m is not None)
+            pair.append((tr.step_log, {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}))
+            del tr
+            torch.cuda.empty_cache()
+        rel_loss = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(pair[0][0], pair[1][0]))
+        sd_dp, sd_one = pair[0][1], pair[1][1]
+        rel_state = max(float((sd_dp[k].double() - v.double()).abs().max() / v.double().abs().max().clamp(min=1e-12))
+                        for k, v in sd_one.items() if v.is_floating_point())
+        tracked = all(torch.equal(sd_dp[k], v) for k, v in sd_one.items() if not v.is_floating_point())
+        print(f"    (c) {kind}: the data-parallel path at world size 1 vs the single-device Trainer, "
+              f"{ACCUM_DP_STEPS} steps: relative loss difference {rel_loss:.2e}, largest state-dict difference "
+              f"{rel_state:.2e} of the tensor's largest magnitude (tol {DP_TOL})", flush=True)
+        if not (rel_loss <= DP_TOL and rel_state <= DP_TOL and tracked):
+            fail(f"phase 15(c): the data-parallel {kind} accumulation step disagrees with the single-device Trainer")
+    mesh.close()
+    for r, got in enumerate(gloo_pair_against_one(seed, card, dev, tmp.name, "phase 15(c)", EXACT, run_epochs)):
+        count(f"(c) Gloo rank {r}, exact", got)
+    torch.cuda.empty_cache()
+
+    # (d) exe_cache: a first child builds every library in a fresh directory, a second loads them
+    cache = os.path.join(tmp.name, "exe_cache")
+
+    def child(label):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--seed", str(seed), "--cache_child", cache],
+                             capture_output=True, text=True, timeout=DP_CHILD_TIMEOUT_S)
+        if out.returncode:
+            print(out.stdout[-3000:], out.stderr[-3000:])
+            fail(f"phase 15(d): the {label} child failed")
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        if (rec["launches"] != {**{k: 0 for k in rec["launches"]}, "pooled_attention": 9} or not rec["finite"]
+                or rec["build_dir"] != os.path.realpath(cache)):
+            fail(f"phase 15(d): the {label} child launched {rec['launches']} from {rec['build_dir']}, finite "
+                 f"{rec['finite']}")
+        count(f"(d) {label} child", rec["launches"])
+        return rec, time.perf_counter() - t0
+
+    def files():
+        return {f: os.stat(os.path.join(cache, f)).st_mtime_ns for f in sorted(os.listdir(cache))}
+
+    first, first_wall = child("first")
+    built = files()
+    stems = sorted({stem for stem, _ in _build.SIGNATURES.values()})
+    made = sorted(f.split("-")[0][3:] for f in built if f.endswith(".so"))
+    if made != stems or sorted(f[:-4] for f in built if f.endswith(".log")) != stems:
+        fail(f"phase 15(d): the first child left {sorted(built)} in the cache, not one library and log of {stems}")
+    second, second_wall = child("second")
+    if files() != built:
+        fail("phase 15(d): the second child wrote into the cache (it should load the libraries without nvcc)")
+    print(f"    (d) exe_cache: the first child built {len(made)} libraries in a fresh directory, first launch "
+          f"{first['first_launch_s']:.1f} s after its start ({first_wall:.1f} s in all); the second loaded them, no "
+          f"file written or touched, first launch {second['first_launch_s']:.1f} s ({second_wall:.1f} s in all) "
+          f"({card})", flush=True)
+
+    # (e) a request of POLICY_IMAGES images through the bf16 engine under the Predictor's batch policy,
+    # against the same images served natively as 128 + 22
+    rng = np.random.default_rng(seed + 15)
+    request = rng.integers(0, 256, (POLICY_IMAGES, IMG, IMG, 3), dtype=np.uint8)
+    model = init_random_(create_model(CONFIG, device="cpu"), torch.Generator().manual_seed(seed)).to(dev)
+    calibrate_batch_stats_(model, normalize(torch.from_numpy(request[:16]).to(dev)).permute(0, 3, 1, 2))
+    pred = Predictor(DFCEngine(CONFIG, model.state_dict(), dtype=torch.bfloat16, device=dev, tail_kernel_levels="auto",
+                               conv_kernel_levels="auto"), compute_dtype=torch.bfloat16, device=dev)
+    del model
+    reset_launches()
+    got = pred.predict_probs(request)
+    count("(e) predict_probs", launches())
+    forwards = POLICY_FORWARDS
+    if run_counts["(e) predict_probs"] != {"pooled_attention": 9 * forwards, "dfc_tail": 7 * forwards,
+                                           "conv3x3_bn_relu": 2 * forwards}:
+        fail(f"phase 15(e): predict_probs of {POLICY_IMAGES} images launched {run_counts['(e) predict_probs']}, "
+             f"expected {forwards} forward(s) of 9/7/2")
+    want = np.concatenate([pred._forward_u8(request[:128]), pred._forward_u8(request[128:])])
+    logit_want = logit_of(want)
+    std = float(logit_want.std())
+    diff = np.abs(logit_of(got) - logit_want) / std
+    print(f"    (e) predict_probs of {POLICY_IMAGES} images through the bf16 engine ({forwards} forward(s)) "
+          f"against 128 + {POLICY_IMAGES - 128} natively: logit std {std:.3e}; |dlogit| / std max {diff.max():.3e} "
+          f"(tol {DLOGIT_TOL_BF16['max']}), mean {diff.mean():.3e} (tol {DLOGIT_TOL_BF16['mean']})", flush=True)
+    if got.shape != (POLICY_IMAGES, IMG, IMG) or not np.isfinite(got).all() or std < MIN_LOGIT_STD:
+        fail(f"phase 15(e): probabilities of shape {got.shape}, finite {np.isfinite(got).all()}, logit std {std:.3e}")
+    if not (diff.max() <= DLOGIT_TOL_BF16["max"] and diff.mean() <= DLOGIT_TOL_BF16["mean"]):
+        fail("phase 15(e): the batch policy's request disagrees with the native one")
+    del pred
+    torch.cuda.empty_cache()
+    print(f"    phase 15 launches, run by run: {run_counts}; the phase's {path}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    tmp.cleanup()
+    return path
+
+
 def model_config(name):
     """The YAML model section of one of the DFC zoo's nine names."""
     return {"model": {"name": name, "bilinear": False} if name == "UNet" else {"name": name, **DFC_WIDTHS}}
@@ -578,8 +830,11 @@ def main():
     ap.add_argument("--dp_world", type=int, default=2, help=argparse.SUPPRESS)
     ap.add_argument("--dp_coordinator", type=str, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp_out", type=str, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp_exact", action="store_true", help=argparse.SUPPRESS)
     # phase 14(c)'s serving processes: the inference CLI on the arguments after "--"
     ap.add_argument("--serve_worker", type=str, default=None, help=argparse.SUPPRESS)
+    # phase 15(d)'s processes: a first request with the kernels built in, or loaded from, a directory
+    ap.add_argument("--cache_child", type=str, default=None, help=argparse.SUPPRESS)
     argv = sys.argv[1:]
     cut = argv.index("--") if "--" in argv else len(argv)
     cli = ap.parse_args(argv[:cut])
@@ -599,6 +854,8 @@ def main():
         return dp_worker(cli)
     if cli.serve_worker is not None:
         return serve_worker(cli, argv[cut + 1:])
+    if cli.cache_child is not None:
+        return cache_child(cli)
     from dfc_sa_unet_torch.infer.engine import AUTO_TAIL_LEVELS, DFCEngine
     from dfc_sa_unet_torch.infer.predictor import Predictor
     from dfc_sa_unet_torch.infer.quant import Int8DFCEngine, int8_self_check
@@ -1608,6 +1865,10 @@ def main():
     # ------------------------------------------------------------ phase 14
     multi = multi_device(seed, card, dev, fits, batch, items, run_epochs)
     main_launches = {k: main_launches[k] + multi[k] for k in main_launches}
+
+    # ------------------------------------------------------------ phase 15
+    accum = accumulation_and_cache(seed, card, dev, fits, train_ms[False], run_epochs)
+    main_launches = {k: main_launches[k] + accum[k] for k in main_launches}
 
     sources = {"pooled_attention": ("dfc_sa_unet_torch/csrc/pooled_attention.cu",
                                     "dfc_sa_unet_tpu/ops/pallas_attention.py:74"),

@@ -21,7 +21,17 @@ dfc_sa_unet_tpu/data/loader.py).
   ``partial="replicate"`` (training) a batch that does not divide is
   loaded whole on every process and carries ``replicated: True``.  A
   sharded batch lists the global batch's names in ``filename_global``;
-  ``filename`` lists this chunk's real rows.
+  ``filename`` lists this chunk's real rows;
+* ``microbatches=k`` (training under ``grad_accum`` k, ``partial=
+  "replicate"``) shards each of the k microbatches of a global batch
+  instead of the batch: of mb = g / k rows each, process r loads rows
+  [m mb + r mb / P, m mb + (r + 1) mb / P) for m = 0 .. k-1 in turn, so
+  that chunking its rows in k gives its share of every microbatch (JAX's
+  microbatch m under a mesh is the single-device one split across the
+  devices, dfc_sa_unet_tpu/train/trainer.py:318-381).  A batch whose
+  microbatch does not divide among the processes is loaded whole with
+  ``replicated: True``; one that k does not divide keeps the contiguous
+  layout (the trainer runs it as one step).
 """
 
 import queue
@@ -54,12 +64,15 @@ class BatchLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool, num_workers: int = 2,
                  drop_last: bool = False, seed: int = 0, prefetch: int = 2, shard=None,
-                 shard_pad_multiple: int = 1, partial: str = "pad"):
+                 shard_pad_multiple: int = 1, partial: str = "pad", microbatches: int = 1):
         if shard is not None and not 0 <= shard[0] < shard[1]:
             raise ValueError(f"shard id {shard[0]} out of range for {shard[1]} processes")
         if partial not in ("pad", "replicate"):
             raise ValueError(f"partial must be 'pad' or 'replicate', got {partial!r}")
+        if microbatches < 1 or (microbatches > 1 and partial != "replicate"):
+            raise ValueError(f"microbatches={microbatches} needs a positive count and partial='replicate'")
         self.shard = shard
+        self.microbatches = int(microbatches)
         self.shard_pad_multiple = max(1, int(shard_pad_multiple))
         self.partial = partial
         self.dataset = dataset
@@ -118,7 +131,17 @@ class BatchLoader:
             per_proc = -(-g // nproc)  # ceil(g / nproc)
             chunk = -(-per_proc // m) * m  # rounded up to the multiple
             names_global = [self.dataset.samples[int(order[i])][2] for i in range(lo, hi)]
-            if chunk * nproc != g and self.partial == "replicate":
+            uneven = chunk * nproc != g
+            k = self.microbatches
+            if k > 1 and g % k == 0:
+                mb = g // k
+                per = mb // nproc
+                if mb % nproc == 0 and per % m == 0:  # this process's share of each microbatch in turn
+                    batch = load_rows([lo + j * mb + pid * per + i for j in range(k) for i in range(per)], pool)
+                    batch["filename_global"] = names_global
+                    return batch
+                uneven = True  # a microbatch does not divide among the processes
+            if uneven and self.partial == "replicate":
                 batch = load_rows(range(lo, hi), pool)
                 batch.update(replicated=True, filename_global=names_global)
                 return batch
@@ -191,13 +214,15 @@ class DataLoaderFactory:
         self.cache = ds.get("cache", "auto")
         self.seed = seed
 
-    def get_train_loader(self, drop_last: bool = False, shard=None, shard_pad_multiple: int = 1) -> BatchLoader:
-        """``partial='replicate'``: a padded train batch would change the BatchNorm statistics."""
+    def get_train_loader(self, drop_last: bool = False, shard=None, shard_pad_multiple: int = 1,
+                         microbatches: int = 1) -> BatchLoader:
+        """``partial='replicate'``: a padded train batch would change the BatchNorm statistics;
+        ``microbatches``: the trainer's ``grad_accum``, which decides each process's rows."""
         transform = build_transforms(self.img_size, augment=self.use_augmentation)
         dataset = SegmentationDataset(self.train_dir, transform, self.img_size, cache=self.cache)
         return BatchLoader(dataset, self.batch_size, shuffle=True, num_workers=self.num_workers,
                            drop_last=drop_last, seed=self.seed, shard=shard, shard_pad_multiple=shard_pad_multiple,
-                           partial="replicate")
+                           partial="replicate", microbatches=microbatches)
 
     def get_val_loader(self, shard=None, shard_pad_multiple: int = 1) -> BatchLoader:
         """``partial='pad'``: the trainer's eval step masks the padding."""

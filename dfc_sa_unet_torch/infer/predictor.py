@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from dfc_sa_unet_torch.data.normalize import normalize
+from dfc_sa_unet_torch.ops import _build
 from dfc_sa_unet_torch.utils.device import resolve_device
 
 
@@ -102,9 +103,13 @@ class Predictor:
     """Batched forward of a model (an nn.Module or any callable, e.g. a
     DFCEngine) that takes normalised NCHW images and returns NCHW logits.
     Runs on ``device`` (default CUDA, raising without it).  A model with an
-    ``img_dim`` attribute (ViT-seg, TransUNet) is served at that size only."""
+    ``img_dim`` attribute (ViT-seg, TransUNet) is served at that size only.
+    ``exe_cache_dir``: the directory the CUDA kernels are built in and loaded
+    from (``ops/_build.py::set_build_dir``)."""
 
-    def __init__(self, model, compute_dtype=None, device=None):
+    def __init__(self, model, compute_dtype=None, device=None, exe_cache_dir=None):
+        if exe_cache_dir is not None:
+            _build.set_build_dir(exe_cache_dir)
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype or torch.float32
         if isinstance(model, torch.nn.Module):
@@ -119,23 +124,20 @@ class Predictor:
         return probs[:, 0].cpu().numpy()
 
     def predict_probs(self, images_u8: np.ndarray) -> np.ndarray:
-        """[B,H,W,3] uint8 -> [B,H,W] probabilities.
+        """[B,H,W,3] uint8 -> [B,H,W] probabilities, the batch run as it is.
 
-        Batch policy kept from the JAX predictor (predictor.py:170-177),
-        where it was measured on a TPU: batches above 128 run in chunks of
-        128, batches of 64-127 are zero-padded to 128.  Not yet measured on
-        the H100 (ROADMAP.md).
+        The JAX predictor pads batches of 64-127 to 128 and runs batches above
+        128 in chunks of 128, a policy measured on a TPU v5e, whose convolutions
+        ran at a fraction of their rate at most other batch sizes
+        (dfc_sa_unet_tpu/infer/predictor.py:170-177).  On an H100 the forward's
+        time grows with the batch, so both branches lose there: bf16 at
+        224x224, the flagship's engine forward takes 68.4 ms at B=64 against
+        130.5 padded to 128, 146.7 at B=144 against 151.7 as 128 + 16, 194.6 at
+        B=192 against 260.7 as 128 + 128 (the module path alike; every padded
+        or chunked size of scripts/bench_torch_predictor_batch.py lost by more
+        than the spread between its two runs, PERF.md §4).  The per-image
+        results are the same function either way.
         """
-        n = images_u8.shape[0]
-        if n > 128:
-            images_u8 = np.asarray(images_u8)
-            out = np.empty((n, *images_u8.shape[1:3]), np.float32)
-            for lo in range(0, n, 128):
-                out[lo : lo + 128] = self.predict_probs(images_u8[lo : lo + 128])
-            return out
-        if 64 <= n < 128:
-            pad = np.zeros((128 - n, *images_u8.shape[1:]), dtype=np.uint8)
-            return self.predict_probs(np.concatenate([np.asarray(images_u8), pad]))[:n]
         return self._forward_u8(np.asarray(images_u8))
 
     def _check_tile(self, tile_size: int):

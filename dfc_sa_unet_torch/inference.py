@@ -5,7 +5,7 @@
         [--tile_size 224] [--overlap 50] [--resize W H] [--no_slide_window]
         [--tta] [--bf16 | --no_bf16] [--engine] [--batch_size 128] [--serial]
         [--int8 [--int8_percentile 99.9 | --int8_maxabs] [--no_int8_check] [--strict]]
-        [--device cuda] [--data_parallel] [--multihost] [--coordinator HOST:PORT
+        [--exe_cache DIR] [--device cuda] [--data_parallel] [--multihost] [--coordinator HOST:PORT
         --num_processes N --process_id I]
 
     torchrun --nproc_per_node N -m dfc_sa_unet_torch.inference ... --data_parallel
@@ -34,7 +34,9 @@ images (a percentile of |t|, 99.9 by default, or max |t| with
 masks against the fp ones on those images and on images 8..16 (``--strict``
 refuses to serve when it fails); any other model is served as without
 ``--int8``.  Runs on the card; ``--device cpu`` runs the plain PyTorch path on
-the CPU.
+the CPU.  ``--exe_cache DIR`` builds the CUDA kernels in DIR and loads them
+from there (a warm DIR skips the nvcc build; the libraries are the port's only
+compiled artifacts).
 
 Several processes (``--data_parallel`` under torchrun, one process per card
 on ``cuda:LOCAL_RANK`` or ``--device``; or ``--multihost`` / ``--coordinator``)
@@ -63,6 +65,7 @@ from dfc_sa_unet_torch.data.normalize import normalize
 from dfc_sa_unet_torch.infer.predictor import Predictor, load_image, prefetch
 from dfc_sa_unet_torch.metrics import confusion_counts, metrics_from_counts
 from dfc_sa_unet_torch.models.factory import create_model
+from dfc_sa_unet_torch.ops import _build
 from dfc_sa_unet_torch.parallel import multihost as mh
 from dfc_sa_unet_torch.parallel.mesh import ROW_SHARDING, add_parallel_flags, mesh_from_flags
 from dfc_sa_unet_torch.utils.device import resolve_device
@@ -108,8 +111,8 @@ def save_prediction(original, pred_prob, pred_binary, output_dir, filename, gt_m
         cv2.imwrite(os.path.join(individual, "ground_truth.png"), gt_vis)
 
 
-def build_predictor(config, weights, bf16=False, engine=False, device=None) -> Predictor:
-    """Model (or folded engine) + weights -> Predictor on ``device``."""
+def build_predictor(config, weights, bf16=False, engine=False, device=None, exe_cache_dir=None) -> Predictor:
+    """Model (or folded engine) + weights -> Predictor on ``device``; ``exe_cache_dir`` as the Predictor's."""
     dev = resolve_device(device)
     dtype = torch.bfloat16 if bf16 else torch.float32
     if engine:
@@ -123,7 +126,7 @@ def build_predictor(config, weights, bf16=False, engine=False, device=None) -> P
     else:
         model = create_model(config, dtype=torch.bfloat16 if bf16 else None, device=dev)
         model.load_state_dict(weights, strict=True)
-    return Predictor(model, compute_dtype=dtype, device=dev)
+    return Predictor(model, compute_dtype=dtype, device=dev, exe_cache_dir=exe_cache_dir)
 
 
 INT8_MODELS = ("DFC-SA-Res-Block", "VisionTransformerSegmentation", "TransformerUNet", "TransUNet")
@@ -248,6 +251,8 @@ def serve(args, config, mesh):
             print(f"Multi-process serving: {nproc} processes, one card each; the file list shards round-robin; "
                   f"the output dir must be shared.")
 
+    if args.exe_cache:  # before anything launches a kernel: int8 calibration does, before the Predictor exists
+        _build.set_build_dir(args.exe_cache)
     name = config["model"]["name"]
     int8 = args.int8 and name in INT8_MODELS
     if args.int8 and not int8:
@@ -257,7 +262,7 @@ def serve(args, config, mesh):
         predictor = build_int8_predictor(config, weights, global_files, args, device=mesh.device)
     else:
         predictor = build_predictor(config, weights, bf16=args.bf16, engine=args.engine and not args.int8,
-                                    device=mesh.device)
+                                    device=mesh.device, exe_cache_dir=args.exe_cache)
     kind = " (int8 engine)" if int8 else " (folded engine)" if args.engine and not args.int8 else ""
     print(f"Loaded {model_path}; model {name} on {predictor.device} in "
           f"{str(predictor.compute_dtype).split('.')[-1]}{kind}")
@@ -412,6 +417,9 @@ def parse_args(argv=None):
     parser.add_argument("--strict", action="store_true",
                         help="with --int8: refuse to serve (instead of warning) when the self-check's mask "
                              "flip rate exceeds its gate")
+    parser.add_argument("--exe_cache", type=str, default=None,
+                        help="directory the CUDA kernels are built in and loaded from (a warm directory skips "
+                             "the nvcc build)")
     parser.add_argument("--batch_size", type=int, default=128)
     parser.add_argument("--serial", action="store_true", help="no decode/compute pipelining")
     parser.add_argument("--device", type=str, default="cuda",

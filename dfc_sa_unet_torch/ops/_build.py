@@ -5,11 +5,14 @@ own shared library with a plain C interface and loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds, not minutes).  The builds
 run in parallel, one ``nvcc`` per source, at the first call that needs a
 kernel, never at import.  Libraries land in ``dfc_sa_unet_torch/_build/``
-(git-ignored) under a name that carries a hash of the sources and flags,
-so an edited source is rebuilt and a stale library is never loaded.
+(git-ignored), or in the directory given to ``set_build_dir`` (the CLIs'
+``--exe_cache``), under a name that carries a hash of the sources, the
+flags and ``nvcc --version``, so an edited source or a new toolkit is
+rebuilt and a stale library is never loaded.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -48,6 +51,7 @@ SIGNATURES = {
 }
 
 _functions = None
+_loaded_from = None  # the directory the loaded libraries came from
 
 
 def _nvcc() -> str:
@@ -57,8 +61,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
 
 
+def set_build_dir(path) -> None:
+    """Build the libraries in, and load them from, ``path`` (created at the first build).  Raises
+    when the kernels were already loaded from another directory."""
+    global BUILD_DIR
+    path = Path(path).expanduser().resolve()
+    if _loaded_from is not None and path != _loaded_from:
+        raise RuntimeError(f"the CUDA kernels were already loaded from {_loaded_from}; cannot switch to {path}")
+    BUILD_DIR = path
+
+
+@functools.cache
+def _nvcc_version() -> str:
+    return subprocess.run([_nvcc(), "--version"], capture_output=True, text=True, check=True).stdout
+
+
 def _digest(stem: str) -> str:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h.update(_nvcc_version().encode())
     for src in [CSRC / f"{stem}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.read_bytes())
     return h.hexdigest()[:12]
@@ -92,12 +112,13 @@ def build() -> dict:
 
 def kernel(name: str):
     """The ctypes function ``name`` of SIGNATURES, building on first use."""
-    global _functions
+    global _functions, _loaded_from
     if _functions is None:
         major, minor = torch.cuda.get_device_capability()
         if (major, minor) != (9, 0):
             raise RuntimeError(f"the kernels are built for sm_90a (H100); this card is sm_{major}{minor}")
         loaded = {stem: ctypes.CDLL(str(path)) for stem, path in build().items()}
+        _loaded_from = BUILD_DIR
         fns = {}
         for fname, (stem, argtypes) in SIGNATURES.items():
             fn = getattr(loaded[stem], fname)

@@ -10,8 +10,13 @@ generator set, the global RNG is used.
 the backward runs the function a second time, and that second run must see
 the same dropout masks and must not move BatchNorm's running statistics
 again.  It rewinds the generator for the recomputation and raises a flag
-that ``nn.layers.BatchNorm`` reads (``recomputing()``).
+that ``nn.layers.BatchNorm`` reads (``recomputing()``).  The recomputation
+runs in the context variables of the first run (``nn.layers.bn_cross_replica``
+among them): on the card the backward, and with it the recomputation, runs
+in autograd's device thread, which does not see the caller's context.
 """
+
+import contextvars
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -46,11 +51,11 @@ def recomputing() -> bool:
 def remat_call(fn, *args, generator=None):
     """``fn(*args)`` whose activations are recomputed in the backward pass."""
     state = None if generator is None else generator.get_state()
-    first = [True]
+    context = []
 
     def run(*a):
-        if first[0]:
-            first[0] = False
+        if not context:
+            context.append(contextvars.copy_context())
             return fn(*a)
         keep = None
         if generator is not None:
@@ -58,7 +63,7 @@ def remat_call(fn, *args, generator=None):
             generator.set_state(state)
         was, _RECOMPUTING[0] = _RECOMPUTING[0], True
         try:
-            return fn(*a)
+            return context[0].run(fn, *a)
         finally:
             _RECOMPUTING[0] = was
             if keep is not None:

@@ -6,11 +6,12 @@ the JAX package's train.py, with its flags).
         [--beta B] [--weight_bce W] [--weight_dice W] [--bce_weight W]
         [--dice_weight W] [--contour_weight W] [--augmentation true|false]
         [--bf16 | --no_bf16] [--remat [all|l12|deep]] [--seed N]
-        [--grad_accum N] [--device cuda|cpu]
+        [--grad_accum N [--grad_accum_exact]] [--exe_cache DIR] [--device cuda|cpu]
         [--data_parallel] [--multihost] [--coordinator HOST:PORT
         --num_processes N --process_id I]
 
-    torchrun --nproc_per_node N -m dfc_sa_unet_torch.train --config CFG --data_parallel
+    torchrun --nproc_per_node N -m dfc_sa_unet_torch.train --config CFG --data_parallel \\
+        [--grad_accum 2 [--grad_accum_exact]]
 
 Trains any of the factory's twelve models (``--remat`` reaches the flagship
 and the transformers only, as in the JAX package; ``UNet_FullResAttention``
@@ -24,10 +25,15 @@ whole batch.  ``--multihost`` or ``--coordinator`` forms the group from
 explicit ``--num_processes`` / ``--process_id``.  Without torchrun
 ``--data_parallel`` trains on one card.  The YAML's ``training:`` section
 may set ``data_parallel``, ``multihost`` and ``bf16``; flags win both ways.
-Not taken yet (ROADMAP.md, Queue A 4): ``--spatial_parallel`` above 1,
-``--grad_accum`` above 1 with a group, ``--exe_cache`` and
-``--grad_accum_exact``; nor ``--use_pallas`` / ``--no_pallas``: on the card
-the attention kernels always run.
+``--grad_accum N`` splits each batch into N microbatches (under a group, each
+process loads its share of every microbatch); ``--grad_accum_exact`` takes one
+loss over all of them, which for the Dice and Tversky terms is the whole
+batch's loss (the flagship's B=128 on one H100: ``--grad_accum 2
+--grad_accum_exact``).  ``--exe_cache DIR`` builds and loads the CUDA kernels
+in DIR (the nvcc libraries are the port's only compiled artifacts).
+Not taken yet (ROADMAP.md, Queue A 4): ``--spatial_parallel`` above 1; nor
+``--use_pallas`` / ``--no_pallas``: on the card the attention kernels always
+run.
 """
 
 import argparse
@@ -65,6 +71,13 @@ def parse_args(argv=None):
                         help="split each batch into N sequential microbatches and apply one averaged update; "
                              "batch-coupled losses are computed per microbatch and averaged, and BatchNorm "
                              "statistics thread through the microbatches")
+    parser.add_argument("--grad_accum_exact", action="store_true",
+                        help="with --grad_accum: one loss (and gradient) over the whole batch, the monolithic "
+                             "batch's for the batch-coupled dice/tversky/joint sums, at one more forward per "
+                             "microbatch (rematerialised). YAML: training.grad_accum_exact")
+    parser.add_argument("--exe_cache", type=str, default=None,
+                        help="directory the CUDA kernels are built in and loaded from (a warm directory skips "
+                             "the nvcc build). YAML: training.exe_cache_dir")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default: cuda:LOCAL_RANK under torchrun; raises when CUDA is absent), "
                              "cuda:I or cpu")
@@ -95,7 +108,9 @@ def build_trainer(config, args, mesh=None):
         train_loader, val_loader = factory.get_train_loader(), factory.get_val_loader()
     else:
         shard = (mesh.rank, mesh.world_size)
-        train_loader, val_loader = factory.get_train_loader(drop_last=True, shard=shard), factory.get_val_loader(shard)
+        train_loader = factory.get_train_loader(drop_last=True, shard=shard,
+                                                microbatches=int(config["training"].get("grad_accum", 1)))
+        val_loader = factory.get_val_loader(shard)
     return Trainer(model, train_loader, val_loader, config, mesh=mesh, seed=args.seed, compute_dtype=dtype,
                    device=device)
 
@@ -105,6 +120,10 @@ def main(argv=None):
     config = load_config(args.config)
     if args.grad_accum:
         config["training"]["grad_accum"] = args.grad_accum
+    if args.grad_accum_exact:
+        config["training"]["grad_accum_exact"] = True
+    if args.exe_cache:
+        config["training"]["exe_cache_dir"] = args.exe_cache
     apply_overrides(config, args.loss, args.alpha, args.beta, args.weight_bce, args.weight_dice,
                     args.bce_weight, args.dice_weight, args.contour_weight, args.augmentation)
     merge_parallel_flags(args, config, sections=("training",))

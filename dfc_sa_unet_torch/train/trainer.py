@@ -9,7 +9,13 @@ Kept from the JAX trainer (reference utils/trainer.py:105-461):
     is left out of the epoch's means;
   * gradient clip at global norm 1.0, SGD with momentum and weight decay;
   * ``grad_accum``: sequential microbatches, BatchNorm statistics thread
-    through them, their losses are averaged, one update;
+    through them, their losses are averaged, one update; with
+    ``grad_accum_exact`` one loss over the probabilities of every
+    microbatch (the monolithic batch's loss for the batch-coupled Dice and
+    Tversky sums), each microbatch's forward rematerialised in the backward
+    (``ops/dropout.py::remat_call``: 2 forwards and 1 backward a
+    microbatch, the memory of one microbatch's graph); a batch that
+    ``grad_accum`` does not divide runs as one monolithic step;
   * validation each epoch with the best and worst K samples by Dice;
   * best model = highest validation Dice; periodic and best checkpoints;
   * loss/Dice/IoU plots and CSVs each epoch, per-epoch sample dumps;
@@ -22,10 +28,18 @@ Kept from the JAX trainer (reference utils/trainer.py:105-461):
     and the loss over the global batch (parallel/spmd.py), the gradients
     averaged in one flat all-reduce a step, then the clip, the
     finiteness check and the update, identical on every process; the
-    result equals the single-device step on the global batch.  A train
-    batch that does not divide runs whole on every process with every
-    collective off; a padded eval batch masks its padding
-    (``sample_mask``).  Only the primary process writes files.
+    result equals the single-device step on the global batch.  With
+    ``grad_accum`` > 1 the loader hands each process its share of every
+    global microbatch (``BatchLoader(microbatches=...)``), so microbatch m
+    is the single-device microbatch m split across the processes, as in
+    JAX.  A train batch that does not divide (or whose microbatch does
+    not) runs whole on every process with every collective off; a padded
+    eval batch masks its padding (``sample_mask``).  Only the primary
+    process writes files;
+  * ``exe_cache_dir`` is where the hand-written CUDA kernels are built and
+    loaded from (``ops/_build.py::set_build_dir``): eager PyTorch compiles
+    nothing per shape, so the nvcc libraries are the only compiled
+    artifacts to cache.
 
 The state lives in the trainer (the module, the optimiser, ``step``), where
 the JAX trainer threads a TrainState through pure functions.  Optional bf16
@@ -35,9 +49,7 @@ compute keeps f32 parameters and an f32 loss.  Dropout masks depend on
 parallelism the rank is folded in as well, so processes drop different
 units (as JAX's explicit SPMD step does).
 
-Not ported yet, each raising with a pointer to ROADMAP.md: row (spatial)
-sharding, ``grad_accum`` > 1 under data parallelism, ``grad_accum_exact``
-and ``exe_cache_dir``.
+Not ported yet, raising with a pointer to ROADMAP.md: row (spatial) sharding.
 """
 
 import contextlib
@@ -58,7 +70,8 @@ from dfc_sa_unet_torch.data.normalize import normalize
 from dfc_sa_unet_torch.losses import compute_loss
 from dfc_sa_unet_torch.metrics import hard_dice_iou, per_sample_hard_dice_iou
 from dfc_sa_unet_torch.nn.layers import bn_cross_replica
-from dfc_sa_unet_torch.ops.dropout import set_dropout_generator
+from dfc_sa_unet_torch.ops import _build
+from dfc_sa_unet_torch.ops.dropout import remat_call, set_dropout_generator
 from dfc_sa_unet_torch.parallel import multihost as mh, spmd
 from dfc_sa_unet_torch.parallel.mesh import ROW_SHARDING
 from dfc_sa_unet_torch.train import optim
@@ -70,10 +83,6 @@ HISTORY_KEYS = (
     "train_losses", "val_losses", "train_dice_scores", "val_dice_scores",
     "train_iou_scores", "val_iou_scores",
 )
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to dfc_sa_unet_torch yet (see ROADMAP.md, Queue A 4)")
 
 
 def _step_seed(seed: int, step: int) -> int:
@@ -107,16 +116,18 @@ class Trainer:
         self.rank, self.world = (mesh.rank, mesh.world_size) if self.data_parallel else (0, 1)
         self.is_primary = self.rank == 0
         tr = config["training"]
-        if tr.get("exe_cache_dir"):
-            _not_ported("training.exe_cache_dir")
-        if tr.get("grad_accum_exact"):
-            _not_ported("training.grad_accum_exact")
         if int(tr.get("spatial_parallel", 1) or 1) > 1:
             raise NotImplementedError(f"training.spatial_parallel: {ROW_SHARDING}")
-        if self.data_parallel and int(tr.get("grad_accum", 1)) > 1:
+        self.grad_accum = int(tr.get("grad_accum", 1))
+        self.grad_accum_exact = bool(tr.get("grad_accum_exact", False))
+        if (self.data_parallel and self.grad_accum > 1 and getattr(train_loader, "shard", None) is not None
+                and getattr(train_loader, "microbatches", 1) != self.grad_accum):
             # JAX's microbatch m under a mesh is the single-device microbatch m split across the
             # processes; a process splitting its own chunk would put other rows in each BatchNorm batch
-            _not_ported("training.grad_accum > 1 under data parallelism")
+            raise ValueError(f"training.grad_accum {self.grad_accum} under data parallelism needs a train loader "
+                             f"built with microbatches={self.grad_accum}")
+        if tr.get("exe_cache_dir"):
+            _build.set_build_dir(tr["exe_cache_dir"])
         self.model = model.to(self.device, memory_format=torch.channels_last)
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -126,7 +137,6 @@ class Trainer:
 
         self.num_epochs = tr["num_epochs"]
         self.save_checkpoint_freq = tr.get("save_checkpoint_freq", 100)
-        self.grad_accum = int(tr.get("grad_accum", 1))
         loss_cfg = tr.get("loss", {}) or {}
         self.loss_type = loss_cfg.get("type", "dice")
         self.loss_params = dict(loss_cfg.get("params", {}) or {})
@@ -157,6 +167,7 @@ class Trainer:
         self.start_time = time.time()
         self._stop_requested = threading.Event()
         self._input_bound_warned = False
+        self._warned_accum_replicated = False
         self.last_epoch_timer, self.last_epoch_applied = None, 0  # of the newest train_epoch
 
     # ---------------------------------------------------------------- steps
@@ -167,9 +178,13 @@ class Trainer:
         x = normalize(images_u8, self.compute_dtype).permute(0, 3, 1, 2)
         return x, binarize_mask(masks_u8)
 
+    def _probs(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(self.model(x).float())
+
     def train_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor, replicated: bool = False) -> dict:
-        """One update from one uint8 batch on the device: this process's chunk of the global
-        batch under data parallelism, or the whole batch on every process when ``replicated``.
+        """One update from one uint8 batch on the device: this process's share of the global
+        batch under data parallelism (with ``grad_accum`` > 1, its share of each microbatch in
+        turn), or the whole batch on every process when ``replicated``.
         Returns Python numbers: loss, iou, dice, and ``finite`` (False: the step was skipped)."""
         self.model.train()
         x, t = self._inputs(images_u8, masks_u8)
@@ -180,17 +195,33 @@ class Trainer:
         self.optimizer.zero_grad()
         bsz = x.shape[0]
         accum = self.grad_accum if self.grad_accum > 1 and bsz % self.grad_accum == 0 else 1
+        if self.data_parallel and replicated and accum > 1 and (bsz // accum) % self.world:
+            if not self._warned_accum_replicated and self.is_primary:
+                print(f"Warning: microbatch {bsz}//{accum} does not divide the data axis ({self.world}); running "
+                      f"the grad-accum loop fully replicated for exactness (all parallel speedup lost) — pick "
+                      f"grad_accum/batch so (B/accum) % data == 0")
+            self._warned_accum_replicated = True
         loss_fn = spmd.global_loss if collective else compute_loss
-        losses, probs = [], []
         with bn_cross_replica() if collective else contextlib.nullcontext():
-            for xi, ti in zip(x.chunk(accum), t.chunk(accum)):
-                p = torch.sigmoid(self.model(xi).float())
-                loss_i = loss_fn(p, ti, self.loss_type, self.loss_params)
-                (loss_i / accum).backward()
-                losses.append(loss_i.detach())
-                probs.append(p.detach())
-        loss = torch.stack(losses).mean()
-        probs = torch.cat(probs)
+            if accum > 1 and self.grad_accum_exact:
+                # one loss over the whole batch's probabilities; each microbatch's forward runs again
+                # in the backward (with the same dropout masks and BatchNorm statistics left alone),
+                # so only one microbatch's graph is held at a time.  Under data parallelism every
+                # process reaches the recomputations, and their collectives, in the same order.
+                probs = torch.cat([remat_call(self._probs, xi, generator=self.generator) for xi in x.chunk(accum)])
+                loss = loss_fn(probs, t, self.loss_type, self.loss_params)
+                loss.backward()
+                loss, probs = loss.detach(), probs.detach()
+            else:
+                losses, probs = [], []
+                for xi, ti in zip(x.chunk(accum), t.chunk(accum)):
+                    p = self._probs(xi)
+                    loss_i = loss_fn(p, ti, self.loss_type, self.loss_params)
+                    (loss_i / accum).backward()
+                    losses.append(loss_i.detach())
+                    probs.append(p.detach())
+                loss = torch.stack(losses).mean()
+                probs = torch.cat(probs)
         grads = [p.grad for _, p in self.optimizer.named_params if p.grad is not None]
         bad_loss = (~torch.isfinite(loss)).float().reshape(1)
         if self.data_parallel:

@@ -24,8 +24,8 @@ if ROOT not in sys.path:
 INIT_TIMEOUT_S = 60    # the group's rendezvous and every collective
 PROCESS_TIMEOUT_S = 120
 
-# (model, loss, loss params, training samples, batch, image side); every case validates on 5 samples
-# in one batch, so that under 2 processes the second holds a padding row
+# (model, loss, loss params, training samples, batch, image side[, training settings]); every case
+# validates on 5 samples in one batch, so that under 2 processes the second holds a padding row
 # the widths of tests/test_parallel_fast.py doubled: at C = 4 the query and key convs have C // 8 = 0
 # channels, which torch's conv refuses
 FLAGSHIP = {"name": "DFC-SA-Res-Block", "features": [8, 16, 24, 32], "pool_size": 1}
@@ -40,7 +40,16 @@ CASES = {
     "flagship": (FLAGSHIP, *BCE_DICE, 16, 8, 16),      # two steps: the second carries momentum
     "replicated": ("mini", *BCE_DICE, 5, 5, 16),       # 5 rows over 2 processes: run whole on each
     "vit_dropout": (VIT, *BCE_DICE, 8, 8, 32),
+    # grad_accum 2: microbatches of 4, 2 rows of each a process (BatchLoader(microbatches=2))
+    "mini_dice_accum2": ("mini", "dice", {}, 16, 8, 16, {"grad_accum": 2}),
+    "mini_dice_exact2": ("mini", "dice", {}, 16, 8, 16, {"grad_accum": 2, "grad_accum_exact": True}),
+    "flagship_exact2": (FLAGSHIP, *BCE_DICE, 16, 8, 16, {"grad_accum": 2, "grad_accum_exact": True}),
+    # tests/test_grad_accum.py:220's exact step: batch 16, microbatches of 8 (JAX: over its 8 devices)
+    "mini_dice_exact16": ("mini", "dice", {}, 16, 16, 16, {"grad_accum": 2, "grad_accum_exact": True}),
+    # microbatches of 3 do not divide among 2 processes: every batch whole on each, with a warning
+    "accum_replicated": ("mini", *BCE_DICE, 12, 6, 16, {"grad_accum": 2}),
 }
+ACCUM_WARNING = "does not divide the data axis"
 VAL_SAMPLES = 5
 
 
@@ -71,10 +80,10 @@ def val_samples(side):
     return list(samples(n=VAL_SAMPLES, size=side, seed=6))
 
 
-def config(log_dir, model, loss, params, batch, side):
+def config(log_dir, model, loss, params, batch, side, training=None):
     return {"training": {"num_epochs": 1, "batch_size": batch, "learning_rate": 0.01, "momentum": 0.9,
                          "weight_decay": 1e-4, "num_workers": 1, "save_checkpoint_freq": 100,
-                         "loss": {"type": loss, "params": dict(params)}},
+                         "loss": {"type": loss, "params": dict(params)}, **(training or {})},
             "model": {"name": "MiniNet"} if model == "mini" else dict(model),
             "dataset": {"img_size": [side, side], "augmentation": False},
             "logging": {"log_dir": log_dir, "images_dir": log_dir + "/images",
@@ -96,14 +105,18 @@ def run_case(name, mesh, log_dir, state_dict=None, items=None):
     process when it is None).  ``state_dict`` and ``items`` (training samples) replace the seeded
     weights and the synthetic data.  Returns numpy arrays: the state dict after the epoch
     (``sd/<key>``), the epoch's and the validation's loss, IoU and Dice, the validation's
-    per-sample Dice and IoU in name order, and the last step's dropout seed."""
+    per-sample Dice and IoU in name order, the last step's dropout seed and the count of the
+    replicated-microbatch warnings the epoch printed."""
+    import contextlib
+    import io
+
     from dfc_sa_unet_torch.data.dataset import ArrayDataset
     from dfc_sa_unet_torch.data.loader import BatchLoader
     from dfc_sa_unet_torch.data.synthetic import samples
     from dfc_sa_unet_torch.train.trainer import Trainer
 
-    model, loss, params, n_train, batch, side = CASES[name]
-    cfg = config(log_dir, model, loss, params, batch, side)
+    model, loss, params, n_train, batch, side, *training = CASES[name]
+    cfg = config(log_dir, model, loss, params, batch, side, *training)
     net = build_model(model)
     if state_dict is not None:
         net.load_state_dict(state_dict, strict=True)
@@ -111,7 +124,7 @@ def run_case(name, mesh, log_dir, state_dict=None, items=None):
     val_items = val_samples(side)
     shard = None if mesh is None or mesh.group is None else (mesh.rank, mesh.world_size)
     train = BatchLoader(ArrayDataset(items), batch, shuffle=True, num_workers=1, seed=0, shard=shard,
-                        partial="replicate")
+                        partial="replicate", microbatches=cfg["training"].get("grad_accum", 1))
     val = BatchLoader(ArrayDataset(val_items), VAL_SAMPLES, shuffle=False, num_workers=1, seed=0, shard=shard,
                       partial="pad")
     trainer = Trainer(net, train, val, cfg, mesh=mesh, seed=3, device="cpu", progress=False)
@@ -124,13 +137,17 @@ def run_case(name, mesh, log_dir, state_dict=None, items=None):
         return out
 
     trainer.train_step = logged
-    tr_loss, tr_iou, tr_dice = trainer.train_epoch(0)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        tr_loss, tr_iou, tr_dice = trainer.train_epoch(0)
+    print(printed.getvalue(), end="")
     v = trainer.validate_epoch()
     records = sorted(v["best_samples"], key=lambda r: r[2])
     out = {f"sd/{k}": t.detach().numpy().copy() for k, t in trainer.model.state_dict().items()}
     out.update(train=np.array([tr_loss, tr_iou, tr_dice]), val=np.array([v["loss"], v["iou"], v["dice"]]),
                val_dice=np.array([r[0] for r in records]), val_iou=np.array([r[1] for r in records]),
-               val_names=np.array([r[2] for r in records]), seed=np.array(seeds[-1], np.uint64))
+               val_names=np.array([r[2] for r in records]), seed=np.array(seeds[-1], np.uint64),
+               accum_warnings=np.array(printed.getvalue().count(ACCUM_WARNING)))
     return out
 
 

@@ -155,9 +155,9 @@ def run_both_trainers(cfg, model, jmodel, image_hw, batches):
     return steps, init
 
 
-def assert_step_matches(tm, jm, port_sd, jax_sd, init):
+def assert_step_matches(tm, jm, port_sd, jax_sd, init, updates=True):
     """Loss, IoU, Dice 1e-5; parameter updates |d_port - d_jax| <= 1e-3 max|d_jax| + 1e-7 per
-    tensor; BatchNorm running statistics 1e-5."""
+    tensor (unless ``updates`` is False); BatchNorm running statistics 1e-5."""
     assert tm["finite"] and jm["finite"]
     for k in ("loss", "iou", "dice"):
         assert abs(tm[k] - jm[k]) <= 1e-5 * max(1.0, abs(jm[k])), (k, tm[k], jm[k])
@@ -168,9 +168,22 @@ def assert_step_matches(tm, jm, port_sd, jax_sd, init):
         if name.endswith(("running_mean", "running_var")):
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * max(1.0, np.abs(want).max()), err_msg=name)
             continue
+        if not updates:
+            continue
         d_jax, d_port = want - init[name], got - init[name]
         tol = 1e-3 * np.abs(d_jax).max() + 1e-7
         assert np.abs(d_port - d_jax).max() <= tol, (name, np.abs(d_port - d_jax).max(), tol)
+
+
+def update_disagreement(port_sd, jax_sd, init):
+    """The largest, over the parameter tensors, of max|d_port - d_jax| / max|d_jax| (d: the update)."""
+    worst = 0.0
+    for name, want in jax_sd.items():
+        if name.endswith(("num_batches_tracked", "running_mean", "running_var")):
+            continue
+        d_jax, d_port = want - init[name], port_sd[name] - init[name]
+        worst = max(worst, float(np.abs(d_port - d_jax).max() / max(np.abs(d_jax).max(), 1e-30)))
+    return worst
 
 
 def train_on_synthetic(tmp_path, model, model_cfg, size, epochs, lr):

@@ -176,7 +176,8 @@ def test_zoo_entry_points_raise_without_cuda(no_cuda, tmp_path, name):
 def test_probe_scripts_raise_without_cuda():
     """The probe and profile scripts measure on the card only."""
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": str(ROOT)}
-    for script in ("bench_torch_mxu.py", "bench_torch_bn_stats.py", "bench_torch_pooled_attention.py"):
+    for script in ("bench_torch_mxu.py", "bench_torch_bn_stats.py", "bench_torch_pooled_attention.py",
+                   "bench_torch_predictor_batch.py"):
         out = subprocess.run([sys.executable, str(ROOT / "scripts" / script)], cwd=ROOT, env=env,
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0, script

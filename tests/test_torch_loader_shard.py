@@ -4,7 +4,10 @@
 ``DataLoaderFactory`` over the same image files.  Seven 16x16 images in batches of 4: a batch
 that divides among 2 processes, one that does not (3 rows), and among 3 processes a batch of 4
 in which the third process holds padding only; pad multiples 1 and 2; the train loader
-(``partial='replicate'``, shuffled) and the validation loader (``partial='pad'``)."""
+(``partial='replicate'``, shuffled) and the validation loader (``partial='pad'``).  Then the
+port's own ``microbatches=k`` layout for ``grad_accum`` under data parallelism, against the unsharded
+loader's batches: each process's share of every microbatch, a microbatch that does not divide, and a
+batch that k does not divide."""
 
 import numpy as np
 import pytest
@@ -60,3 +63,61 @@ def test_shards_equal_the_jax_loaders(cfg, kind, nproc, multiple):
             assert batches[uneven].get("replicated")
     if kind == "val" and nproc == 3:
         assert seen[2][0]["filename"] == [] and not seen[2][0]["valid"].any()
+
+
+def _loader_batches(items, g, shard=None, k=1):
+    from dfc_sa_unet_torch.data.dataset import ArrayDataset
+    from dfc_sa_unet_torch.data.loader import BatchLoader
+
+    loader = BatchLoader(ArrayDataset(items), g, shuffle=True, num_workers=1, seed=4, shard=shard,
+                         partial="replicate", microbatches=k)
+    loader.set_epoch(1)
+    return list(loader)
+
+
+@pytest.mark.parametrize("g,k,nproc", [(8, 2, 2), (12, 3, 2), (16, 2, 4)])
+def test_microbatch_shards_reassemble_every_global_microbatch(g, k, nproc):
+    """``microbatches=k``: process r's rows, cut into k pieces, are its share of each global microbatch,
+    so the pieces of every process, in rank order, give back microbatch m of the unsharded batch."""
+    from dfc_sa_unet_torch.data.synthetic import samples
+
+    items = list(samples(n=2 * g, size=8, seed=3))
+    whole = _loader_batches(items, g)
+    ranks = [_loader_batches(items, g, (r, nproc), k) for r in range(nproc)]
+    mb = g // k
+    for b, want in enumerate(whole):
+        for r in range(nproc):
+            got = ranks[r][b]
+            assert not got.get("replicated") and "valid" not in got
+            assert got["filename_global"] == want["filename"] and got["image"].shape[0] == g // nproc
+        for m in range(k):
+            names = [n for r in range(nproc) for n in np.array_split(np.array(ranks[r][b]["filename"]), k)[m]]
+            images = np.concatenate([np.array_split(ranks[r][b]["image"].numpy(), k)[m] for r in range(nproc)])
+            assert names == want["filename"][m * mb:(m + 1) * mb]
+            assert np.array_equal(images, want["image"][m * mb:(m + 1) * mb].numpy())
+
+
+def test_microbatch_that_does_not_divide_loads_the_batch_on_every_process():
+    """g 6, k 2, 2 processes: a microbatch of 3 rows does not divide, so each process loads the whole
+    batch, marked ``replicated`` (the trainer then runs it with every collective off)."""
+    from dfc_sa_unet_torch.data.synthetic import samples
+
+    items = list(samples(n=6, size=8, seed=3))
+    whole = _loader_batches(items, 6)[0]
+    for r in range(2):
+        got = _loader_batches(items, 6, (r, 2), 2)[0]
+        assert got["replicated"] and got["filename"] == whole["filename"] == got["filename_global"]
+        assert np.array_equal(got["image"].numpy(), whole["image"].numpy())
+
+
+def test_batch_that_the_microbatch_count_does_not_divide_keeps_the_contiguous_layout():
+    """g 8, k 3: the trainer runs the batch as one step, so each process takes its contiguous chunk, as
+    without ``microbatches``."""
+    from dfc_sa_unet_torch.data.synthetic import samples
+
+    items = list(samples(n=8, size=8, seed=3))
+    for r in range(2):
+        got = _loader_batches(items, 8, (r, 2), 3)[0]
+        plain = _loader_batches(items, 8, (r, 2))[0]
+        assert got["filename"] == plain["filename"] and not got.get("replicated")
+        assert np.array_equal(got["image"].numpy(), plain["image"].numpy())

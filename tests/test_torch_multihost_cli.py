@@ -1,8 +1,9 @@
 """The port's CLIs as 2 processes on the CPU (``python -m torch.distributed.run --standalone
 --nproc_per_node 2 ... --data_parallel --device cpu``: Gloo, each run under a hard time limit).
 
-* Serving: every process serves ``files[rank::2]`` and the primary merges the rows; the merged
-  CSV equals the single-process run's, row for row in its order, metrics within 1e-6.
+* Serving, on the module path, ``--engine``, ``--int8`` and ``--int8 --tta``: every process
+  serves ``files[rank::2]`` and the primary merges the rows; the merged CSV equals the
+  single-process run's, row for row in its order, metrics within 1e-6.
 * Training: one epoch of the tiny flagship over 8 synthetic 32x32 images in batches of 4 (two
   rows a process), then a second run resuming from the epoch-1 checkpoint for epoch 2.  Only the
   primary writes and reports (rank 1's output holds no epoch line), and the resumed run's
@@ -17,6 +18,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 from dfc_sa_unet_torch import inference
@@ -77,13 +79,25 @@ def _read_csv(path):
 
 
 def test_two_process_serving_writes_the_single_process_csv(tmp_path):
+    _serve_with_one_and_two_processes(tmp_path, [])
+
+
+@pytest.mark.parametrize("flags", [["--engine"], ["--int8"], ["--int8", "--tta"]], ids=["engine", "int8", "int8_tta"])
+def test_two_process_serving_of_the_engines_writes_the_single_process_csv(tmp_path, flags):
+    """The folded engine and the int8 engine (each process calibrates on the first 8 files of the
+    global list, so both hold the same scales), with and without TTA."""
+    _serve_with_one_and_two_processes(tmp_path, flags)
+
+
+def _serve_with_one_and_two_processes(tmp_path, flags):
     cfg_path, cfg, data = _config(tmp_path)
     model = init_random_(create_model(cfg, device="cpu"), torch.Generator().manual_seed(0))
     calibrate_batch_stats_(model, normalize(torch.from_numpy(np.stack([i for _, i, _ in samples(4, 32, 9)])))
                            .permute(0, 3, 1, 2))
     weights = tmp_path / "w.pth"
     torch.save(model.state_dict(), weights)
-    common = ["--config", cfg_path, "--model", str(weights), "--input", data, "--tile_size", "32", "--overlap", "0"]
+    common = ["--config", cfg_path, "--model", str(weights), "--input", data, "--tile_size", "32", "--overlap", "0",
+              *flags]
     inference.main(inference.parse_args([*common, "--output", str(tmp_path / "one"), "--device", "cpu"]))
     outs = _two_processes("dfc_sa_unet_torch.inference", [*common, "--output", str(tmp_path / "two")],
                           tmp_path / "torchrun")

@@ -7,7 +7,10 @@ train_epoch and validate_epoch, each process on its chunk of the batch, hard tim
 Cases: the conv + BatchNorm + conv mini-net under each of the four losses (two steps of the
 flagship at features 8/16/24/32, pool 1, 16x16, with momentum on the second), a training batch
 of 5 that runs whole on both processes, and a validation batch of 5 that pads the second
-process's chunk with a zero row (every case).  Limits: loss atol 1e-5 / rtol 1e-5, parameters,
+process's chunk with a zero row (every case); ``grad_accum`` 2, the default path and the exact
+one (the mini-net under Dice, the flagship under bce_dice: the exact step's recomputations run
+BatchNorm's collectives inside the backward), each process on its share of every microbatch;
+and microbatches of 3, which do not divide among 2 processes, run replicated with one warning.  Limits: loss atol 1e-5 / rtol 1e-5, parameters,
 BatchNorm statistics and per-sample metrics atol 1e-5 / rtol 1e-4 (tests/test_parallel_fast.py:89-93).
 """
 
@@ -20,7 +23,8 @@ from dfc_sa_unet_torch.nn.layers import BatchNorm, bn_cross_replica
 from dfc_sa_unet_torch.parallel.mesh import data_parallel_mesh, local_coordinator
 
 torch.set_num_threads(2)
-EQUAL_CASES = ["mini_bce_dice", "mini_dice", "mini_tversky", "mini_joint", "flagship", "replicated"]
+EQUAL_CASES = ["mini_bce_dice", "mini_dice", "mini_tversky", "mini_joint", "flagship", "replicated",
+               "mini_dice_accum2", "mini_dice_exact2", "flagship_exact2", "accum_replicated"]
 
 
 @pytest.fixture(scope="module")
@@ -60,6 +64,18 @@ def test_replicated_batch_runs_without_the_rank_in_the_dropout_seed(group):
     assert int(rep[0]["seed"]) == int(rep[1]["seed"])
     sharded = results["mini_bce_dice"]
     assert int(sharded[0]["seed"]) != int(sharded[1]["seed"])
+
+
+def test_undivided_microbatch_runs_replicated_with_one_warning(group):
+    """Batch 6 at grad_accum 2 on 2 processes: a microbatch of 3 does not divide, so every batch runs
+    whole on each process with every collective off (the single-process dropout seed), and the primary
+    warns once in JAX's words over the epoch's two steps (tests/test_parallel_fast.py:469 (b))."""
+    results, _ = group
+    r0, r1 = results["accum_replicated"]
+    assert int(r0["accum_warnings"]) == 1 and int(r1["accum_warnings"]) == 0
+    assert int(r0["seed"]) == int(r1["seed"])
+    for case in ("mini_dice_accum2", "mini_dice_exact2"):
+        assert all(int(r["accum_warnings"]) == 0 for r in results[case]), case
 
 
 def test_vit_dropout_differs_between_processes_and_repeats(group):

@@ -3,8 +3,10 @@
 JAX: the conv + BatchNorm + conv mini-net of tests/test_parallel_fast.py:45-66 through its
 Trainer over the 8 virtual CPU devices (``parallel.data_parallel_mesh()``, GSPMD).  The port: the
 same weights, converted by ``utils.weights.from_jax_variables``, and the same batch through its
-Trainer in a group of 2 Gloo processes (``_torch_dp_worker``), for each of the four losses and a
-batch of 5 rows that divides neither group (both run it replicated).  Loss, updated parameters
+Trainer in a group of 2 Gloo processes (``_torch_dp_worker``), for each of the four losses, a
+batch of 5 rows that divides neither group (both run it replicated), and the exact accumulation
+step of tests/test_grad_accum.py:220 (batch 16, ``grad_accum`` 2, ``grad_accum_exact``, Dice: JAX's
+microbatch of 8 over its 8 devices, the port's 4 rows of each microbatch a process).  Loss, updated parameters
 and BatchNorm statistics within atol 1e-5 / rtol 1e-4 (the loss rtol 1e-5).  After the step both
 evaluate 5 validation samples padded to the group (JAX: to 8 rows with a ``valid`` mask; the
 port: 3 rows a process, the last one padding), whose loss, hard IoU and Dice and per-sample
@@ -24,11 +26,13 @@ import _torch_dp_worker as worker
 from _torch_port import uint8_batches
 from dfc_sa_unet_tpu.parallel import data_parallel_mesh
 from dfc_sa_unet_tpu.train.trainer import Trainer as JaxTrainer
+from dfc_sa_unet_torch.data.dataset import ArrayDataset
+from dfc_sa_unet_torch.data.loader import BatchLoader
 from dfc_sa_unet_torch.utils.weights import from_jax_variables
 
 torch.set_num_threads(2)
 
-CASES = ["mini_bce_dice", "mini_dice", "mini_tversky", "mini_joint", "replicated"]
+CASES = ["mini_bce_dice", "mini_dice", "mini_tversky", "mini_joint", "replicated", "mini_dice_exact16"]
 
 
 def _jax_mini_net():
@@ -50,9 +54,14 @@ def _jax_mini_net():
 def _jax_case(case, log_dir):
     """The JAX sharded step of ``case`` and its padded eval after it.  Returns (the JAX results,
     the port's inputs: the starting state dict and the training items)."""
-    model, loss, params, n, batch, side = worker.CASES[case]
-    cfg = worker.config(log_dir, model, loss, params, batch, side)
+    model, loss, params, n, batch, side, *training = worker.CASES[case]
+    cfg = worker.config(log_dir, model, loss, params, batch, side, *training)
     img, mask = uint8_batches(4, 1, n, (side, side))[0]
+    items = [(f"s{i:02d}", img[i], mask[i]) for i in range(n)]
+    # the port's loader shuffles the epoch's one batch; JAX takes its rows in the same order, which
+    # decides the microbatches under grad_accum
+    first = next(iter(BatchLoader(ArrayDataset(items), batch, shuffle=True, num_workers=1, seed=0)))
+    img, mask = first["image"].numpy(), first["mask"].numpy()
 
     jmodel = _jax_mini_net()
     variables = jmodel.init(jax.random.key(1), jnp.zeros((1, side, side, 3), jnp.float32), train=False)
@@ -76,7 +85,6 @@ def _jax_case(case, log_dir):
                "val": np.array([float(em["loss"]), float(em["iou"]), float(em["dice"])]),
                "val_dice": np.asarray(em["per_sample_dice"])[:len(names)],
                "val_iou": np.asarray(em["per_sample_iou"])[:len(names)]}
-    items = [(f"s{i:02d}", img[i], mask[i]) for i in range(n)]
     return jax_out, (start, items)
 
 
@@ -96,11 +104,12 @@ def runs(tmp_path_factory):
 @pytest.mark.parametrize("case", CASES)
 def test_two_process_step_matches_the_jax_sharded_step(runs, case):
     want, results = runs[case]
+    accum = worker.CASES[case][6]["grad_accum"] if len(worker.CASES[case]) > 6 else 1
     for rank, got in enumerate(results):
         np.testing.assert_allclose(got["train"][0], want["loss"], atol=1e-5, rtol=1e-5, err_msg=f"rank {rank}")
         for k, v in want["state"].items():
             if k.endswith("num_batches_tracked"):
-                assert int(got[f"sd/{k}"]) == 1, k
+                assert int(got[f"sd/{k}"]) == accum, k  # once a microbatch
                 continue
             np.testing.assert_allclose(got[f"sd/{k}"], v.numpy(), atol=1e-5, rtol=1e-4, err_msg=f"rank {rank} {k}")
 

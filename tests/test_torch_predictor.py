@@ -51,13 +51,25 @@ def test_stream_equals_per_image_sliding(predictors):
 
 
 def test_predict_probs_batch_policy(predictors):
-    """Batches of 64-127 pad to 128 and >128 run in chunks; results are per-image."""
+    """Batches of every size run as they are (above 128 and 64-127 too); results are per-image."""
     port, _ = predictors
     batch = np.stack([_image(10 + i, 16, 16) for i in range(130)])
     probs = port.predict_probs(batch)
     assert probs.shape == (130, 16, 16) and np.isfinite(probs).all()
     np.testing.assert_allclose(probs[70], port.predict_single(batch[70]), atol=1e-6)
     np.testing.assert_allclose(port.predict_probs(batch[:70])[3], probs[3], atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [70, 150])
+def test_predict_probs_equals_each_images_own_forward(predictors, n):
+    """Whatever the batch policy (a pad to 128, chunks of 128, or the batch as it is), every image's
+    probabilities are those of its own forward: f32, within 1e-6."""
+    port, _ = predictors
+    batch = np.stack([_image(300 + i, 16, 16) for i in range(n)])
+    probs = port.predict_probs(batch)
+    assert probs.shape == (n, 16, 16)
+    own = np.stack([port._forward_u8(batch[i:i + 1])[0] for i in range(n)])
+    np.testing.assert_allclose(probs, own, rtol=0, atol=1e-6)
 
 
 def test_engine_predictor_matches_module_predictor(predictors):

@@ -234,19 +234,33 @@ def test_unknown_remat_and_unported_options_raise(tmp_path):
     model = create_model({"model": SMALL}, device="cpu", remat="some")
     with pytest.raises(ValueError, match="remat"):
         model(torch.zeros(1, 3, 32, 32))
-    for key, value in (("grad_accum_exact", True), ("exe_cache_dir", "x"), ("spatial_parallel", 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A 4"):
-            Trainer(port_model(SMALL), None, None, train_config(tmp_path, **{key: value}), device="cpu")
-    # data_parallel in the YAML is the CLI's to act on; the Trainer takes its mesh
-    Trainer(port_model(SMALL), None, None, train_config(tmp_path, data_parallel=True), device="cpu")
+    # row sharding is the one option still to port
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A 4: row sharding"):
+        Trainer(port_model(SMALL), None, None, train_config(tmp_path, spatial_parallel=2), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A 4: row sharding"):
         serving_mesh(spatial=2)
-    # grad_accum > 1 under a group (here of one process) is not ported yet
+    # ported since: exact accumulation and the kernels' build directory construct
+    from dfc_sa_unet_torch.ops import _build
+
+    build_dir = _build.BUILD_DIR
+    try:
+        exact = Trainer(port_model(SMALL), None, None, train_config(tmp_path, grad_accum=2, grad_accum_exact=True),
+                        device="cpu")
+        assert exact.grad_accum == 2 and exact.grad_accum_exact
+        Trainer(port_model(SMALL), None, None, train_config(tmp_path, exe_cache_dir=str(tmp_path / "x")), device="cpu")
+        assert _build.BUILD_DIR == (tmp_path / "x").resolve()
+    finally:
+        _build.BUILD_DIR = build_dir
+    # data_parallel in the YAML is the CLI's to act on; the Trainer takes its mesh
+    Trainer(port_model(SMALL), None, None, train_config(tmp_path, data_parallel=True), device="cpu")
+    # grad_accum > 1 under a group (here of one process) constructs too
     mesh = data_parallel_mesh("cpu", coordinator=local_coordinator(), num_processes=1, process_id=0, timeout_s=60)
     try:
         assert mesh.group is not None and mesh.backend == "gloo"
-        with pytest.raises(NotImplementedError, match="grad_accum > 1 under data parallelism.*Queue A 4"):
-            Trainer(port_model(SMALL), None, None, train_config(tmp_path, grad_accum=2), mesh=mesh, device="cpu")
+        for exact in (False, True):
+            dp = Trainer(port_model(SMALL), None, None, train_config(tmp_path, grad_accum=2, grad_accum_exact=exact),
+                         mesh=mesh, device="cpu")
+            assert dp.data_parallel and dp.grad_accum == 2 and dp.grad_accum_exact == exact
     finally:
         mesh.close()
 
