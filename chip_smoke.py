@@ -10,7 +10,8 @@ any failure exits non-zero:
    turn TF32 off for the f32 checks;
 2. build the CUDA kernels from dfc_sa_unet_torch/csrc; ptxas must neither
    serialize the products (C7515) nor spill in the wgmma kernels of
-   conv3x3_bn_relu, conv3x3_bias_stats, probe_matmul and conv3x3_s8;
+   conv3x3_bn_relu (its halo instantiations too), conv3x3_bias_stats,
+   probe_matmul and conv3x3_s8;
 3. hold every kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and at awkward ones, in f32 and bf16
    (pooled attention: in bf16 the tensor-core kernel at every N from 1 to
@@ -137,7 +138,23 @@ any failure exits non-zero:
    write or touch no file there, both times to the first launch printed;
    (e) 150 images through the bf16 engine's ``predict_probs`` under the
    Predictor's batch policy against the same images served natively as
-   128 + 22 (phase 5's bf16 limits).
+   128 + 22 (phase 5's bf16 limits);
+16. row sharding: (a) the tail and conv3x3 kernels' halo instantiations
+   band by band, at every level shape the engine launches them at (B=4,
+   224x224), bf16 and f32, in 2 and 4 bands and a band of one row beside one
+   of odd height, each band reading its neighbours' rows: stitched, equal
+   bit for bit to the whole image's kernel, and each band within phase 3's
+   limits of the plain version given the same rows, after a launch on NaN
+   rows; (b) one image of the largest side one process serves (2048 down to
+   512) through the bf16 engine by two processes sharing the card over Gloo
+   (this script with --rows_worker; each the Predictor over a 2-band
+   serving_mesh, a band of half the rows each, the probabilities gathered):
+   against one process at phase 5's bf16 limits and in f32 within 1e-5 of
+   max |logit|, 9 attention, 7 tail and 2 conv3x3 launches a forward on each
+   rank, each rank's peak memory and wall time beside one process's; (c) the
+   flagship's f32 training at 224x224, B=4, 2 steps, on a Gloo pair of
+   bands against one process (phase 14(b)'s limits), then with grad_accum 2
+   exact.
 
 The launch counts are set to 0 before phase 4 and read after phase 5 (the
 flagship's serving paths), and again around phase 6 (the transformers'),
@@ -146,9 +163,12 @@ around each training run of phase 8, around each of phases 9 to 12
 phase 13 (before its timed rows) and around each multi-device run of phase
 14 (the data-parallel Trainer's two runs in this process; each process of
 (b) and (c) counts its own; the single-process references are not
-counted) and of phase 15 (its runs on the card, the data-parallel ones,
+counted), of phase 15 (its runs on the card, the data-parallel ones,
 each Gloo rank's and each cache child's; not the single-device, CPU and
-native references).  The line before
+native references) and of phase 16 (each band's runs in (b) and (c); not
+(a)'s comparisons, nor the single-process references; the tail's and
+conv3x3's are their halo instantiations' and stand in the kernels line as
+``halo_launches`` too).  The line before
 the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -315,6 +335,14 @@ EXACT = {"grad_accum": ACCUM, "grad_accum_exact": True}
 ACCUM_F32_BATCH, ACCUM_DP_BATCH, ACCUM_DP_STEPS = 4, 16, 2
 POLICY_IMAGES = 150
 POLICY_FORWARDS = 1  # infer/predictor.py::Predictor.predict_probs runs a batch as it is (measured, PERF.md §4)
+# phase 16: row sharding.  (b) one image served by a Gloo pair sharing the card, each rank a band of
+# half its rows, against one process: the largest side that one process serves, a multiple of 32
+# (16 x 2 bands); (c) training on the pair at 224x224 (two bands of 112 rows) at a global batch of 4
+ROWS_SIDES = (2048, 1536, 1024, 512)
+ROWS_TRAIN_BATCH = 4
+# 16(b) in f32: the pair's logits against one process's, of max |logit|: the pool's window sums and
+# the upsample's band rows are summed in another order, and cuDNN picks its algorithm per shape
+ROWS_F32_TOL = 1e-5
 
 
 def seeded_trainer(cfg, batch, data, bf16, device, log_dir, seed, remat=False, weight_seed=None, mesh=None,
@@ -337,7 +365,7 @@ def seeded_trainer(cfg, batch, data, bf16, device, log_dir, seed, remat=False, w
               "logging": {"log_dir": log_dir, "images_dir": os.path.join(log_dir, "images")}}
     net = init_random_(create_model(config, dtype=dtype, device="cpu", remat=remat),
                        torch.Generator().manual_seed(seed if weight_seed is None else weight_seed))
-    shard = None if mesh is None else (mesh.rank, mesh.world_size)
+    shard = None if mesh is None else (mesh.data_index, mesh.data_size)  # a spatial group loads one chunk
     train = BatchLoader(ArrayDataset(data), batch, shuffle=True, num_workers=2, seed=seed, shard=shard,
                         partial="replicate", microbatches=config["training"].get("grad_accum", 1))
     val = BatchLoader(ArrayDataset(data[:2 * batch]), batch, shuffle=False, num_workers=2, seed=seed, shard=shard)
@@ -357,24 +385,25 @@ def seeded_trainer(cfg, batch, data, bf16, device, log_dir, seed, remat=False, w
 
 
 def dp_worker(args):
-    """One process of phase 14(b) (and of 15(c) with ``--dp_exact``: grad_accum 2, exact): the
-    flagship at full width, f32, one rank of a Gloo group of ``--dp_world`` processes on cuda:0,
-    DP_STEPS steps at a global batch of DP_BATCH (its share of each); saves its step log, launch
-    counts and state dict into ``--dp_out``."""
+    """One process of phase 14(b) (and of 15(c) with ``--dp_exact``: grad_accum 2, exact; of 16(c)
+    with ``--dp_spatial 2``: each rank on a band of the rows): the flagship at full width, f32, one
+    rank of a Gloo group of ``--dp_world`` processes on cuda:0, DP_STEPS steps at a global batch of
+    ``--dp_batch`` (its share of each); saves its step log, launch counts and state dict into
+    ``--dp_out``."""
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dfc_sa_unet_torch.data.synthetic import samples
     from dfc_sa_unet_torch.ops import launches, reset_launches
-    from dfc_sa_unet_torch.parallel.mesh import data_parallel_mesh
+    from dfc_sa_unet_torch.parallel.mesh import serving_mesh
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    mesh = data_parallel_mesh("cuda:0", backend="gloo", coordinator=args.dp_coordinator,
-                              num_processes=args.dp_world, process_id=args.dp_worker, timeout_s=DP_CHILD_TIMEOUT_S)
+    mesh = serving_mesh(args.dp_spatial, device="cuda:0", backend="gloo", coordinator=args.dp_coordinator,
+                        num_processes=args.dp_world, process_id=args.dp_worker, timeout_s=DP_CHILD_TIMEOUT_S)
     try:
-        data = list(samples(n=DP_STEPS * DP_BATCH, size=IMG, seed=args.seed))
-        trainer = seeded_trainer(CONFIG, DP_BATCH, data, False, mesh.device,
+        data = list(samples(n=DP_STEPS * args.dp_batch, size=IMG, seed=args.seed))
+        trainer = seeded_trainer(CONFIG, args.dp_batch, data, False, mesh.device,
                                  os.path.join(args.dp_out, f"rank{args.dp_worker}"), args.seed, mesh=mesh,
                                  training=EXACT if args.dp_exact else None)
         reset_launches()
@@ -417,24 +446,26 @@ def cache_child(args):
                       "build_dir": str(_build.BUILD_DIR), "finite": bool(np.isfinite(probs).all())}))
 
 
-def gloo_pair_against_one(seed, card, dev, tmp, label, training, run_epochs):
+def gloo_pair_against_one(seed, card, dev, tmp, label, training, run_epochs, spatial=1, batch=DP_BATCH):
     """Two processes of this script (``--dp_worker``) on this card over Gloo, the flagship in f32 at a
-    global batch of DP_BATCH for DP_STEPS steps (with ``training``'s settings: ``EXACT`` adds
-    ``--dp_exact``), against one process on the same batches (its launches not counted): losses and
-    state within phase 14(b)'s limits, and each rank's pooled-attention launches those of its steps.
-    Fails ``label`` otherwise, or when a process fails or outlives DP_CHILD_TIMEOUT_S.  Returns each
-    rank's launch counts."""
+    global batch of ``batch`` for DP_STEPS steps (with ``training``'s settings: ``EXACT`` adds
+    ``--dp_exact``; ``spatial`` 2: one data index, each rank on a band of the rows), against one
+    process on the same batches (its launches not counted): losses and state within phase 14(b)'s
+    limits, and each rank's pooled-attention launches those of its steps.  Fails ``label``
+    otherwise, or when a process fails or outlives DP_CHILD_TIMEOUT_S.  Returns each rank's launch
+    counts."""
     import torch
 
     from dfc_sa_unet_torch.data.synthetic import samples
     from dfc_sa_unet_torch.parallel.mesh import local_coordinator
 
     per_step = ACCUM_ATTENTION["exact"] if training == EXACT else 9
-    dp_out = os.path.join(tmp, "two_exact" if training == EXACT else "two")
+    dp_out = os.path.join(tmp, ("bands" if spatial > 1 else "two") + ("_exact" if training == EXACT else ""))
     os.makedirs(dp_out)
     coordinator = local_coordinator()
     children = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seed", str(seed), "--dp_worker",
                                   str(r), "--dp_world", "2", "--dp_coordinator", coordinator, "--dp_out", dp_out,
+                                  "--dp_spatial", str(spatial), "--dp_batch", str(batch),
                                   *(["--dp_exact"] if training == EXACT else [])],
                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
     try:
@@ -451,7 +482,7 @@ def gloo_pair_against_one(seed, card, dev, tmp, label, training, run_epochs):
             print(f"    rank {i}: {log[-3000:]}")
         fail(f"{label}: a process of the Gloo group failed or hung (limit {DP_CHILD_TIMEOUT_S} s); its output is above")
     ranks = [torch.load(os.path.join(dp_out, f"rank{r}.pt"), weights_only=False) for r in range(2)]
-    one = seeded_trainer(CONFIG, DP_BATCH, list(samples(n=DP_STEPS * DP_BATCH, size=IMG, seed=seed)), False, dev,
+    one = seeded_trainer(CONFIG, batch, list(samples(n=DP_STEPS * batch, size=IMG, seed=seed)), False, dev,
                          os.path.join(dp_out, "one"), seed, training=training)
     run_epochs(one, [0], "pooled_attention", per_step, f"{label}, one process")
     want_loss = [r["loss"] for r in one.step_log]
@@ -469,7 +500,8 @@ def gloo_pair_against_one(seed, card, dev, tmp, label, training, run_epochs):
     two_ms = float(np.median([s["ms"] for s in ranks[0]["step_log"][1:]]))
     one_ms = float(np.median([s["ms"] for s in one.step_log[1:]]))
     setting = f", grad_accum {ACCUM} exact" if training == EXACT else ""
-    print(f"    two processes on one card over Gloo, f32, global batch {DP_BATCH} ({DP_BATCH // 2} a process{setting}), "
+    share = f"a band of {IMG // 2} rows of every image a process" if spatial > 1 else f"{batch // 2} a process"
+    print(f"    two processes on one card over Gloo, f32, global batch {batch} ({share}{setting}), "
           f"{DP_STEPS} steps: losses {[round(s['loss'], 6) for s in ranks[0]['step_log']]} against one process's "
           f"{[round(v, 6) for v in want_loss]}; {two_ms:.1f} ms/step (rank 0, step 2) against one process's "
           f"{one_ms:.1f} ({card})", flush=True)
@@ -808,6 +840,264 @@ def accumulation_and_cache(seed, card, dev, fits, fits_ms, run_epochs):
     return path
 
 
+# ------------------------------------------------------------------ phase 16: row sharding
+
+def band_cuts(h):
+    """The bands phase 16(a) cuts an image of ``h`` rows into, as row counts: 2 and 4 bands, and a band
+    of one row beside one of odd height (the rest after them)."""
+    odd = 2 * ((h - 1) // 4) + 1
+    return {"2 bands": [h // 2, h - h // 2], "4 bands": [h // 4] * 3 + [h - 3 * (h // 4)],
+            "1 row, odd": [1, odd, h - 1 - odd] if h - 1 - odd > 0 else [1, h - 1]}
+
+
+def by_bands(kernel, x, banded, shared, cuts, poison=False):
+    """``kernel`` band by band over x's rows (``banded``: its other band-sized operands; ``shared``: the
+    rest), each band with its neighbours' rows as ``top`` and ``bottom`` (None at the image's edge),
+    stitched back; ``poison``: a launch with NaN rows and halo rows before each band's."""
+    import torch
+
+    outs, r0 = [], 0
+    for n in cuts:
+        r1 = r0 + n
+        top = x[:, r0 - 1].contiguous() if r0 > 0 else None
+        bottom = x[:, r1].contiguous() if r1 < x.shape[1] else None
+        part = [t[:, r0:r1].contiguous() for t in (x, *banded)]
+        if poison:
+            nan = [torch.full_like(t, float("nan")) for t in part]
+            kernel(*nan, *shared, top=None if top is None else torch.full_like(top, float("nan")),
+                   bottom=None if bottom is None else torch.full_like(bottom, float("nan")))
+        outs.append(kernel(*part, *shared, top=top, bottom=bottom))
+        r0 = r1
+    return torch.cat(outs, 1)
+
+
+def halo_kernels(dev, gen, max_err, card):
+    """Phase 16(a): the tail and conv3x3 kernels over bands of rows, reading their neighbours' halo rows,
+    at every level shape the flagship's engine launches them at (B=4, 224x224), in bf16 and f32: each
+    cut (band_cuts) stitched must equal the whole image's kernel bit for bit (a pixel's K walk is the
+    same), and each band must agree with the plain version given the same halo rows (TOL), after a
+    launch on NaN rows.  Fails the phase otherwise."""
+    import torch
+
+    from dfc_sa_unet_torch.infer.engine import AUTO_TAIL_LEVELS
+    from dfc_sa_unet_torch.ops import dfc_tail as tail_ops
+
+    def randn(*shape, dtype, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    bad, t0 = [], time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        for name, h, cin, c in BLOCK_SHAPES:
+            x = randn(4, h, h, cin, dtype=dtype)
+            wc, bc = randn(3, 3, cin, c, dtype=dtype, scale=(9 * cin) ** -0.5), randn(c, dtype=torch.float32)
+            if name in AUTO_TAIL_LEVELS:
+                kernel, plain, key = tail_ops.dfc_tail, tail_ops.dfc_tail_plain, "dfc_tail"
+                banded = (randn(4, h, h, c, dtype=dtype),)
+                shared = (wc, bc, randn(2 * c, c, dtype=dtype, scale=(2 * c) ** -0.5), randn(c, dtype=torch.float32),
+                          randn(3 * c, c, dtype=dtype, scale=(3 * c) ** -0.5), randn(c, dtype=torch.float32),
+                          randn(cin, c, dtype=dtype, scale=0.1 * cin ** -0.5))
+            else:
+                kernel, plain, key = tail_ops.conv3x3_bn_relu, tail_ops.conv3x3_bn_relu_plain, "conv3x3_bn_relu"
+                banded, shared = (), (wc, bc)
+            whole = kernel(x, *banded, *shared)
+            for label, cuts in band_cuts(h).items():
+                got = by_bands(kernel, x, banded, shared, cuts, poison=True)
+                want = by_bands(plain, x, banded, shared, cuts)
+                torch.cuda.synchronize()
+                equal = torch.equal(got, whole)
+                err = (got.float() - want.float()).abs().max().item()
+                scale = max(1.0, want.float().abs().max().item())
+                ok = equal and bool(np.isfinite(err)) and err <= TOL[dn] * scale
+                max_err[key] = max(max_err[key], err)
+                print(f"    {key:16s} {dn} {name:10s} B=4 {h}x{h} {cin}->{c}, {label} {cuts}: stitched "
+                      f"{'equal to' if equal else 'DIFFERENT from'} the whole image's kernel; max_abs_err vs plain "
+                      f"{err:.3e} (tol {TOL[dn] * scale:.2e}) {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    bad.append(f"{key} {dn} {name} {label}")
+            del x, banded, shared, whole
+    print(f"    halo kernels checked in {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    if bad:
+        fail("phase 16(a): the halo kernels disagree: " + "; ".join(bad[:8]))
+
+
+def rows_worker(args):
+    """One process of phase 16(b): the flagship's bf16 engine ("auto" levels) serving one image of
+    ``--rows_side`` (one process: the largest of ROWS_SIDES that fits), with ``--rows_world 2`` as
+    one band of a Gloo pair on cuda:0 (the Predictor cuts the band, the pair gathers the
+    probabilities).  A first request warms cuDNN and cuBLAS up; the second is timed, its launches
+    counted and its peak device memory read.  Then the f32 engine's logits of the same image (the
+    band's, gathered).  Saves both, with the counts, into ``--rows_out``."""
+    import torch
+
+    from dfc_sa_unet_torch.data.normalize import normalize
+    from dfc_sa_unet_torch.infer.engine import DFCEngine
+    from dfc_sa_unet_torch.infer.predictor import Predictor
+    from dfc_sa_unet_torch.ops import launches, reset_launches
+    from dfc_sa_unet_torch.parallel import rows
+    from dfc_sa_unet_torch.parallel.mesh import serving_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    mesh = None
+    if args.rows_world > 1:
+        mesh = serving_mesh(args.rows_world, device=dev, backend="gloo", coordinator=args.rows_coordinator,
+                            num_processes=args.rows_world, process_id=args.rows_worker, timeout_s=DP_CHILD_TIMEOUT_S)
+    weights = torch.load(os.path.join(args.rows_out, "weights.pt"))
+    rec = {}
+    try:
+        for side in (ROWS_SIDES if args.rows_side is None else (args.rows_side,)):
+            image = np.random.default_rng(args.seed).integers(0, 256, (1, side, side, 3), dtype=np.uint8)
+            try:
+                pred = Predictor(DFCEngine(CONFIG, weights, dtype=torch.bfloat16, device=dev, tail_kernel_levels="auto",
+                                           conv_kernel_levels="auto"), compute_dtype=torch.bfloat16, device=dev,
+                                 mesh=mesh)
+                with torch.inference_mode():
+                    pred.predict_probs(image)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    probs = pred.predict_probs(image)
+                    rec.update(side=side, probs=probs, wall_ms=(time.perf_counter() - t0) * 1e3, bf16_launches=launches(),
+                               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            except torch.cuda.OutOfMemoryError:
+                if mesh is not None:
+                    raise
+                print(f"one process does not serve a {side}x{side} image on the card; trying a smaller one", flush=True)
+                pred = None
+                torch.cuda.empty_cache()
+                continue
+            break
+        del pred
+        torch.cuda.empty_cache()
+        engine = DFCEngine(CONFIG, weights, dtype=torch.float32, device=dev, tail_kernel_levels="auto",
+                           conv_kernel_levels="auto")
+        side = rec["side"]
+        band = None if mesh is None else mesh.band(side)
+        image = np.random.default_rng(args.seed).integers(0, 256, (1, side, side, 3), dtype=np.uint8)
+        if band is not None:
+            image = image[:, band.row0:band.row0 + band.rows]
+        x = normalize(torch.from_numpy(np.ascontiguousarray(image)).to(dev), torch.float32).permute(0, 3, 1, 2)
+        reset_launches()
+        with torch.inference_mode(), rows.band_context(band):
+            logits = engine(x)[:, 0].float()
+            if band is not None:
+                logits = Predictor._gather_bands(logits, band)
+        rec.update(logits=logits.cpu().numpy(), f32_launches=launches())
+        torch.save(rec, os.path.join(args.rows_out, f"rank{args.rows_worker}of{args.rows_world}.pt"))
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def run_children(cmds, label):
+    """Start ``cmds`` (this script with child flags) together; fail ``label`` when one fails or
+    outlives DP_CHILD_TIMEOUT_S, printing their output."""
+    children = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *cmd], stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True) for cmd in cmds]
+    try:
+        logs = [c.communicate(timeout=DP_CHILD_TIMEOUT_S)[0] for c in children]
+    except subprocess.TimeoutExpired:
+        logs = None
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.communicate()
+    if logs is None or any(c.returncode for c in children):
+        for i, log in enumerate(logs or []):
+            print(f"    process {i}: {log[-3000:]}")
+        fail(f"{label}: a process failed or hung (limit {DP_CHILD_TIMEOUT_S} s); its output is above")
+    return logs
+
+
+def row_sharding(seed, card, dev, gen, max_err, run_epochs):
+    """Phase 16: row sharding.  (a) the halo kernels band by band (``halo_kernels``); (b) one image of
+    the largest side one process serves, through the bf16 engine on a Gloo pair sharing the card,
+    each rank a band, against one process (phase 5's bf16 limits; in f32 ROWS_F32_TOL of max|logit|),
+    with each rank's launches, peak memory and wall time beside one process's; (c) the flagship's
+    f32 training at 224x224, B=4, on the pair, against one process (phase 14(b)'s limits), default
+    and grad_accum 2 exact.  Returns the launch counts of the pair's runs (not those of the
+    comparisons with the plain versions, nor of the single-process references)."""
+    import torch
+
+    from dfc_sa_unet_torch.data.normalize import normalize
+    from dfc_sa_unet_torch.models.factory import create_model
+    from dfc_sa_unet_torch.ops import launches
+    from dfc_sa_unet_torch.parallel.mesh import local_coordinator
+    from dfc_sa_unet_torch.utils.weights import calibrate_batch_stats_, init_random_
+
+    print(f"[16] row sharding, seed {seed} ({card})", flush=True)
+    t_phase = time.perf_counter()
+    path = {k: 0 for k in launches()}
+    run_counts = {}
+
+    def count(label, got):
+        run_counts[label] = {k: v for k, v in got.items() if v}
+        for k, v in got.items():
+            path[k] += v
+
+    # (a) the halo kernels, in this process
+    halo_kernels(dev, gen, max_err, card)
+
+    # (b) one large image on a Gloo pair sharing the card, against one process
+    tmp = tempfile.TemporaryDirectory()
+    model = init_random_(create_model(CONFIG, device="cpu"), torch.Generator().manual_seed(seed)).to(dev)
+    calib = np.random.default_rng(seed).integers(0, 256, (16, IMG, IMG, 3), dtype=np.uint8)
+    calibrate_batch_stats_(model, normalize(torch.from_numpy(calib).to(dev)).permute(0, 3, 1, 2))
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(tmp.name, "weights.pt"))
+    del model
+    torch.cuda.empty_cache()
+    child = ["--seed", str(seed), "--rows_out", tmp.name]
+    run_children([[*child, "--rows_worker", "0", "--rows_world", "1"]], "phase 16(b), one process")
+    one = torch.load(os.path.join(tmp.name, "rank0of1.pt"), weights_only=False)
+    side = one["side"]
+    coordinator = local_coordinator()
+    run_children([[*child, "--rows_worker", str(r), "--rows_world", "2", "--rows_coordinator", coordinator,
+                   "--rows_side", str(side)] for r in range(2)], "phase 16(b), the Gloo pair")
+    pair = [torch.load(os.path.join(tmp.name, f"rank{r}of2.pt"), weights_only=False) for r in range(2)]
+    per_forward = {**{k: 0 for k in path}, "pooled_attention": 9, "dfc_tail": 7, "conv3x3_bn_relu": 2}
+    want_logit = logit_of(one["probs"])
+    std = float(want_logit.std())
+    bad = []
+    if one["bf16_launches"] != per_forward or one["f32_launches"] != per_forward:
+        bad.append(f"one process launched {one['bf16_launches']} (bf16), {one['f32_launches']} (f32)")
+    for r, got in enumerate(pair):
+        count(f"(b) rank {r} bf16", got["bf16_launches"])
+        count(f"(b) rank {r} f32", got["f32_launches"])
+        d = np.abs(logit_of(got["probs"]) - want_logit) / std
+        f32 = float(np.abs(got["logits"] - one["logits"]).max() / np.abs(one["logits"]).max())
+        print(f"    (b) rank {r} of 2: a band of {side // 2} rows of a {side}x{side} image; bf16 engine: |dlogit| / std "
+              f"max {d.max():.3e} (tol {DLOGIT_TOL_BF16['max']}), mean {d.mean():.3e} (tol {DLOGIT_TOL_BF16['mean']}) "
+              f"against one process (logit std {std:.3e}); f32 logits within {f32:.3e} of max|logit| (tol "
+              f"{ROWS_F32_TOL}); launches {run_counts[f'(b) rank {r} bf16']} a forward; peak "
+              f"{got['peak_gib']:.3f} GiB against one process's {one['peak_gib']:.3f}; request {got['wall_ms']:.1f} ms "
+              f"wall against one process's {one['wall_ms']:.1f} ({card})", flush=True)
+        if got["probs"].shape != (1, side, side) or not np.isfinite(got["probs"]).all() or std < MIN_LOGIT_STD:
+            bad.append(f"rank {r}: probabilities of shape {got['probs'].shape}, logit std {std:.3e}")
+        if not (d.max() <= DLOGIT_TOL_BF16["max"] and d.mean() <= DLOGIT_TOL_BF16["mean"] and f32 <= ROWS_F32_TOL):
+            bad.append(f"rank {r} disagrees with one process")
+        if got["bf16_launches"] != per_forward or got["f32_launches"] != per_forward:
+            bad.append(f"rank {r} launched {got['bf16_launches']} (bf16), {got['f32_launches']} (f32), expected "
+                       f"9/7/2 a forward")
+    if bad:
+        fail("phase 16(b): " + "; ".join(bad))
+    tmp.cleanup()
+
+    # (c) training on the pair, each rank a band of every image's rows, default and exact
+    for label, training in (("default", None), ("exact", EXACT)):
+        with tempfile.TemporaryDirectory() as work:
+            got = gloo_pair_against_one(seed, card, dev, work, f"phase 16(c) {label}", training, run_epochs,
+                                        spatial=2, batch=ROWS_TRAIN_BATCH)
+        for r, counts in enumerate(got):
+            count(f"(c) {label} rank {r}", counts)
+    print(f"    row-sharding launches, run by run: {run_counts}; the phase's {path}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return path
+
+
 def model_config(name):
     """The YAML model section of one of the DFC zoo's nine names."""
     return {"model": {"name": name, "bilinear": False} if name == "UNet" else {"name": name, **DFC_WIDTHS}}
@@ -831,6 +1121,14 @@ def main():
     ap.add_argument("--dp_coordinator", type=str, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp_out", type=str, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp_exact", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--dp_spatial", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--dp_batch", type=int, default=DP_BATCH, help=argparse.SUPPRESS)
+    # phase 16(b)'s serving processes: one band each of a Gloo pair (--rows_world 2), or one process
+    ap.add_argument("--rows_worker", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--rows_world", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--rows_coordinator", type=str, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--rows_out", type=str, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--rows_side", type=int, default=None, help=argparse.SUPPRESS)
     # phase 14(c)'s serving processes: the inference CLI on the arguments after "--"
     ap.add_argument("--serve_worker", type=str, default=None, help=argparse.SUPPRESS)
     # phase 15(d)'s processes: a first request with the kernels built in, or loaded from, a directory
@@ -856,6 +1154,8 @@ def main():
         return serve_worker(cli, argv[cut + 1:])
     if cli.cache_child is not None:
         return cache_child(cli)
+    if cli.rows_worker is not None:
+        return rows_worker(cli)
     from dfc_sa_unet_torch.infer.engine import AUTO_TAIL_LEVELS, DFCEngine
     from dfc_sa_unet_torch.infer.predictor import Predictor
     from dfc_sa_unet_torch.infer.quant import Int8DFCEngine, int8_self_check
@@ -901,9 +1201,12 @@ def main():
         regs = [ln.split("Used")[1].split(",")[0].strip() for ln in log.read_text().splitlines() if "Used" in ln]
         spills = sum("0 bytes spill stores" not in ln for ln in log.read_text().splitlines() if "spill stores" in ln)
         print(f"    {log.stem}: registers per kernel instance {regs}; instances with spills: {spills}")
-    # the wgmma kernels of conv3x3_bn_relu and conv3x3_bias_stats (the ring's and the persistent one)
-    # and probe_matmul: ptxas must neither serialize their products (C7515) nor spill
+    # the wgmma kernels of conv3x3_bn_relu (and their halo instantiations, row sharding) and
+    # conv3x3_bias_stats (the ring's and the persistent one) and probe_matmul: ptxas must neither
+    # serialize their products (C7515) nor spill
     for stem, kernel in (("dfc_tail", "conv3x3_bn_relu_wgmma_kernel"), ("dfc_tail", "conv3x3_bn_relu_narrow_kernel"),
+                         ("dfc_tail", "conv3x3_bn_relu_wgmma_halo_kernel"),
+                         ("dfc_tail", "conv3x3_bn_relu_narrow_halo_kernel"),
                          ("conv_bn_stats", "conv3x3_bias_stats_wgmma_kernel"),
                          ("conv_bn_stats", "conv3x3_bias_stats_narrow_kernel"), ("mxu_probes", "probe_matmul_kernel"),
                          ("conv3x3_s8", "conv3x3_s8_kernel")):
@@ -1870,6 +2173,10 @@ def main():
     accum = accumulation_and_cache(seed, card, dev, fits, train_ms[False], run_epochs)
     main_launches = {k: main_launches[k] + accum[k] for k in main_launches}
 
+    # ------------------------------------------------------------ phase 16
+    banded = row_sharding(seed, card, dev, gen, max_err, run_epochs)
+    main_launches = {k: main_launches[k] + banded[k] for k in main_launches}
+
     sources = {"pooled_attention": ("dfc_sa_unet_torch/csrc/pooled_attention.cu",
                                     "dfc_sa_unet_tpu/ops/pallas_attention.py:74"),
                "dfc_tail": ("dfc_sa_unet_torch/csrc/dfc_tail.cu", "dfc_sa_unet_tpu/ops/pallas_conv.py:198"),
@@ -1900,6 +2207,8 @@ def main():
             "library_ms": r["library_ms"],
             **({"bf16_yardstick_ms": r["bf16_ms"]} if "bf16_ms" in r else {}),
             **({"levels": levels[name]} if name in levels else {}),
+            # the launches of the kernel's halo instantiation (row sharding, phase 16), among "launches"
+            **({"halo_launches": banded[name]} if name in ("dfc_tail", "conv3x3_bn_relu") else {}),
         })
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -107,4 +107,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ------------------------------------------------------- halo rows (row sharding)
+
+// The rows just above and below a band of an image's rows (ops/dfc_tail.py's `top` and `bottom`,
+// parallel/rows.py): [B][W][C] each, in the activations' type, read where a 3x3 tap of the band
+// reaches row -1 or row H; a null row is the image's edge and reads as zero.  The convs take a
+// Halo type as a template parameter: NoHalo compiles every edge test as before, so the kernels
+// without halos keep their code.
+template <typename T>
+struct HaloRows {
+  static constexpr bool kOn = true;
+  const T* top;
+  const T* bot;
+  // the row a tap at row hh outside [0, H) reads (-1: top, H: bottom)
+  __device__ __forceinline__ const T* row(int hh) const { return hh < 0 ? top : bot; }
+};
+struct NoHalo {
+  static constexpr bool kOn = false;
+};
+
 }  // namespace dfc

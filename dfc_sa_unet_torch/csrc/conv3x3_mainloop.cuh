@@ -78,13 +78,17 @@ __device__ __forceinline__ void zero(float (&acc)[N]) {
 // The pixels of a block's M-row tile as seen by one thread when it stages
 // [M][BK] activation chunks with 16-byte loads: a thread's rows do not
 // change from chunk to chunk, so their (pixel, h, w) are computed once.
-template <typename T, int M, int BK>
+// With halo rows (Halo = dfc::HaloRows<T>, row sharding) a tap that reaches
+// row -1 or H reads the halo row at the pixel's image and column instead of
+// zero.
+template <typename T, int M, int BK, class Halo = dfc::NoHalo>
 struct RowSlots {
   static constexpr int VEC = 16 / sizeof(T), VPR = BK / VEC, LDA = BK + kPad;
   static constexpr int SLOTS = (M * VPR + kThreads - 1) / kThreads;
   int pm[SLOTS], ph[SLOTS], pw[SLOTS];  // pixel index (-1: none), its h and w
+  Halo halo;
 
-  __device__ RowSlots(int m0, int P, int H, int W) {
+  __device__ RowSlots(int m0, int P, int H, int W, Halo halo_rows = {}) : halo(halo_rows) {
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s) {
       const int slot = threadIdx.x + s * kThreads, m = m0 + slot / VPR;
@@ -108,6 +112,11 @@ struct RowSlots {
         const int hh = ph[s] + dy, ww = pw[s] + dx;
         if (hh >= 0 && hh < H && ww >= 0 && ww < W)
           v = *reinterpret_cast<const uint4*>(x + (size_t)(pm[s] + dy * W + dx) * cin + ci);
+        if constexpr (Halo::kOn) {
+          const T* row = halo.row(hh);
+          if ((hh < 0 || hh >= H) && ww >= 0 && ww < W && row != nullptr)
+            v = *reinterpret_cast<const uint4*>(row + ((size_t)(pm[s] / W / H) * W + ww) * cin + ci);
+        }
       }
       *reinterpret_cast<uint4*>(sa + r * LDA + (slot % VPR) * VEC) = v;
     }
@@ -129,10 +138,11 @@ struct RowSlots {
 
 // Implicit-GEMM 3x3 conv, zero padding 1: acc += taps(x)[m0.., :] . w[:, n0..]
 // Pixel m of [0, P) is (b, h, w) in row-major order; taps outside the image
-// read as zero.  sa holds an [M][BK + kPad] tap chunk, sw a weight chunk.
-template <typename T, typename Tile, int M, int NT>
+// read as zero (rows -1 and H: the halo rows of rows.halo, where it has them).
+// sa holds an [M][BK + kPad] tap chunk, sw a weight chunk.
+template <typename T, typename Tile, int M, int NT, class Halo = dfc::NoHalo>
 __device__ void conv3x3_mainloop(float (&acc)[Tile::ACC], const T* __restrict__ x,
-                                 const T* __restrict__ w, const RowSlots<T, M, Tile::BK>& rows,
+                                 const T* __restrict__ w, const RowSlots<T, M, Tile::BK, Halo>& rows,
                                  int m0, int n0, int P, int H, int W, int cin, int cout, T* sa,
                                  T* sw) {
   constexpr int BK = Tile::BK, LDA = BK + kPad;
@@ -153,6 +163,11 @@ __device__ void conv3x3_mainloop(float (&acc)[Tile::ACC], const T* __restrict__ 
           const int hh = hq + tap / 3 - 1, ww = wq + tap % 3 - 1;
           if (hh >= 0 && hh < H && ww >= 0 && ww < W)
             val = x[(((size_t)bq * H + hh) * W + ww) * cin + ci];
+          if constexpr (Halo::kOn) {
+            const T* row = rows.halo.row(hh);
+            if ((hh < 0 || hh >= H) && ww >= 0 && ww < W && row != nullptr)
+              val = row[((size_t)bq * W + ww) * cin + ci];
+          }
         }
         sa[r * LDA + kk] = val;
       }

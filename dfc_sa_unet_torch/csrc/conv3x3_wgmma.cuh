@@ -170,12 +170,16 @@ __device__ __forceinline__ void tma_weight_tile(const R& ring, int s, const void
 }
 
 // The pixels of a BM-pixel tile whose copies this thread makes: rows tid/8 + (THREADS/8) i
-// of the tile, the 16-byte chunk tid % 8 of their 64 channels.
-template <int BM, int THREADS>
+// of the tile, the 16-byte chunk tid % 8 of their 64 channels.  With halo rows (Halo =
+// dfc::HaloRows<bf16>, row sharding) a shifted pixel in row -1 or H is copied from the halo row at
+// its image and column instead of zero-filled (the gathers of x; the unshifted gathers never
+// leave the image).
+template <int BM, int THREADS, class Halo = dfc::NoHalo>
 struct PixelSlots {
   static constexpr int N = BM * 8 / THREADS;
   int pix[N], ph[N], pw[N];
-  __device__ __forceinline__ PixelSlots(int m0, int P, int H, int W) {
+  Halo halo;
+  __device__ __forceinline__ PixelSlots(int m0, int P, int H, int W, Halo halo_rows = {}) : halo(halo_rows) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int m = m0 + threadIdx.x / 8 + (THREADS / 8) * i;
@@ -183,6 +187,18 @@ struct PixelSlots {
       pw[i] = m % W;
       ph[i] = (m / W) % H;
     }
+  }
+  // where a shifted pixel of slot i at (hh, ww) outside rows [0, H) reads its ch channels from c on:
+  // the halo row's at the pixel's image and column, or null (the image's edge, or no halo rows).  The
+  // image is worked out here, on the few threads that reach a halo row, rather than kept a register a
+  // slot
+  __device__ __forceinline__ const bf16* halo_at(int i, int hh, int ww, int ch, int c, int H, int W) const {
+    if constexpr (Halo::kOn) {
+      const bf16* row = halo.row(hh);
+      if ((hh < 0 || hh >= H) && ww >= 0 && ww < W && row != nullptr)
+        return row + ((size_t)(pix[i] / W / H) * W + ww) * ch + c;
+    }
+    return nullptr;
   }
   // the A tile at sa: channels c0..c0+64 of the tile's pixels shifted by (dy, dx), from
   // src [P][ch]; zero outside the image and past ch
@@ -192,8 +208,12 @@ struct PixelSlots {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int hh = ph[i] + dy, ww = pw[i] + dx;
-      const bool ok = pix[i] >= 0 && ci < ch && hh >= 0 && hh < H && ww >= 0 && ww < W;
+      bool ok = pix[i] >= 0 && ci < ch && hh >= 0 && hh < H && ww >= 0 && ww < W;
       const bf16* p = ok ? src + (size_t)(pix[i] + dy * W + dx) * ch + ci : src;
+      if constexpr (Halo::kOn) {
+        const bf16* h = pix[i] >= 0 && ci < ch ? halo_at(i, hh, ww, ch, ci, H, W) : nullptr;
+        if (h != nullptr) ok = true, p = h;
+      }
       dfc::cp_async16(sa + swizzle128((threadIdx.x / 8 + (THREADS / 8) * i) * 128 + q * 16), p, ok);
     }
   }
@@ -211,8 +231,12 @@ struct PixelSlots {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int hh = ph[i] + dy, ww = pw[i] + dx;
-      const bool ok = pix[i] >= 0 && tap < 9 && hh >= 0 && hh < H && ww >= 0 && ww < W;
+      bool ok = pix[i] >= 0 && tap < 9 && hh >= 0 && hh < H && ww >= 0 && ww < W;
       const bf16* p = ok ? src + (size_t)(pix[i] + dy * W + dx) * cin + c : src;
+      if constexpr (Halo::kOn) {
+        const bf16* h = pix[i] >= 0 && tap < 9 ? halo_at(i, hh, ww, cin, c, H, W) : nullptr;
+        if (h != nullptr) ok = true, p = h;
+      }
       dfc::cp_async16(sa + swizzle128((threadIdx.x / 8 + (THREADS / 8) * i) * 128 + q * 16), p, ok);
     }
   }
@@ -359,11 +383,12 @@ struct BiasStats {
 // blockIdx.y * NB..; two warpgroups of wgmma.m64nNBk16, a ring of STAGES stages.  The weight
 // tiles come by TMA from wmap (a [1][9 * cin][Cout] map in 64 x 64 boxes) or by cp.async from
 // w.  cin and cout are multiples of 8; x, w and out 16-byte aligned.  The output leaves through
-// the ring in coalesced 16-byte stores.
-template <int NB, int STAGES, bool TMA, class Epi>
+// the ring in coalesced 16-byte stores.  With halo rows (Halo = dfc::HaloRows<bf16>) the taps in
+// rows -1 and H read them (PixelSlots).
+template <int NB, int STAGES, bool TMA, class Epi, class Halo = dfc::NoHalo>
 __device__ __forceinline__ void conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
                                               const CUtensorMap* wmap, bf16* __restrict__ out, int P, int H,
-                                              int W, int cin, int cout, Epi epi) {
+                                              int W, int cin, int cout, Epi epi, Halo halo = {}) {
   using R = ConvRing<NB, STAGES, TMA>;
   static_assert(kBM * (NB + 8) * 2 <= R::kBytes, "the staging tile of the output reuses the ring");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -372,7 +397,7 @@ __device__ __forceinline__ void conv3x3_wgmma(const bf16* __restrict__ x, const 
   const int tid = threadIdx.x, wg = tid / 128;
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * NB;
   const int krows = 9 * cin, steps = (krows + kBK - 1) / kBK;
-  const PixelSlots<kBM, kThreads> px(m0, P, H, W);
+  const PixelSlots<kBM, kThreads, Halo> px(m0, P, H, W, halo);
   auto col = [n0](int n) { return n0 + n; };
   // the next step issued (steps are issued in order) starts at K row 64 step = tap * cin + c0
   int tap = 0, c0 = 0;
@@ -500,9 +525,11 @@ struct PixelChunks {
 // for one TMA store.  Blocks share nothing after the weight copy, so several an SM run unsynchronised.
 // With Epi::kStats the block also writes row t of the statistics for tile t (kNarrowStatsBytes more of
 // shared memory: the scratch lies past the output tile, which the previous tile's store may still read).
-template <int CIN, class Epi>
+// With halo rows (Halo = dfc::HaloRows<bf16>, [B][W][CIN] each) the taps in rows -1 and H read them.
+template <int CIN, class Epi, class Halo = dfc::NoHalo>
 __device__ __forceinline__ void conv3x3_wgmma_narrow(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                                                     const CUtensorMap* omap, int P, int H, int W, int cout, Epi epi) {
+                                                     const CUtensorMap* omap, int P, int H, int W, int cout, Epi epi,
+                                                     Halo halo = {}) {
   constexpr int NB = 64, BM = kNarrowBM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = dfc::smem_u32(smem_raw);
@@ -535,6 +562,13 @@ __device__ __forceinline__ void conv3x3_wgmma_narrow(const bf16* __restrict__ x,
     for (int j = 0; j < 5; ++j) {
       const int tap = j < 4 ? 4 * h + j : 8, dy = tap / 3 - 1, dx = tap % 3 - 1;
       const bool ok = m < P && (j < 4 || h == 0) && hh + dy >= 0 && hh + dy < H && ww + dx >= 0 && ww + dx < W;
+      if constexpr (Halo::kOn) {  // row -1 or H: the halo row at the pixel's image and column
+        const bf16* row = halo.row(hh + dy);
+        if (m < P && (j < 4 || h == 0) && (hh + dy < 0 || hh + dy >= H) && ww + dx >= 0 && ww + dx < W) {
+          px.load(j, row, (long long)(m / W / H) * W + ww + dx, row != nullptr);
+          continue;
+        }
+      }
       px.load(j, x, (long long)m + dy * W + dx, ok);
     }
   };

@@ -73,12 +73,12 @@ namespace {
 
 // ---------------------------------------------------------------- conv3x3
 
-// f32 (SIMT, exact); the bf16 conv is on wgmma below
-template <int NT>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_bn_relu_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                       const float* __restrict__ bias, float* __restrict__ out, int P, int H, int W,
-                       int cin, int cout) {
+// f32 (SIMT, exact); the bf16 conv is on wgmma below.  With halo rows (Halo = dfc::HaloRows<float>:
+// row sharding) the taps in rows -1 and H read them.
+template <int NT, class Halo>
+__device__ __forceinline__ void conv3x3_simt(const float* __restrict__ x, const float* __restrict__ w,
+                                                    const float* __restrict__ bias, float* __restrict__ out, int P,
+                                                    int H, int W, int cin, int cout, Halo halo) {
   using T = float;
   constexpr int M = 64;
   using Tile = SimtTile<T, M, NT>;
@@ -86,7 +86,7 @@ conv3x3_bn_relu_kernel(const float* __restrict__ x, const float* __restrict__ w,
   T* sa = reinterpret_cast<T*>(smem_raw);
   T* sw = sa + M * (Tile::BK + kPad);
   const int m0 = blockIdx.x * M, n0 = blockIdx.y * NT;
-  const RowSlots<T, M, Tile::BK> rows(m0, P, H, W);
+  const RowSlots<T, M, Tile::BK, Halo> rows(m0, P, H, W, halo);
   float acc[Tile::ACC];
   zero(acc);
   conv3x3_mainloop<T, Tile, M, NT>(acc, x, w, rows, m0, n0, P, H, W, cin, cout, sa, sw);
@@ -97,16 +97,33 @@ conv3x3_bn_relu_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+template <int NT>
+__global__ void __launch_bounds__(kThreads)
+conv3x3_bn_relu_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                       const float* __restrict__ bias, float* __restrict__ out, int P, int H, int W,
+                       int cin, int cout) {
+  conv3x3_simt<NT>(x, w, bias, out, P, H, W, cin, cout, dfc::NoHalo{});
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads)
+conv3x3_bn_relu_halo_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                            const float* __restrict__ bias, const float* top, const float* bot,
+                            float* __restrict__ out, int P, int H, int W, int cin, int cout) {
+  conv3x3_simt<NT>(x, w, bias, out, P, H, W, cin, cout, dfc::HaloRows<float>{top, bot});
+}
+
 // ---------------------------------------------------------------- DFC tail
 
-// f32 only: the bf16 tail is dfc_tail_wgmma_kernel below
-template <int M, int C>
-__global__ void __launch_bounds__(kThreads, 1)
-dfc_tail_kernel(const float* __restrict__ x, const float* __restrict__ a, const float* __restrict__ wc,
-                const float* __restrict__ bc, const float* __restrict__ wg,
-                const float* __restrict__ bg, const float* __restrict__ wf,
-                const float* __restrict__ bf, const float* __restrict__ wr, float* __restrict__ out,
-                int P, int H, int W, int cin) {
+// f32 only: the bf16 tail is dfc_tail_wgmma_kernel below.  With halo rows (row sharding) the
+// conv's taps in rows -1 and H read them; a and the residual's x are the band's own rows.
+template <int M, int C, class Halo>
+__device__ __forceinline__ void dfc_tail_simt(const float* __restrict__ x, const float* __restrict__ a,
+                                             const float* __restrict__ wc, const float* __restrict__ bc,
+                                             const float* __restrict__ wg, const float* __restrict__ bg,
+                                             const float* __restrict__ wf, const float* __restrict__ bf,
+                                             const float* __restrict__ wr, float* __restrict__ out, int P, int H,
+                                             int W, int cin, Halo halo) {
   using T = float;
   using Tile = SimtTile<T, M, C>;
   constexpr int LD = C + kPad, BK = Tile::BK, LDA = BK + kPad, ACC = Tile::ACC;
@@ -117,7 +134,7 @@ dfc_tail_kernel(const float* __restrict__ x, const float* __restrict__ a, const 
   T* sw = s_fused + M * LD;                     // weight chunk
   const int m0 = blockIdx.x * M;
 
-  const RowSlots<T, M, BK> rows(m0, P, H, W);
+  const RowSlots<T, M, BK, Halo> rows(m0, P, H, W, halo);
   float acc[ACC];
   zero(acc);
   // 1. local = ReLU(conv3x3(x) + bc); taps staged in s_fused
@@ -183,17 +200,46 @@ dfc_tail_kernel(const float* __restrict__ x, const float* __restrict__ a, const 
   }
 }
 
+template <int M, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+dfc_tail_kernel(const float* __restrict__ x, const float* __restrict__ a, const float* __restrict__ wc,
+                const float* __restrict__ bc, const float* __restrict__ wg,
+                const float* __restrict__ bg, const float* __restrict__ wf,
+                const float* __restrict__ bf, const float* __restrict__ wr, float* __restrict__ out,
+                int P, int H, int W, int cin) {
+  dfc_tail_simt<M, C>(x, a, wc, bc, wg, bg, wf, bf, wr, out, P, H, W, cin, dfc::NoHalo{});
+}
+
+template <int M, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+dfc_tail_halo_kernel(const float* __restrict__ x, const float* __restrict__ a, const float* __restrict__ wc,
+                     const float* __restrict__ bc, const float* __restrict__ wg,
+                     const float* __restrict__ bg, const float* __restrict__ wf,
+                     const float* __restrict__ bf, const float* __restrict__ wr, const float* top,
+                     const float* bot, float* __restrict__ out, int P, int H, int W, int cin) {
+  dfc_tail_simt<M, C>(x, a, wc, bc, wg, bg, wf, bf, wr, out, P, H, W, cin, dfc::HaloRows<float>{top, bot});
+}
+
+// with a halo row (top or bot non-null: [B][W][cin] each, null at the image's edge), the kernel that
+// reads them; with neither, the kernel that masks both edges (the same function)
 template <int NT>
-int launch_conv_f32(const void* x, const void* w, const void* b, void* out, int P, int H, int W,
-                    int cin, int cout, cudaStream_t stream) {
+int launch_conv_f32(const void* x, const void* w, const void* b, const void* top, const void* bot, void* out,
+                    int P, int H, int W, int cin, int cout, cudaStream_t stream) {
   constexpr int M = 64;
   using Tile = SimtTile<float, M, NT>;
   const size_t smem = sizeof(float) * (M * (Tile::BK + kPad) + Tile::SW_ELEMS);
-  cudaFuncSetAttribute(conv3x3_bn_relu_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid(dfc::ceil_div(P, M), dfc::ceil_div(cout, NT));
-  conv3x3_bn_relu_kernel<NT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
-      static_cast<float*>(out), P, H, W, cin, cout);
+  if (top != nullptr || bot != nullptr) {
+    cudaFuncSetAttribute(conv3x3_bn_relu_halo_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    conv3x3_bn_relu_halo_kernel<NT><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
+        static_cast<const float*>(top), static_cast<const float*>(bot), static_cast<float*>(out), P, H, W, cin, cout);
+  } else {
+    cudaFuncSetAttribute(conv3x3_bn_relu_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    conv3x3_bn_relu_kernel<NT><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
+        static_cast<float*>(out), P, H, W, cin, cout);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -207,20 +253,39 @@ conv3x3_bn_relu_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const float* _
   wgconv::conv3x3_wgmma<NB, STAGES, true>(x, nullptr, &wmap, out, P, H, W, cin, cout, wgconv::BiasRelu{bias, cout});
 }
 
+// the same reading the halo rows top and bot ([B][W][cin] each, null at the image's edge)
 template <int NB, int STAGES>
-int launch_conv_wgmma(const void* x, const void* w, const void* b, void* out, int P, int H, int W, int cin,
-                      int cout, cudaStream_t stream) {
+__global__ void __launch_bounds__(wgconv::kThreads, wgconv::conv_blocks(wgconv::conv_smem_bytes<NB, STAGES, true>()))
+conv3x3_bn_relu_wgmma_halo_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ bias,
+                                  const __nv_bfloat16* top, const __nv_bfloat16* bot, __nv_bfloat16* __restrict__ out,
+                                  int P, int H, int W, int cin, int cout, const __grid_constant__ CUtensorMap wmap) {
+  wgconv::conv3x3_wgmma<NB, STAGES, true>(x, nullptr, &wmap, out, P, H, W, cin, cout, wgconv::BiasRelu{bias, cout},
+                                          dfc::HaloRows<__nv_bfloat16>{top, bot});
+}
+
+template <int NB, int STAGES>
+int launch_conv_wgmma(const void* x, const void* w, const void* b, const void* top, const void* bot, void* out, int P,
+                      int H, int W, int cin, int cout, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
   constexpr int smem = wgconv::conv_smem_bytes<NB, STAGES, true>();
   CUtensorMap wmap;
   if (!wgconv::encode_tiled()) return static_cast<int>(cudaErrorNotSupported);
   if (!wgconv::tile_map(&wmap, w, cout, 9 * (uint64_t)cin, 1, 64)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err =
-      cudaFuncSetAttribute(conv3x3_bn_relu_wgmma_kernel<NB, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(dfc::ceil_div(P, wgconv::kBM), dfc::ceil_div(cout, NB));
-  conv3x3_bn_relu_wgmma_kernel<NB, STAGES><<<grid, wgconv::kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(b), static_cast<__nv_bfloat16*>(out), P, H, W,
-      cin, cout, wmap);
+  if (top != nullptr || bot != nullptr) {
+    const cudaError_t err = cudaFuncSetAttribute(conv3x3_bn_relu_wgmma_halo_kernel<NB, STAGES>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv3x3_bn_relu_wgmma_halo_kernel<NB, STAGES><<<grid, wgconv::kThreads, smem, stream>>>(
+        static_cast<const bf*>(x), static_cast<const float*>(b), static_cast<const bf*>(top), static_cast<const bf*>(bot),
+        static_cast<bf*>(out), P, H, W, cin, cout, wmap);
+  } else {
+    const cudaError_t err =
+        cudaFuncSetAttribute(conv3x3_bn_relu_wgmma_kernel<NB, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv3x3_bn_relu_wgmma_kernel<NB, STAGES><<<grid, wgconv::kThreads, smem, stream>>>(
+        static_cast<const bf*>(x), static_cast<const float*>(b), static_cast<bf*>(out), P, H, W, cin, cout, wmap);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -234,62 +299,91 @@ conv3x3_bn_relu_narrow_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bf
   wgconv::conv3x3_wgmma_narrow<CIN>(x, w, &omap, P, H, W, cout, wgconv::BiasRelu{bias, cout});
 }
 
+// the same reading the halo rows top and bot ([B][W][CIN] each, null at the image's edge)
 template <int CIN>
-int launch_conv_narrow(const void* x, const void* w, const void* b, void* out, int P, int H, int W, int cout,
-                       cudaStream_t stream) {
+__global__ void __launch_bounds__(wgconv::kNarrowThreads, 4)
+conv3x3_bn_relu_narrow_halo_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                                   const float* __restrict__ bias, const __nv_bfloat16* top,
+                                   const __nv_bfloat16* bot, int P, int H, int W, int cout,
+                                   const __grid_constant__ CUtensorMap omap) {
+  wgconv::conv3x3_wgmma_narrow<CIN>(x, w, &omap, P, H, W, cout, wgconv::BiasRelu{bias, cout},
+                                    dfc::HaloRows<__nv_bfloat16>{top, bot});
+}
+
+template <int CIN>
+int launch_conv_narrow(const void* x, const void* w, const void* b, const void* top, const void* bot, void* out, int P,
+                       int H, int W, int cout, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
   constexpr int smem = wgconv::kNarrowSmemBytes;
   if (cout > 64) return static_cast<int>(cudaErrorInvalidValue);
   if (!wgconv::encode_tiled()) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap omap;
   if (!wgconv::tile_map(&omap, out, cout, P, 1, 64)) return static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
-  const cudaError_t err = wgconv::persistent_blocks(conv3x3_bn_relu_narrow_kernel<CIN>, wgconv::kNarrowThreads, smem,
-                                                    dfc::ceil_div(P, wgconv::kNarrowBM), &blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  conv3x3_bn_relu_narrow_kernel<CIN><<<blocks, wgconv::kNarrowThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(b), P, H,
-      W, cout, omap);
+  const int tiles = dfc::ceil_div(P, wgconv::kNarrowBM);
+  if (top != nullptr || bot != nullptr) {
+    const cudaError_t err = wgconv::persistent_blocks(conv3x3_bn_relu_narrow_halo_kernel<CIN>, wgconv::kNarrowThreads,
+                                                      smem, tiles, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv3x3_bn_relu_narrow_halo_kernel<CIN><<<blocks, wgconv::kNarrowThreads, smem, stream>>>(
+        static_cast<const bf*>(x), static_cast<const bf*>(w), static_cast<const float*>(b), static_cast<const bf*>(top),
+        static_cast<const bf*>(bot), P, H, W, cout, omap);
+  } else {
+    const cudaError_t err =
+        wgconv::persistent_blocks(conv3x3_bn_relu_narrow_kernel<CIN>, wgconv::kNarrowThreads, smem, tiles, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv3x3_bn_relu_narrow_kernel<CIN><<<blocks, wgconv::kNarrowThreads, smem, stream>>>(
+        static_cast<const bf*>(x), static_cast<const bf*>(w), static_cast<const float*>(b), P, H, W, cout, omap);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // the tilings ops/dfc_tail.py::conv_tiling gives: (B tile width, ring stages; 0: the persistent
-// kernel, which reads x's cin = 3 or 8 channels)
-int conv_wgmma_dispatch(const void* x, const void* w, const void* b, void* out, int P, int H, int W, int cin,
-                        int cout, int nb, int stages, cudaStream_t s) {
+// kernel, which reads x's cin = 3 or 8 channels); top and bot: the halo rows, or null
+int conv_wgmma_dispatch(const void* x, const void* w, const void* b, const void* top, const void* bot, void* out, int P,
+                        int H, int W, int cin, int cout, int nb, int stages, cudaStream_t s) {
   if (cout % 8) return static_cast<int>(cudaErrorInvalidValue);  // 16-byte rows of w and out
-  if (nb == 64 && stages == 0 && cin == 3) return launch_conv_narrow<3>(x, w, b, out, P, H, W, cout, s);
-  if (nb == 64 && stages == 0 && cin == 8) return launch_conv_narrow<8>(x, w, b, out, P, H, W, cout, s);
+  if (nb == 64 && stages == 0 && cin == 3) return launch_conv_narrow<3>(x, w, b, top, bot, out, P, H, W, cout, s);
+  if (nb == 64 && stages == 0 && cin == 8) return launch_conv_narrow<8>(x, w, b, top, bot, out, P, H, W, cout, s);
   if (cin % 8) return static_cast<int>(cudaErrorInvalidValue);  // 16-byte rows of x
-  if (nb == 64 && stages == 4) return launch_conv_wgmma<64, 4>(x, w, b, out, P, H, W, cin, cout, s);
-  if (nb == 128 && stages == 4) return launch_conv_wgmma<128, 4>(x, w, b, out, P, H, W, cin, cout, s);
-  if (nb == 256 && stages == 4) return launch_conv_wgmma<256, 4>(x, w, b, out, P, H, W, cin, cout, s);
+  if (nb == 64 && stages == 4) return launch_conv_wgmma<64, 4>(x, w, b, top, bot, out, P, H, W, cin, cout, s);
+  if (nb == 128 && stages == 4) return launch_conv_wgmma<128, 4>(x, w, b, top, bot, out, P, H, W, cin, cout, s);
+  if (nb == 256 && stages == 4) return launch_conv_wgmma<256, 4>(x, w, b, top, bot, out, P, H, W, cin, cout, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // f32: the SIMT mainloop, NT output channels a block
-int conv_dispatch_f32(const void* x, const void* w, const void* b, void* out, int P, int H, int W, int cin, int cout,
-                      cudaStream_t s) {
-  if (cout <= 32) return launch_conv_f32<32>(x, w, b, out, P, H, W, cin, cout, s);
-  if (cout <= 64) return launch_conv_f32<64>(x, w, b, out, P, H, W, cin, cout, s);
-  if (cout <= 128) return launch_conv_f32<128>(x, w, b, out, P, H, W, cin, cout, s);
-  return launch_conv_f32<256>(x, w, b, out, P, H, W, cin, cout, s);
+int conv_dispatch_f32(const void* x, const void* w, const void* b, const void* top, const void* bot, void* out, int P,
+                      int H, int W, int cin, int cout, cudaStream_t s) {
+  if (cout <= 32) return launch_conv_f32<32>(x, w, b, top, bot, out, P, H, W, cin, cout, s);
+  if (cout <= 64) return launch_conv_f32<64>(x, w, b, top, bot, out, P, H, W, cin, cout, s);
+  if (cout <= 128) return launch_conv_f32<128>(x, w, b, top, bot, out, P, H, W, cin, cout, s);
+  return launch_conv_f32<256>(x, w, b, top, bot, out, P, H, W, cin, cout, s);
 }
 
 // M per C: about 64 accumulators a thread; three M x (C + 8) operands and a
 // weight chunk within the 227 KB of shared memory in f32 (M = 32 at C = 512)
 template <int C>
 int launch_tail_f32(const void* x, const void* a, const void* wc, const void* bc, const void* wg,
-                    const void* bg, const void* wf, const void* bf, const void* wr, void* out, int P,
-                    int H, int W, int cin, cudaStream_t stream) {
+                    const void* bg, const void* wf, const void* bf, const void* wr, const void* top,
+                    const void* bot, void* out, int P, int H, int W, int cin, cudaStream_t stream) {
   constexpr int M = C >= 512 ? 32 : C >= 256 ? 64 : 128;
   using Tile = SimtTile<float, M, C>;
+  using F = const float*;
   const size_t smem = sizeof(float) * (3 * M * (C + kPad) + Tile::SW_ELEMS);
-  cudaFuncSetAttribute(dfc_tail_kernel<M, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dfc_tail_kernel<M, C><<<dfc::ceil_div(P, M), kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(a), static_cast<const float*>(wc),
-      static_cast<const float*>(bc), static_cast<const float*>(wg), static_cast<const float*>(bg),
-      static_cast<const float*>(wf), static_cast<const float*>(bf), static_cast<const float*>(wr),
-      static_cast<float*>(out), P, H, W, cin);
+  if (top != nullptr || bot != nullptr) {  // the halo rows' kernel
+    cudaFuncSetAttribute(dfc_tail_halo_kernel<M, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    dfc_tail_halo_kernel<M, C><<<dfc::ceil_div(P, M), kThreads, smem, stream>>>(
+        static_cast<F>(x), static_cast<F>(a), static_cast<F>(wc), static_cast<F>(bc), static_cast<F>(wg),
+        static_cast<F>(bg), static_cast<F>(wf), static_cast<F>(bf), static_cast<F>(wr), static_cast<F>(top),
+        static_cast<F>(bot), static_cast<float*>(out), P, H, W, cin);
+  } else {
+    cudaFuncSetAttribute(dfc_tail_kernel<M, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    dfc_tail_kernel<M, C><<<dfc::ceil_div(P, M), kThreads, smem, stream>>>(
+        static_cast<F>(x), static_cast<F>(a), static_cast<F>(wc), static_cast<F>(bc), static_cast<F>(wg),
+        static_cast<F>(bg), static_cast<F>(wf), static_cast<F>(bf), static_cast<F>(wr), static_cast<float*>(out), P, H,
+        W, cin);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -351,12 +445,14 @@ struct TailMaps {
 //           (at C = 512: -> fused replaces local in shared memory)
 //           KC steps: A = fused, B = wf's rows 0..C (z = 0);  -> ReLU(acc + bf);
 //   res     ceil(Cin/64) steps: A = x's centre pixels, B = wr;  -> + x wr.
-// The output leaves through the ring in coalesced 16-byte stores.
-template <int C>
-__global__ void __launch_bounds__(256, TailTiling<C>::kMinBlocks)
-dfc_tail_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a, const float* __restrict__ bc,
-                      const float* __restrict__ bg, const float* __restrict__ bf, bf16* __restrict__ out,
-                      int P, int H, int W, int cin, const __grid_constant__ TailMaps maps) {
+// The output leaves through the ring in coalesced 16-byte stores.  With halo rows (Halo =
+// dfc::HaloRows<bf16>, row sharding) the conv's taps in rows -1 and H read them; a and the
+// residual's x are the band's own rows.
+template <int C, class Halo>
+__device__ __forceinline__ void dfc_tail_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ a,
+                                               const float* __restrict__ bc, const float* __restrict__ bg,
+                                               const float* __restrict__ bf, bf16* __restrict__ out, int P, int H,
+                                               int W, int cin, const TailMaps& maps, Halo halo) {
   using T = TailTiling<C>;
   using R = typename T::R;
   constexpr int BM = T::BM, CW = T::CW, GW = T::GW, NB = T::NB, KC = T::KC, WM = T::WM;
@@ -371,7 +467,7 @@ dfc_tail_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a, co
   const int lane = threadIdx.x % 32, t = lane % 4;
   const int row = wm * 64 + ((threadIdx.x % 128) / 32) * 16 + lane / 4;  // and row + 8
   const int col0 = wn * CW + 2 * t;  // + 8j: this thread's columns of accumulator group j
-  const wgconv::PixelSlots<BM, 256> px(m0, P, H, W);
+  const wgconv::PixelSlots<BM, 256, Halo> px(m0, P, H, W, halo);
 
   // the stream of steps
   const int kx = (cin + 63) / 64;
@@ -540,9 +636,27 @@ dfc_tail_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a, co
 }
 
 template <int C>
+__global__ void __launch_bounds__(256, TailTiling<C>::kMinBlocks)
+dfc_tail_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a, const float* __restrict__ bc,
+                      const float* __restrict__ bg, const float* __restrict__ bf, bf16* __restrict__ out,
+                      int P, int H, int W, int cin, const __grid_constant__ TailMaps maps) {
+  dfc_tail_wgmma<C>(x, a, bc, bg, bf, out, P, H, W, cin, maps, dfc::NoHalo{});
+}
+
+// the same reading the halo rows top and bot ([B][W][cin] each, null at the image's edge)
+template <int C>
+__global__ void __launch_bounds__(256, TailTiling<C>::kMinBlocks)
+dfc_tail_wgmma_halo_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a, const float* __restrict__ bc,
+                           const float* __restrict__ bg, const float* __restrict__ bf, const bf16* top,
+                           const bf16* bot, bf16* __restrict__ out, int P, int H, int W, int cin,
+                           const __grid_constant__ TailMaps maps) {
+  dfc_tail_wgmma<C>(x, a, bc, bg, bf, out, P, H, W, cin, maps, dfc::HaloRows<bf16>{top, bot});
+}
+
+template <int C>
 int launch_tail_bf16(const void* x, const void* a, const void* wc, const void* bc, const void* wg,
-                     const void* bg, const void* wf, const void* bf, const void* wr, void* out, int P,
-                     int H, int W, int cin, cudaStream_t stream) {
+                     const void* bg, const void* wf, const void* bf, const void* wr, const void* top,
+                     const void* bot, void* out, int P, int H, int W, int cin, cudaStream_t stream) {
   using T = TailTiling<C>;
   if (cin % 8) return static_cast<int>(cudaErrorInvalidValue);  // 16-byte rows of x
   if (!wgconv::encode_tiled()) return static_cast<int>(cudaErrorNotSupported);
@@ -550,10 +664,19 @@ int launch_tail_bf16(const void* x, const void* a, const void* wc, const void* b
   if (!wgconv::tile_map(&maps.wc, wc, C, cin, 9, 64) || !wgconv::tile_map(&maps.wg, wg, C, C, 2, 64) ||
       !wgconv::tile_map(&maps.wf, wf, C, C, 3, 64) || !wgconv::tile_map(&maps.wr, wr, C, cin, 1, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncSetAttribute(dfc_tail_wgmma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
-  dfc_tail_wgmma_kernel<C><<<dfc::ceil_div(P, T::BM), 256, T::kSmemBytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(a), static_cast<const float*>(bc),
-      static_cast<const float*>(bg), static_cast<const float*>(bf), static_cast<bf16*>(out), P, H, W, cin, maps);
+  using B = const bf16*;
+  using F = const float*;
+  if (top != nullptr || bot != nullptr) {  // the halo rows' kernel
+    cudaFuncSetAttribute(dfc_tail_wgmma_halo_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+    dfc_tail_wgmma_halo_kernel<C><<<dfc::ceil_div(P, T::BM), 256, T::kSmemBytes, stream>>>(
+        static_cast<B>(x), static_cast<B>(a), static_cast<F>(bc), static_cast<F>(bg), static_cast<F>(bf),
+        static_cast<B>(top), static_cast<B>(bot), static_cast<bf16*>(out), P, H, W, cin, maps);
+  } else {
+    cudaFuncSetAttribute(dfc_tail_wgmma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+    dfc_tail_wgmma_kernel<C><<<dfc::ceil_div(P, T::BM), 256, T::kSmemBytes, stream>>>(
+        static_cast<B>(x), static_cast<B>(a), static_cast<F>(bc), static_cast<F>(bg), static_cast<F>(bf),
+        static_cast<bf16*>(out), P, H, W, cin, maps);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -574,14 +697,30 @@ int tail_dispatch(int c, Launch&& launch) {
 
 extern "C" int conv3x3_bn_relu_f32(const void* x, const void* w, const void* b, void* out, int P,
                                    int H, int W, int cin, int cout, void* stream) {
-  return conv_dispatch_f32(x, w, b, out, P, H, W, cin, cout, static_cast<cudaStream_t>(stream));
+  return conv_dispatch_f32(x, w, b, nullptr, nullptr, out, P, H, W, cin, cout, static_cast<cudaStream_t>(stream));
 }
 
 // w: [9 * cin8][cout], cin8 = cin zero-padded to a multiple of 8 (ops/dfc_tail.py::pack_conv_taps);
 // nb, stages: conv_tiling's (the ring's kernel needs cin a multiple of 8, the wrapper pads x for it)
 extern "C" int conv3x3_bn_relu_bf16(const void* x, const void* w, const void* b, void* out, int P,
                                     int H, int W, int cin, int cout, int nb, int stages, void* stream) {
-  return conv_wgmma_dispatch(x, w, b, out, P, H, W, cin, cout, nb, stages, static_cast<cudaStream_t>(stream));
+  return conv_wgmma_dispatch(x, w, b, nullptr, nullptr, out, P, H, W, cin, cout, nb, stages,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// the same over a band of an image's rows: top and bot ([B][W][cin] each, null at the image's
+// edge) are the rows just above and below the band, which the taps in rows -1 and H read
+extern "C" int conv3x3_bn_relu_halo_f32(const void* x, const void* w, const void* b, const void* top,
+                                        const void* bot, void* out, int P, int H, int W, int cin, int cout,
+                                        void* stream) {
+  return conv_dispatch_f32(x, w, b, top, bot, out, P, H, W, cin, cout, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int conv3x3_bn_relu_halo_bf16(const void* x, const void* w, const void* b, const void* top,
+                                         const void* bot, void* out, int P, int H, int W, int cin, int cout,
+                                         int nb, int stages, void* stream) {
+  return conv_wgmma_dispatch(x, w, b, top, bot, out, P, H, W, cin, cout, nb, stages,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int dfc_tail_f32(const void* x, const void* a, const void* wc, const void* bc,
@@ -589,8 +728,8 @@ extern "C" int dfc_tail_f32(const void* x, const void* a, const void* wc, const 
                             const void* wr, void* out, int P, int H, int W, int cin, int c,
                             void* stream) {
   return tail_dispatch(c, [&](auto C) {
-    return launch_tail_f32<decltype(C)::value>(x, a, wc, bc, wg, bg, wf, bf, wr, out, P, H, W, cin,
-                                               static_cast<cudaStream_t>(stream));
+    return launch_tail_f32<decltype(C)::value>(x, a, wc, bc, wg, bg, wf, bf, wr, nullptr, nullptr, out, P, H, W,
+                                               cin, static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -599,7 +738,29 @@ extern "C" int dfc_tail_bf16(const void* x, const void* a, const void* wc, const
                              const void* wr, void* out, int P, int H, int W, int cin, int c,
                              void* stream) {
   return tail_dispatch(c, [&](auto C) {
-    return launch_tail_bf16<decltype(C)::value>(x, a, wc, bc, wg, bg, wf, bf, wr, out, P, H, W, cin,
+    return launch_tail_bf16<decltype(C)::value>(x, a, wc, bc, wg, bg, wf, bf, wr, nullptr, nullptr, out, P, H, W,
+                                                cin, static_cast<cudaStream_t>(stream));
+  });
+}
+
+// the tail over a band of an image's rows: the conv's taps in rows -1 and H read top and bot
+// ([B][W][cin] each, null at the image's edge); a and x's residual are the band's own rows
+extern "C" int dfc_tail_halo_f32(const void* x, const void* a, const void* wc, const void* bc,
+                                 const void* wg, const void* bg, const void* wf, const void* bf,
+                                 const void* wr, const void* top, const void* bot, void* out, int P, int H,
+                                 int W, int cin, int c, void* stream) {
+  return tail_dispatch(c, [&](auto C) {
+    return launch_tail_f32<decltype(C)::value>(x, a, wc, bc, wg, bg, wf, bf, wr, top, bot, out, P, H, W, cin,
+                                               static_cast<cudaStream_t>(stream));
+  });
+}
+
+extern "C" int dfc_tail_halo_bf16(const void* x, const void* a, const void* wc, const void* bc,
+                                  const void* wg, const void* bg, const void* wf, const void* bf,
+                                  const void* wr, const void* top, const void* bot, void* out, int P, int H,
+                                  int W, int cin, int c, void* stream) {
+  return tail_dispatch(c, [&](auto C) {
+    return launch_tail_bf16<decltype(C)::value>(x, a, wc, bc, wg, bg, wf, bf, wr, top, bot, out, P, H, W, cin,
                                                 static_cast<cudaStream_t>(stream));
   });
 }

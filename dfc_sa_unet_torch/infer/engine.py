@@ -27,6 +27,12 @@ dfc_sa_unet_tpu/infer/engine.py:179-262).  Without ``ranges`` nothing changes.
 
 Takes normalised NCHW activations (channels_last) like the module and
 returns NCHW logits in the compute dtype.
+
+Under a band of rows (row sharding, parallel/rows.py) every 3x3 conv reads
+its neighbours' halo rows: the tail and conv3x3 kernels take them as their
+``top`` and ``bottom`` rows (None at the image's edge), the cuDNN convs as two
+more rows at padding (0, 1); the attention's pool and upsample are the whole
+image's (``parallel.rows``), the max pools the band's own.
 """
 
 from typing import Any, Mapping
@@ -35,12 +41,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dfc_sa_unet_torch.models.blocks import nchw, nhwc
+from dfc_sa_unet_torch.models.blocks import nchw, nhwc, upsample_pooled
 from dfc_sa_unet_torch.ops.convt import conv_transpose_2x2
 from dfc_sa_unet_torch.ops.dfc_tail import conv3x3_bn_relu, dfc_tail
 from dfc_sa_unet_torch.ops.pooled_attention import pooled_attention
 from dfc_sa_unet_torch.ops.pooling import adaptive_avg_pool, max_pool
 from dfc_sa_unet_torch.ops.resize import resize_bilinear
+from dfc_sa_unet_torch.parallel import rows
 from dfc_sa_unet_torch.utils.device import resolve_device
 
 BLOCKS = ("down1", "down2", "down3", "down4", "bottleneck",
@@ -166,8 +173,20 @@ class DFCEngine:
         p = self.pool_size
         pooled = adaptive_avg_pool(a, (p, p))
         q, k, v = (nhwc(_conv(pooled, *d[key])) for key in ("query", "key", "value"))
-        o = resize_bilinear(nchw(pooled_attention(q, k, v)), (h, w))
+        o = upsample_pooled(nchw(pooled_attention(q, k, v)), (h, w))
         return (d["gamma"] * o.float() + a.float()).to(a.dtype)
+
+    @staticmethod
+    def _halo(x):
+        """Under a band of rows, x's halo rows as the kernels take them: (top, bottom), [B,W,C] each
+        in x's dtype, None at the image's edge; (None, None) without a band."""
+        band = rows.current()
+        if band is None:
+            return None, None
+        top, bottom = rows.exchange_rows(x, band)
+        b, c, _, w = x.shape
+        return tuple(None if peer is None else nhwc(t).reshape(b, w, c)
+                     for peer, t in ((band.prev, top), (band.next, bottom)))
 
     def _tap(self, ranges, key, t):
         """Calibration mode (``ranges`` a dict): record t's range under ``key`` (quant.range_tap)."""
@@ -203,14 +222,16 @@ class DFCEngine:
         self._tap(ranges, f"{name}.x", x)
         if ranges is None and name in self.tail_kernel_levels:
             a = self._attn_branch(d, x)
+            top, bottom = self._halo(x)
             out = dfc_tail(nhwc(x), nhwc(a), d["wc"], d["conv"][1], d["wg"], d["kg"][1],
-                           d["wf"], d["kf"][1], d["wr"])
+                           d["wf"], d["kf"][1], d["wr"], top=top, bottom=bottom)
             return nchw(out)
         if name in self.conv_kernel_levels:
-            local = nchw(conv3x3_bn_relu(nhwc(x), d["wc"], d["conv"][1]))
+            top, bottom = self._halo(x)
+            local = nchw(conv3x3_bn_relu(nhwc(x), d["wc"], d["conv"][1], top=top, bottom=bottom))
         else:
             # bias-free 3x3 conv in the compute dtype, then the +bc/ReLU epilogue
-            y3 = F.conv2d(x, d["conv"][0], padding=1).to(x.dtype)
+            y3 = rows.conv3x3(x, d["conv"][0]).to(x.dtype)
             local = torch.relu(y3.float() + d["conv"][1].view(-1, 1, 1)).to(x.dtype)
         a = self._attn_branch(d, x)
         return self._tail_lax(d, local, a, x, name, ranges)
@@ -229,7 +250,8 @@ class DFCEngine:
         for i in range(4, 0, -1):
             skip = skips[i - 1]
             h = conv_transpose_2x2(h, *self.ups[f"up{i}"])
-            if h.shape[2:] != skip.shape[2:]:
+            if h.shape[2:] != skip.shape[2:]:  # never under a band: its height is even at every level
+                assert rows.current() is None, f"the decoder's shape fix under a band of rows: {tuple(h.shape)}"
                 h = resize_bilinear(h, skip.shape[2:])
             h = self._block(f"up_conv{i}", torch.cat([h, skip], 1), ranges)
         return _conv(h, *self.final)

@@ -6,6 +6,14 @@ fixed-size batches; TTA (identity + hflip + vflip) rides the same batches;
 the probabilities are count-averaged back onto the image.  The uint8
 batch is normalised on the device.  ``predict_sliding_stream`` fills the
 batches with tiles of consecutive images.
+
+Under row sharding (a mesh with ``spatial`` S > 1, parallel/mesh.py) every
+rank of a spatial group takes the same batch, cuts its band of the rows on
+the host before the copy to the card, runs the forward in the band's context
+(parallel/rows.py), and the group all-gathers the bands' probabilities
+(through the host on Gloo): each rank returns one process's result.  A
+height that is not a multiple of 16 S runs whole on every rank, with JAX's
+note once.
 """
 
 import queue
@@ -17,6 +25,7 @@ import torch
 
 from dfc_sa_unet_torch.data.normalize import normalize
 from dfc_sa_unet_torch.ops import _build
+from dfc_sa_unet_torch.parallel import rows
 from dfc_sa_unet_torch.utils.device import resolve_device
 
 
@@ -105,23 +114,59 @@ class Predictor:
     Runs on ``device`` (default CUDA, raising without it).  A model with an
     ``img_dim`` attribute (ViT-seg, TransUNet) is served at that size only.
     ``exe_cache_dir``: the directory the CUDA kernels are built in and loaded
-    from (``ops/_build.py::set_build_dir``)."""
+    from (``ops/_build.py::set_build_dir``).  ``mesh``: a ``parallel.mesh.ProcessMesh``
+    whose ``spatial`` above 1 shards every image's rows over the ranks of a
+    spatial group (the DFC family and the folded ``DFCEngine`` only)."""
 
-    def __init__(self, model, compute_dtype=None, device=None, exe_cache_dir=None):
+    def __init__(self, model, compute_dtype=None, device=None, exe_cache_dir=None, mesh=None):
         if exe_cache_dir is not None:
             _build.set_build_dir(exe_cache_dir)
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype or torch.float32
+        self.mesh = mesh if mesh is not None and mesh.group is not None and mesh.spatial > 1 else None
+        if self.mesh is not None:
+            rows.check_model(model)
+        self._warned_spatial = False
         if isinstance(model, torch.nn.Module):
             model = model.to(self.device, memory_format=torch.channels_last).eval()
         self.model = model
 
+    def _band(self, height: int):
+        """This rank's band of a batch of ``height`` rows, or None (no row sharding, or a height that
+        breaks the band rule: the batch then runs whole, with JAX's note once)."""
+        if self.mesh is None:
+            return None
+        if rows.divides(height, self.mesh.spatial):
+            return self.mesh.band(height)
+        if not self._warned_spatial and self.mesh.is_primary:
+            print(f"(spatial={self.mesh.spatial} does not divide H={height} into bands of an even height at every "
+                  f"pooling level, a multiple of {self.mesh.spatial << rows.LEVELS}; sharding batch only)")
+        self._warned_spatial = True
+        return None
+
+    @staticmethod
+    def _gather_bands(probs: torch.Tensor, band) -> torch.Tensor:
+        """The whole images' [B,H,W] probabilities from every band's, on every rank of the group
+        (on the card under NCCL, through the host on Gloo)."""
+        import torch.distributed as dist
+
+        part = probs.contiguous() if band.backend == "nccl" else probs.cpu()
+        parts = [torch.empty_like(part) for _ in range(band.count)]
+        dist.all_gather(parts, part, group=band.group)
+        return torch.cat(parts, 1)
+
     @torch.inference_mode()
     def _forward_u8(self, images_u8: np.ndarray) -> np.ndarray:
+        band = self._band(images_u8.shape[1])
+        if band is not None:
+            images_u8 = images_u8[:, band.row0:band.row0 + band.rows]
         x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(self.device, non_blocking=True)
         x = normalize(x, self.compute_dtype).permute(0, 3, 1, 2)  # NCHW, channels_last
-        probs = torch.sigmoid(self.model(x).float())
-        return probs[:, 0].cpu().numpy()
+        with rows.band_context(band):
+            probs = torch.sigmoid(self.model(x).float())[:, 0]
+        if band is not None:
+            probs = self._gather_bands(probs, band)
+        return probs.cpu().numpy()
 
     def predict_probs(self, images_u8: np.ndarray) -> np.ndarray:
         """[B,H,W,3] uint8 -> [B,H,W] probabilities, the batch run as it is.

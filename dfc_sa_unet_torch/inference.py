@@ -5,10 +5,11 @@
         [--tile_size 224] [--overlap 50] [--resize W H] [--no_slide_window]
         [--tta] [--bf16 | --no_bf16] [--engine] [--batch_size 128] [--serial]
         [--int8 [--int8_percentile 99.9 | --int8_maxabs] [--no_int8_check] [--strict]]
-        [--exe_cache DIR] [--device cuda] [--data_parallel] [--multihost] [--coordinator HOST:PORT
-        --num_processes N --process_id I]
+        [--exe_cache DIR] [--device cuda] [--data_parallel] [--spatial_parallel S] [--multihost]
+        [--coordinator HOST:PORT --num_processes N --process_id I]
 
     torchrun --nproc_per_node N -m dfc_sa_unet_torch.inference ... --data_parallel
+    torchrun --nproc_per_node N -m dfc_sa_unet_torch.inference ... --spatial_parallel S --no_slide_window
 
 WEIGHTS is a reference-layout PyTorch ``.pth`` (raw state dict or trainer
 checkpoint), or the ``best_model`` or a checkpoint that
@@ -47,8 +48,20 @@ file list (int8 calibration runs on its first images), serves
 must be shared; after a barrier over a Gloo group the primary merges the
 rows into the global file order and writes the CSV and the summary.  In
 JAX ``--data_parallel`` splits a batch over one process's devices; either
-way each image gets the same probabilities.  ``--spatial_parallel`` above 1
-(row sharding) raises: not ported yet (ROADMAP.md, Queue A 4).
+way each image gets the same probabilities.
+
+``--spatial_parallel S`` under torchrun (row sharding of the DFC family,
+``--engine`` included): the N processes form N / S data groups of S ranks
+(rank d * S + s); data group d serves ``files[d::N/S]``, and each of its
+ranks holds a band of every image's rows (parallel/rows.py): halo exchanges
+between neighbouring bands, the pooled attention's pool over the bands, the
+probabilities gathered over the group, so one large image is served exactly
+across cards, without tile seams (``--no_slide_window``, on images whose
+activations exceed one card's memory).  The height must be a multiple of 16
+S; another height runs whole on every rank of the group.  The group is NCCL
+on the cards; the spatial index 0 of each data group writes the artifacts
+and the metrics' part.  ``--int8``, ViT-seg, TransUNet and
+UNet_FullResAttention under a band raise (ROADMAP.md, Queue A 4.2).
 """
 
 import argparse
@@ -67,7 +80,8 @@ from dfc_sa_unet_torch.metrics import confusion_counts, metrics_from_counts
 from dfc_sa_unet_torch.models.factory import create_model
 from dfc_sa_unet_torch.ops import _build
 from dfc_sa_unet_torch.parallel import multihost as mh
-from dfc_sa_unet_torch.parallel.mesh import ROW_SHARDING, add_parallel_flags, mesh_from_flags
+from dfc_sa_unet_torch.parallel import rows
+from dfc_sa_unet_torch.parallel.mesh import add_parallel_flags, mesh_from_flags
 from dfc_sa_unet_torch.utils.device import resolve_device
 from dfc_sa_unet_torch.utils.visualization import create_combined_visualization
 from dfc_sa_unet_torch.utils.weights import load_state_dict_file
@@ -111,8 +125,10 @@ def save_prediction(original, pred_prob, pred_binary, output_dir, filename, gt_m
         cv2.imwrite(os.path.join(individual, "ground_truth.png"), gt_vis)
 
 
-def build_predictor(config, weights, bf16=False, engine=False, device=None, exe_cache_dir=None) -> Predictor:
-    """Model (or folded engine) + weights -> Predictor on ``device``; ``exe_cache_dir`` as the Predictor's."""
+def build_predictor(config, weights, bf16=False, engine=False, device=None, exe_cache_dir=None,
+                    mesh=None) -> Predictor:
+    """Model (or folded engine) + weights -> Predictor on ``device``; ``exe_cache_dir`` and ``mesh`` (row
+    sharding) as the Predictor's."""
     dev = resolve_device(device)
     dtype = torch.bfloat16 if bf16 else torch.float32
     if engine:
@@ -126,7 +142,7 @@ def build_predictor(config, weights, bf16=False, engine=False, device=None, exe_
     else:
         model = create_model(config, dtype=torch.bfloat16 if bf16 else None, device=dev)
         model.load_state_dict(weights, strict=True)
-    return Predictor(model, compute_dtype=dtype, device=dev, exe_cache_dir=exe_cache_dir)
+    return Predictor(model, compute_dtype=dtype, device=dev, exe_cache_dir=exe_cache_dir, mesh=mesh)
 
 
 INT8_MODELS = ("DFC-SA-Res-Block", "VisionTransformerSegmentation", "TransformerUNet", "TransUNet")
@@ -201,10 +217,9 @@ def build_int8_predictor(config, weights, image_files, args, device=None) -> Pre
 def main(args):
     config = load_config(_norm(args.config))
     merge_parallel_flags(args, config, sections=("inference",))
-    if args.spatial_parallel > 1:
-        raise NotImplementedError(f"--spatial_parallel {args.spatial_parallel}: {ROW_SHARDING}")
-    # a group only for the barrier before the merge: Gloo, whatever the device
-    mesh = mesh_from_flags(args, backend="gloo")
+    # without row sharding a group only for the barrier before the merge: Gloo, whatever the device;
+    # with it the halos and the pool's sums too: NCCL on the cards
+    mesh = mesh_from_flags(args, backend="gloo" if args.spatial_parallel <= 1 else None)
     try:
         serve(args, config, mesh)
     finally:
@@ -215,6 +230,8 @@ def serve(args, config, mesh):
     import cv2
 
     nproc, pid, primary = mesh.world_size, mesh.rank, mesh.is_primary
+    # row sharding: the S ranks of a data index serve the same files, each a band of their rows
+    writes = mesh.spatial_index == 0
     model_path = args.model or config["model"].get("pretrained_path")
     if not model_path:
         raise SystemExit("no weights: pass --model or set model.pretrained_path in the config")
@@ -246,10 +263,11 @@ def serve(args, config, mesh):
     # the global file order drives int8 calibration and the merged CSV; each process serves a strided shard
     global_files = image_files
     if nproc > 1:
-        image_files = image_files[pid::nproc]
+        image_files = image_files[mesh.data_index::mesh.data_size]
         if primary:
-            print(f"Multi-process serving: {nproc} processes, one card each; the file list shards round-robin; "
-                  f"the output dir must be shared.")
+            print(f"Multi-process serving: {nproc} processes, one card each; the file list shards round-robin"
+                  + (f" over {mesh.data_size} data groups of {mesh.spatial} bands" if mesh.spatial > 1 else "")
+                  + "; the output dir must be shared.")
 
     if args.exe_cache:  # before anything launches a kernel: int8 calibration does, before the Predictor exists
         _build.set_build_dir(args.exe_cache)
@@ -258,11 +276,13 @@ def serve(args, config, mesh):
     if args.int8 and not int8:
         print("(--int8 supports DFC-SA-Res-Block, VisionTransformerSegmentation, and TransformerUNet; "
               "using standard path)")
+    if int8 and mesh.spatial > 1:
+        raise rows.unported("the int8 engines (--int8)")
     if int8:
         predictor = build_int8_predictor(config, weights, global_files, args, device=mesh.device)
     else:
         predictor = build_predictor(config, weights, bf16=args.bf16, engine=args.engine and not args.int8,
-                                    device=mesh.device, exe_cache_dir=args.exe_cache)
+                                    device=mesh.device, exe_cache_dir=args.exe_cache, mesh=mesh)
     kind = " (int8 engine)" if int8 else " (folded engine)" if args.engine and not args.int8 else ""
     print(f"Loaded {model_path}; model {name} on {predictor.device} in "
           f"{str(predictor.compute_dtype).split('.')[-1]}{kind}")
@@ -312,7 +332,7 @@ def serve(args, config, mesh):
                 filename, original, gt_gray = meta.pop(i)
                 yield filename, original, gt_gray, prob
 
-    rows, totals = [], {"tp": 0, "fp": 0, "fn": 0, "tn": 0}
+    metric_rows, totals = [], {"tp": 0, "fp": 0, "fn": 0, "tn": 0}
     for n_done, (filename, original, gt_gray, prob) in enumerate(predicted(), 1):
         pred_binary = (prob > args.threshold).astype(np.uint8)
         gt_mask = None
@@ -323,18 +343,19 @@ def serve(args, config, mesh):
             counts = confusion_counts(torch.from_numpy(pred_binary), torch.from_numpy(gt_resized))
             for key in totals:
                 totals[key] += counts[key]
-            rows.append({**metrics_from_counts(**counts), "file": filename, **counts})
-        save_prediction(original, prob, pred_binary, output_dir, filename, gt_mask=gt_mask)
-        print(f"[{n_done}/{len(image_files)}] {filename}")
+            metric_rows.append({**metrics_from_counts(**counts), "file": filename, **counts})
+        if writes:
+            save_prediction(original, prob, pred_binary, output_dir, filename, gt_mask=gt_mask)
+            print(f"[{n_done}/{len(image_files)}] {filename}")
 
     if evaluate and nproc > 1:
-        rows, totals = merge_parts(output_dir, pid, nproc, rows, totals, global_files)
+        metric_rows, totals = merge_parts(output_dir, pid, nproc, metric_rows, totals, global_files, mesh.spatial)
         if not primary:
             return
-    if evaluate and rows:
+    if evaluate and metric_rows:
         keys = ["iou", "dice_f1", "accuracy", "recall", "precision", "tp", "fp", "fn", "tn"]
         print(f"{'File':<30}" + "".join(f"{k.upper():>12}" for k in keys))
-        for m in rows:
+        for m in metric_rows:
             print(f"{m['file']:<30}" + "".join(f"{m[k]:>12.4f}" for k in keys))
         g = metrics_from_counts(**totals)
         print("--- Global metrics (Micro-Averaged) ---")
@@ -349,24 +370,26 @@ def serve(args, config, mesh):
         with open(csv_path, "w", newline="", encoding="utf-8") as f:
             writer = csv.DictWriter(f, fieldnames=["file"] + keys)
             writer.writeheader()
-            writer.writerows(rows)
+            writer.writerows(metric_rows)
         print(f"Metrics CSV saved to: {csv_path}")
     if primary:
         print(f"Inference complete. Results saved to {output_dir}")
 
 
-def merge_parts(output_dir, pid, nproc, rows, totals, global_files):
-    """Every process writes its rows and totals beside the output; after a barrier the primary
+def merge_parts(output_dir, pid, nproc, rows, totals, global_files, spatial=1):
+    """Every process writes its rows and totals beside the output (under row sharding the spatial
+    index 0 of each data group: its other ranks served the same files); after a barrier the primary
     reads every part (and removes it) and returns the rows in the global file order and the summed
     totals; the other processes return (None, None)."""
     part = os.path.join(output_dir, f"evaluation_metrics.part{pid}.json")
-    with open(part, "w", encoding="utf-8") as f:
-        json.dump({"rows": rows, "totals": totals}, f)
+    if pid % spatial == 0:
+        with open(part, "w", encoding="utf-8") as f:
+            json.dump({"rows": rows, "totals": totals}, f)
     mh.sync("eval_parts")
     if pid != 0:
         return None, None
     rows, totals = [], {k: 0 for k in totals}
-    for p in range(nproc):
+    for p in range(0, nproc, spatial):
         path = os.path.join(output_dir, f"evaluation_metrics.part{p}.json")
         if not os.path.exists(path):
             print(f"Warning: the evaluation rows of process {p} are missing (is the output dir shared?); "

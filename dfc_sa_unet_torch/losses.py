@@ -16,12 +16,15 @@ their count, Dice's and Tversky's products and totals).  ``reduce`` maps the
 stacked sums of this process's chunk to those of the global batch; the data-
 parallel step passes ``parallel.spmd.all_reduce_sum``, so the loss is that of
 the global batch after one all-reduce.  Without it the sums are the batch's.
+Under a band of rows (parallel/rows.py) the sums are the band's, and ``joint``'s
+contour reads the neighbours' halo rows of the probabilities and the targets.
 """
 
 from typing import Any, Mapping, Optional
 
 import torch
-import torch.nn.functional as F
+
+from dfc_sa_unet_torch.parallel import rows
 
 _EPS_LOG = -100.0  # torch BCELoss clamps log terms at -100
 
@@ -99,9 +102,10 @@ _LAPLACIAN = ((-1.0, -1.0, -1.0), (-1.0, 8.0, -1.0), (-1.0, -1.0, -1.0))
 
 
 def _contour(x: torch.Tensor) -> torch.Tensor:
-    """3x3 Laplacian edge response, padding 1, of a [B,1,H,W] map."""
+    """3x3 Laplacian edge response, padding 1, of a [B,1,H,W] map (under a band of rows,
+    parallel/rows.py, of the band with its neighbours' halo rows)."""
     kernel = torch.tensor(_LAPLACIAN, dtype=torch.float32, device=x.device).reshape(1, 1, 3, 3)
-    return F.conv2d(x.float(), kernel, padding=1)
+    return rows.conv3x3(x.float(), kernel)
 
 
 def joint_loss(pred, target, bce_weight: float = 1.0, dice_weight: float = 1.0,

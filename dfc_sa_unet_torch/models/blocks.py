@@ -22,6 +22,7 @@ from dfc_sa_unet_torch.ops.dropout import call_block
 from dfc_sa_unet_torch.ops.pooled_attention import pooled_attention
 from dfc_sa_unet_torch.ops.pooling import adaptive_avg_pool, max_pool
 from dfc_sa_unet_torch.ops.resize import resize_bilinear
+from dfc_sa_unet_torch.parallel import rows
 
 
 def nhwc(t: torch.Tensor) -> torch.Tensor:
@@ -37,7 +38,9 @@ def nchw(t: torch.Tensor) -> torch.Tensor:
 class LightSelfAttention(nn.Module):
     """Pooled global self-attention (reference models/unet_dfc_sa_res.py:5-39):
     avg-pool to (p,p) -> 1x1 Q/K at C//qk_div, V at C -> softmax(QK^T) V
-    (unscaled) -> bilinear upsample -> gamma*out + x.
+    (unscaled) -> bilinear upsample -> gamma*out + x.  Under a band of rows
+    (parallel/rows.py) the pool and the upsample are the whole image's: the
+    attention then runs on the same p x p map on every rank of the group.
 
     ``pool_size=None`` is the full-resolution variant (reference
     models/unet_dfc_sa_ablation_attention.py:7-26): the same arithmetic over
@@ -61,12 +64,20 @@ class LightSelfAttention(nn.Module):
     def forward(self, x):
         h, w = x.shape[2:]
         p = self.pool_size
+        if p is None and rows.current() is not None:
+            raise rows.unported("UNet_FullResAttention (its attention reads every pixel of the image)")
         pooled = x if p is None else adaptive_avg_pool(x, (p, p))
         q, k, v = (nhwc(conv(pooled)) for conv in (self.query_conv, self.key_conv, self.value_conv))
         out = nchw(pooled_attention(q, k, v))
         if p is not None:
-            out = resize_bilinear(out, (h, w))
+            out = upsample_pooled(out, (h, w))
         return (self.gamma * out.float() + x.float()).to(x.dtype)
+
+
+def upsample_pooled(o: torch.Tensor, size) -> torch.Tensor:
+    """The pooled attention's bilinear upsample to ``size``: under a band of rows
+    (parallel/rows.py) only the band's rows of the whole image's resize."""
+    return resize_bilinear(o, size) if rows.current() is None else rows.upsample_band(o, size)
 
 
 def conv_bn_relu(cin, cout, kernel, compute_dtype):
@@ -246,7 +257,8 @@ def unet_forward(model: nn.Module, x: torch.Tensor, remat=False) -> torch.Tensor
     for i in range(4, 0, -1):
         skip = skips[i - 1]
         h = getattr(model, f"up{i}")(h)
-        if h.shape[2:] != skip.shape[2:]:
+        if h.shape[2:] != skip.shape[2:]:  # never under a band: its height is even at every level
+            assert rows.current() is None, f"the decoder's shape fix under a band of rows: {tuple(h.shape)}"
             h = resize_bilinear(h, skip.shape[2:])
         h = block(f"up_conv{i}", torch.cat([h, skip], 1))
     return model.final_conv(h)

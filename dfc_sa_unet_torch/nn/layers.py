@@ -19,17 +19,20 @@ from torch import nn
 
 from dfc_sa_unet_torch.ops.convt import conv_transpose_2x2
 from dfc_sa_unet_torch.ops.dropout import recomputing
+from dfc_sa_unet_torch.parallel import rows
 
 
-# Set by parallel.spmd's data-parallel step: every BatchNorm in training mode inside the context
-# takes its batch statistics over the processes of the default group (JAX's bn_cross_replica_axis).
+# Set by the Trainer's data-parallel step: every BatchNorm in training mode inside the context takes
+# its batch statistics over the processes of a group (JAX's bn_cross_replica_axis): the value is
+# (the group,), (None,) for every process, or False
 _CROSS_REPLICA: contextvars.ContextVar = contextvars.ContextVar("bn_cross_replica", default=False)
 
 
 @contextlib.contextmanager
-def bn_cross_replica(enabled: bool = True):
-    """Make every BatchNorm that trains inside this context use global batch statistics."""
-    token = _CROSS_REPLICA.set(enabled)
+def bn_cross_replica(enabled: bool = True, group=None):
+    """Make every BatchNorm that trains inside this context use the batch statistics of the
+    processes of ``group`` (default: every process)."""
+    token = _CROSS_REPLICA.set((group,) if enabled else False)
     try:
         yield
     finally:
@@ -45,9 +48,10 @@ class _CrossReplicaNorm(torch.autograd.Function):
     backward reads x and dy in f32 for two sums and two fused multiply-adds."""
 
     @staticmethod
-    def forward(ctx, x, xf, weight, bias, mean, var, n, eps):
-        """``xf`` is x in f32, made once for the statistics."""
+    def forward(ctx, x, xf, weight, bias, mean, var, n, eps, group):
+        """``xf`` is x in f32, made once for the statistics; ``group`` that of the statistics."""
         invstd = torch.rsqrt(var + eps)
+        ctx.group = group
         ctx.save_for_backward(x, weight, mean, invstd, n)
         return F.batch_norm(xf, mean, var, weight, bias, False, 0.0, eps).to(x.dtype)
 
@@ -60,14 +64,14 @@ class _CrossReplicaNorm(torch.autograd.Function):
         sum_dy = dyf.sum(dims)
         sum_dy_xhat = ((dyf * xf).sum(dims) - mean * sum_dy) * invstd
         both = torch.cat([sum_dy, sum_dy_xhat])
-        dist.all_reduce(both)
+        dist.all_reduce(both, group=ctx.group)
         g_dy, g_dy_xhat = (both / n).chunk(2)
         # dx = w invstd (dy - g_dy - xhat g_dy_xhat), as a dy + b x + c per channel: two fused passes
         a = weight * invstd
         b = -a * invstd * g_dy_xhat
         c = a * (invstd * g_dy_xhat * mean - g_dy)
         dx = torch.addcmul(torch.addcmul(c.view(shape), dyf, a.view(shape)), xf, b.view(shape))
-        return dx.to(x.dtype), None, sum_dy_xhat, sum_dy, None, None, None, None
+        return dx.to(x.dtype), None, sum_dy_xhat, sum_dy, None, None, None, None, None
 
 
 class _AddBias(torch.autograd.Function):
@@ -102,8 +106,16 @@ def add_bias_(y, bias):
     return y.add_(bias)
 
 
+def _band_check(layer):
+    """Under a band of rows (parallel/rows.py) a layer whose window reaches past a row raises."""
+    if rows.current() is not None:
+        raise rows.unported(f"{type(layer).__name__}(kernel {layer.kernel_size}, stride {layer.stride})")
+
+
 class Conv(nn.Conv2d):
-    """nn.Conv2d computing in ``compute_dtype`` (default: the input's)."""
+    """nn.Conv2d computing in ``compute_dtype`` (default: the input's).  Under a band of rows
+    (parallel/rows.py) a 3x3 conv at padding 1 reads its neighbours' halo rows; a 1x1 conv is
+    local; any other raises."""
 
     def __init__(self, cin, cout, kernel_size, stride=1, padding=0, bias=True, compute_dtype=None):
         super().__init__(cin, cout, kernel_size, stride=stride, padding=padding, bias=bias)
@@ -111,6 +123,11 @@ class Conv(nn.Conv2d):
 
     def forward(self, x):
         dtype = self.compute_dtype or x.dtype
+        if self.kernel_size == (3, 3) and self.padding == (1, 1) and self.stride == (1, 1):
+            y = rows.conv3x3(x.to(dtype), self.weight.to(dtype))
+            return add_bias_(y, None if self.bias is None else self.bias.view(-1, 1, 1))
+        if self.kernel_size != (1, 1):
+            _band_check(self)
         y = F.conv2d(x.to(dtype), self.weight.to(dtype), None, self.stride, self.padding)
         return add_bias_(y, None if self.bias is None else self.bias.view(-1, 1, 1))
 
@@ -125,6 +142,7 @@ class WSConv(nn.Conv2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
+        _band_check(self)
         dtype = self.compute_dtype or x.dtype
         var, mean = torch.var_mean(self.weight, dim=(1, 2, 3), keepdim=True, unbiased=False)
         w = (self.weight - mean) / torch.sqrt(var + 1e-5)
@@ -146,7 +164,7 @@ class BatchNorm(nn.BatchNorm2d):
 
     def forward(self, x):
         if self.training and _CROSS_REPLICA.get():
-            return self._cross_replica(x)
+            return self._cross_replica(x, *_CROSS_REPLICA.get())
         mean, var = self.running_mean, self.running_var
         if self.training:
             if recomputing():
@@ -156,7 +174,7 @@ class BatchNorm(nn.BatchNorm2d):
         y = F.batch_norm(x.float(), mean, var, self.weight, self.bias, self.training, self.momentum, self.eps)
         return y.to(x.dtype)
 
-    def _cross_replica(self, x):
+    def _cross_replica(self, x, group=None):
         """Training with the global batch's statistics (``bn_cross_replica``), as the JAX layer
         under an axis: the sums of x and x^2 (from this process's mean and variance, one pass) and
         the count over the processes in one all-reduce, var = max(E[x^2] - E[x]^2, 0), the running
@@ -169,7 +187,7 @@ class BatchNorm(nn.BatchNorm2d):
             n_local = xf.numel() / c
             sums = torch.cat([mean_local * n_local, (var_local + mean_local.square()) * n_local,
                               mean_local.new_full((1,), n_local)])
-            dist.all_reduce(sums)
+            dist.all_reduce(sums, group=group)
             n = sums[2 * c:]
             mean = sums[:c] / n
             var = (sums[c:2 * c] / n - mean.square()).clamp(min=0.0)
@@ -178,7 +196,7 @@ class BatchNorm(nn.BatchNorm2d):
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(m * mean)
                 self.running_var.mul_(1.0 - m).add_(m * var * n / (n - 1.0).clamp(min=1.0))
-        return _CrossReplicaNorm.apply(x, xf, self.weight, self.bias, mean, var, n, self.eps)
+        return _CrossReplicaNorm.apply(x, xf, self.weight, self.bias, mean, var, n, self.eps, group)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -240,6 +258,7 @@ class ConvTranspose(nn.ConvTranspose2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
+        _band_check(self)
         dtype = self.compute_dtype or x.dtype
         y = F.conv_transpose2d(x.to(dtype), self.weight.to(dtype), None, self.stride, self.padding)
         return add_bias_(y, None if self.bias is None else self.bias.view(-1, 1, 1))

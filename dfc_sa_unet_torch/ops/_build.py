@@ -38,6 +38,11 @@ SIGNATURES = {
     "conv3x3_bn_relu_bf16": ("dfc_tail", [_P] * 4 + [_I] * 7 + [_P]),
     "dfc_tail_f32": ("dfc_tail", [_P] * 10 + [_I] * 5 + [_P]),
     "dfc_tail_bf16": ("dfc_tail", [_P] * 10 + [_I] * 5 + [_P]),
+    # the same over a band of rows: the halo rows top and bottom after the operands (null: the image's edge)
+    "conv3x3_bn_relu_halo_f32": ("dfc_tail", [_P] * 6 + [_I] * 5 + [_P]),
+    "conv3x3_bn_relu_halo_bf16": ("dfc_tail", [_P] * 6 + [_I] * 7 + [_P]),
+    "dfc_tail_halo_f32": ("dfc_tail", [_P] * 12 + [_I] * 5 + [_P]),
+    "dfc_tail_halo_bf16": ("dfc_tail", [_P] * 12 + [_I] * 5 + [_P]),
     "mha_f32": ("mha", [_P] * 4 + [_I] * 5 + [_P]),
     "mha_bf16": ("mha", [_P] * 4 + [_I] * 5 + [_P]),
     "mha_wgmma_bf16": ("mha", [_P] * 4 + [_I] * 5 + [_P]),

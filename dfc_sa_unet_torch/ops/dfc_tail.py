@@ -11,6 +11,15 @@ bf16 kernels take any Cin, which the wrappers zero-pad to a multiple of 8.
 The bf16 conv walks K = 9 Cin8 flat in 64-deep steps (``conv_tiling``,
 ``pack_conv_taps``), so at down1's Cin = 3 a step packs eight taps, and reads
 down1's 3-channel x as it is.
+
+Row sharding (parallel/rows.py): both kernels, and their plain versions,
+take two optional rows ``top`` and ``bottom`` ([B,W,Cin] in x's dtype), the
+rows just above and below a band of the image, which the 3x3 taps in rows -1
+and H read instead of zero; None is the image's edge.  ``a`` and the
+residual's x are the band's own rows.  With either row the wrappers launch
+the kernels' halo instantiations (``conv3x3_bn_relu_halo_*``,
+``dfc_tail_halo_*``: the template flag ``dfc::HaloRows`` of csrc/common.cuh),
+counted under the same names.
 """
 
 from collections import namedtuple
@@ -29,23 +38,30 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 LAUNCHES = {"conv3x3_bn_relu": 0, "dfc_tail": 0}
 
 
-def _conv3x3_f32(x: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
-    """f32 3x3 conv, padding 1, of NHWC x with an HWIO kernel -> NHWC."""
-    y = F.conv2d(x.float().permute(0, 3, 1, 2), wc.to(x.dtype).float().permute(3, 2, 0, 1), padding=1)
+def _conv3x3_f32(x: torch.Tensor, wc: torch.Tensor, top=None, bottom=None) -> torch.Tensor:
+    """f32 3x3 conv, padding 1, of NHWC x with an HWIO kernel -> NHWC; ``top`` and ``bottom``
+    ([B,W,Cin] or None: zeros) are the rows above and below x."""
+    k = wc.to(x.dtype).float().permute(3, 2, 0, 1)
+    if top is None and bottom is None:
+        y = F.conv2d(x.float().permute(0, 3, 1, 2), k, padding=1)
+    else:
+        edge = x.new_zeros(x.shape[0], 1, *x.shape[2:])
+        rows = [edge if t is None else t.reshape(edge.shape) for t in (top, bottom)]
+        y = F.conv2d(torch.cat([rows[0], x, rows[1]], 1).float().permute(0, 3, 1, 2), k, padding=(0, 1))
     return y.permute(0, 2, 3, 1)
 
 
-def conv3x3_bn_relu_plain(x, w, b):
+def conv3x3_bn_relu_plain(x, w, b, top=None, bottom=None):
     """ReLU(conv3x3(x) + b), summed in f32, cast to x's dtype once."""
-    return torch.relu(_conv3x3_f32(x, w) + b.float()).to(x.dtype)
+    return torch.relu(_conv3x3_f32(x, w, top, bottom) + b.float()).to(x.dtype)
 
 
-def dfc_tail_plain(x, a, wc, bc, wg, bg, wf, bf, wr):
+def dfc_tail_plain(x, a, wc, bc, wg, bg, wf, bf, wr, top=None, bottom=None):
     """The TPU kernel's math (pallas_conv.py:156-194) with f32 sums: the
     gate and fusion products read `local` rounded to the activation dtype,
     the fusion itself reads it in f32."""
     dtype = a.dtype
-    local_f = torch.relu(_conv3x3_f32(x, wc) + bc.float())
+    local_f = torch.relu(_conv3x3_f32(x, wc, top, bottom) + bc.float())
     local = local_f.to(dtype)
     g = torch.sigmoid(torch.cat([local, a], -1).float() @ wg.to(dtype).float() + bg.float())
     fused = (g * local_f + (1.0 - g) * a.float()).to(dtype)
@@ -95,6 +111,25 @@ def pack_conv_taps(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(9 * w.shape[2], w.shape[3])
 
 
+def _halo(name, x, top, bottom):
+    """The halo rows as the kernel reads them: {label: tensor} of those given, [B,W,Cin] each."""
+    rows = {k: t for k, t in (("top", top), ("bottom", bottom)) if t is not None}
+    for label, t in rows.items():
+        if tuple(t.shape) != (x.shape[0], x.shape[2], x.shape[3]):
+            raise ValueError(f"{name}: {label} has shape {tuple(t.shape)}, expected {(x.shape[0], *x.shape[2:])}")
+    return rows
+
+
+def _pad_rows(rows, width):
+    """The halo rows with their channels zero-padded to ``width``, as x is for the bf16 kernels."""
+    return {k: F.pad(t, (0, width - t.shape[-1])) if t.shape[-1] != width else t for k, t in rows.items()}
+
+
+def _ptr(t):
+    """A tensor's device address, or None (a null pointer: the image's edge)."""
+    return None if t is None else t.data_ptr()
+
+
 def _check(name, x, tensors, weights, biases):
     dev = x.device
     if x.dim() != 4:
@@ -118,11 +153,13 @@ def _check(name, x, tensors, weights, biases):
         raise ValueError(f"{name}: {bsz * h * w} pixels exceed the kernel's int32 pixel index")
 
 
-def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x: [B,H,W,Cin]; w: [3,3,Cin,Cout] (BN folded); b: [Cout] f32 -> [B,H,W,Cout]."""
-    if x.device.type == "cpu" and w.device.type == "cpu" and b.device.type == "cpu":
-        return conv3x3_bn_relu_plain(x, w, b)
-    _check("conv3x3_bn_relu", x, {}, {"w": w}, {"b": b})
+def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, top=None, bottom=None) -> torch.Tensor:
+    """x: [B,H,W,Cin]; w: [3,3,Cin,Cout] (BN folded); b: [Cout] f32 -> [B,H,W,Cout]; ``top``,
+    ``bottom``: the halo rows (see the module docstring)."""
+    rows = _halo("conv3x3_bn_relu", x, top, bottom)
+    if all(t.device.type == "cpu" for t in (x, w, b, *rows.values())):
+        return conv3x3_bn_relu_plain(x, w, b, top, bottom)
+    _check("conv3x3_bn_relu", x, rows, {"w": w}, {"b": b})
     bsz, h, width, cin = x.shape
     cout = w.shape[-1]
     if tuple(w.shape) != (3, 3, cin, cout) or tuple(b.shape) != (cout,):
@@ -131,29 +168,32 @@ def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.
         raise ValueError(f"conv3x3_bn_relu: Cout={cout} not supported by the kernel (a multiple of 8)")
     out = torch.empty((bsz, h, width, cout), dtype=x.dtype, device=x.device)
     if out.numel():
-        name = f"conv3x3_bn_relu_{_DTYPES[x.dtype]}"
+        name = f"conv3x3_bn_relu{'_halo' if rows else ''}_{_DTYPES[x.dtype]}"
         npix, stream = bsz * h * width, _build.stream_handle(x.device)
         if x.dtype == torch.bfloat16:  # the wgmma kernels: the flat K walk's weight, x with the channels they read
             t = conv_tiling(cin, cout)
             if t.cin != cin:
                 x = F.pad(x, (0, t.cin - cin))
+                rows = _pad_rows(rows, t.cin)
             wk = pack_conv_taps(w)
-            err = _build.kernel(name)(x.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(), npix, h, width,
-                                      t.cin, cout, t.nb, t.stages, stream)
+            head, tail = (x.data_ptr(), wk.data_ptr(), b.data_ptr()), (t.cin, cout, t.nb, t.stages, stream)
         else:
-            err = _build.kernel(name)(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), npix, h, width,
-                                      cin, cout, stream)
+            head, tail = (x.data_ptr(), w.data_ptr(), b.data_ptr()), (cin, cout, stream)
+        halo = (_ptr(rows.get("top")), _ptr(rows.get("bottom"))) if rows else ()
+        err = _build.kernel(name)(*head, *halo, out.data_ptr(), npix, h, width, *tail)
         _build.check(err, name)
         LAUNCHES["conv3x3_bn_relu"] += 1
     return out
 
 
-def dfc_tail(x, a, wc, bc, wg, bg, wf, bf, wr) -> torch.Tensor:
-    """x: [B,H,W,Cin]; a: [B,H,W,C] -> [B,H,W,C] (see the module docstring)."""
+def dfc_tail(x, a, wc, bc, wg, bg, wf, bf, wr, top=None, bottom=None) -> torch.Tensor:
+    """x: [B,H,W,Cin]; a: [B,H,W,C] -> [B,H,W,C]; ``top``, ``bottom``: the halo rows of x (see the
+    module docstring)."""
     args = (x, a, wc, bc, wg, bg, wf, bf, wr)
-    if all(t.device.type == "cpu" for t in args):
-        return dfc_tail_plain(*args)
-    _check("dfc_tail", x, {"a": a}, {"wc": wc, "wg": wg, "wf": wf, "wr": wr},
+    rows = _halo("dfc_tail", x, top, bottom)
+    if all(t.device.type == "cpu" for t in (*args, *rows.values())):
+        return dfc_tail_plain(*args, top, bottom)
+    _check("dfc_tail", x, {"a": a, **rows}, {"wc": wc, "wg": wg, "wf": wf, "wr": wr},
            {"bc": bc, "bg": bg, "bf": bf})
     bsz, h, width, cin = x.shape
     c = a.shape[-1]
@@ -169,10 +209,12 @@ def dfc_tail(x, a, wc, bc, wg, bg, wf, bf, wr) -> torch.Tensor:
     if out.numel():
         if x.dtype == torch.bfloat16:  # the bf16 kernel copies x in 16-byte rows
             x, wc, wr = pad_cin(x, wc, wr)
+            rows = _pad_rows(rows, x.shape[-1])
             cin = x.shape[-1]
             args = (x, a, wc, bc, wg, bg, wf, bf, wr)
-        name = f"dfc_tail_{_DTYPES[x.dtype]}"
-        err = _build.kernel(name)(*(t.data_ptr() for t in args), out.data_ptr(),
+        name = f"dfc_tail{'_halo' if rows else ''}_{_DTYPES[x.dtype]}"
+        halo = (_ptr(rows.get("top")), _ptr(rows.get("bottom"))) if rows else ()
+        err = _build.kernel(name)(*(t.data_ptr() for t in args), *halo, out.data_ptr(),
                                   bsz * h * width, h, width, cin, c, _build.stream_handle(x.device))
         _build.check(err, name)
         LAUNCHES["dfc_tail"] += 1

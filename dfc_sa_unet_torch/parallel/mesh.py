@@ -12,6 +12,12 @@ port: ``parallel/spmd.py`` (the global loss and metrics),
 ``nn/layers.py::BatchNorm`` (cross-replica statistics) and
 ``train/trainer.py`` (one flat gradient all-reduce a step).
 
+Row (spatial) sharding (``serving_mesh(spatial=S)``, the CLIs' ``--spatial_parallel S``) lays the
+processes out as JAX's ``('data', 'spatial')`` mesh: rank r = d * S + s, the spatial index s
+fastest; the S ranks of a data index d form a spatial group, each holding a band of every image's
+rows (parallel/rows.py), and the ranks of one spatial index form a data group.  Every process
+forms every subgroup, in the same order.
+
 A group is formed from ``torchrun``'s environment (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``) or from
 an explicit ``coordinator`` ("host:port"), ``num_processes`` and
@@ -30,9 +36,11 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from dfc_sa_unet_torch.parallel import rows
 from dfc_sa_unet_torch.utils.device import resolve_device
 
-ROW_SHARDING = "row (spatial) sharding is not ported to dfc_sa_unet_torch yet (ROADMAP.md, Queue A 4: row sharding)"
+# this process's subgroups of a 2-D mesh: "spatial" and "data" -> the group; cleared by close()
+_SUBGROUPS: dict = {}
 
 
 @dataclass
@@ -43,6 +51,33 @@ class ProcessMesh:
     device: torch.device
     backend: Optional[str] = None
     joined: bool = False  # this process formed or joined the default group
+    spatial: int = 1  # ranks of a spatial group (row sharding above 1)
+
+    @property
+    def data_size(self) -> int:
+        return self.world_size // self.spatial
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.spatial
+
+    @property
+    def spatial_group(self):
+        """The ranks of this data index (row sharding), looked up as :attr:`group` is."""
+        return _SUBGROUPS.get("spatial") if self.group is not None else None
+
+    @property
+    def data_group(self):
+        """The ranks of this spatial index, looked up as :attr:`group` is."""
+        return _SUBGROUPS.get("data") if self.group is not None else None
+
+    def band(self, height: int) -> "rows.Band":
+        """This process's band of an image of ``height`` rows (``rows.divides`` must hold)."""
+        return rows.band_of(self.rank, self.spatial, height, self.spatial_group, self.backend)
 
     @property
     def group(self):
@@ -57,6 +92,7 @@ class ProcessMesh:
 
     def close(self):
         """Leave the group (a no-op for a single process)."""
+        _SUBGROUPS.clear()
         if self.joined and dist.is_initialized():
             dist.destroy_process_group()
         self.joined = False
@@ -119,22 +155,58 @@ def data_parallel_mesh(device=None, backend: Optional[str] = None, coordinator: 
 
 
 def mesh_from_flags(args, backend: Optional[str] = None) -> ProcessMesh:
-    """The CLIs' mesh from their flags (``--data_parallel``, ``--multihost``, ``--coordinator``,
-    ``--num_processes``, ``--process_id``, ``--device``): a group when the process was started by
-    torchrun with ``--data_parallel`` or ``--multihost``, or is given a coordinator; otherwise one
-    process on one card."""
+    """The CLIs' mesh from their flags (``--data_parallel``, ``--spatial_parallel``, ``--multihost``,
+    ``--coordinator``, ``--num_processes``, ``--process_id``, ``--device``): a group when the process
+    was started by torchrun with ``--data_parallel``, ``--spatial_parallel`` above 1 or
+    ``--multihost``, or is given a coordinator; otherwise one process on one card.  With
+    ``--spatial_parallel S`` that divides the group the mesh is JAX's 2-D one (rows shard over S
+    processes); otherwise it falls back, as the JAX CLIs do, to data parallelism."""
     launched = "WORLD_SIZE" in os.environ
-    if args.coordinator or ((args.data_parallel or args.multihost) and launched):
-        return data_parallel_mesh(args.device, backend, args.coordinator, args.num_processes, args.process_id)
+    spatial = int(getattr(args, "spatial_parallel", 1) or 1)
+    if args.coordinator or ((args.data_parallel or args.multihost or spatial > 1) and launched):
+        mesh = data_parallel_mesh(args.device, backend, args.coordinator, args.num_processes, args.process_id)
+        if spatial > 1:
+            if mesh.world_size % spatial == 0 and mesh.world_size > 1:
+                spatial_subgroups(mesh, spatial)
+                if mesh.is_primary:
+                    print(f"2-D mesh: data={mesh.data_size} x spatial={spatial} over {mesh.world_size} processes "
+                          f"(image rows shard too: halo exchanges between neighbouring bands)")
+            elif mesh.is_primary:
+                print(f"(--spatial_parallel {spatial}: needs a multiple of {spatial} processes, have "
+                      f"{mesh.world_size}; falling back to data parallelism)")
+        return mesh
     if launched and int(os.environ["WORLD_SIZE"]) > 1:
         raise SystemExit(f"started as one of {os.environ['WORLD_SIZE']} processes without --data_parallel or "
                          f"--multihost: every process would do the same work alone")
-    if args.data_parallel:
+    if spatial > 1:
+        print(f"(--spatial_parallel {spatial}: needs a multiple of {spatial} processes, have 1; running "
+              f"single-chip; start one process per card with torchrun --nproc_per_node N)")
+    elif args.data_parallel:
         visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
         print("(--data_parallel: only one device visible; running single-chip)" if visible <= 1 else
               f"(--data_parallel: one process drives one card; start one process per card with "
               f"torchrun --nproc_per_node {visible}; running single-chip)")
     return ProcessMesh(1, 0, 0, resolve_device(args.device))
+
+
+def spatial_subgroups(mesh: ProcessMesh, spatial: int) -> ProcessMesh:
+    """Lay ``mesh``'s processes out as data x ``spatial`` (rank d * spatial + s) and form the
+    subgroups: every process forms every spatial group, then every data group, in the same order,
+    and keeps its own two."""
+    n = mesh.world_size
+    if n % spatial:
+        raise ValueError(f"spatial={spatial} must divide the device count {n} (one process a card)")
+    if spatial > 1:
+        for d in range(n // spatial):
+            g = dist.new_group(list(range(d * spatial, (d + 1) * spatial)))
+            if d == mesh.rank // spatial:
+                _SUBGROUPS["spatial"] = g
+        for s in range(spatial):
+            g = dist.new_group(list(range(s, n, spatial)))
+            if s == mesh.rank % spatial:
+                _SUBGROUPS["data"] = g
+    mesh.spatial = spatial
+    return mesh
 
 
 def add_parallel_flags(parser, what: str):
@@ -145,7 +217,10 @@ def add_parallel_flags(parser, what: str):
     parser.add_argument("--no_data_parallel", action="store_false", dest="data_parallel",
                         help="override a config-enabled data_parallel")
     parser.add_argument("--spatial_parallel", type=int, default=None,
-                        help="row (spatial) sharding; accepted, and above 1 it raises: not ported yet")
+                        help="row (spatial) sharding of the DFC family: under torchrun --nproc_per_node N, "
+                             "N / S data groups of S processes, each holding a band of every image's rows "
+                             "(the height must be a multiple of 16 S, else the batch shards on the data axis "
+                             "only); serves one large image exactly across cards (best with --no_slide_window)")
     parser.add_argument("--multihost", action="store_true", default=None,
                         help="join a multi-process group (torchrun's environment, or --coordinator, "
                              "--num_processes and --process_id)")
@@ -157,7 +232,12 @@ def add_parallel_flags(parser, what: str):
 
 
 def serving_mesh(spatial: int = 1, **kw) -> ProcessMesh:
-    """The serving mesh: ``spatial`` 1 is :func:`data_parallel_mesh`; row sharding raises."""
-    if spatial > 1:
-        raise NotImplementedError(f"serving_mesh(spatial={spatial}): {ROW_SHARDING}")
-    return data_parallel_mesh(**kw)
+    """JAX's 2-D ``('data', 'spatial')`` serving mesh over the processes of
+    :func:`data_parallel_mesh` (``**kw``): ``spatial`` ranks a spatial group, each holding a band of
+    every image's rows.  ``spatial`` must divide the process count (ValueError, as JAX's)."""
+    if spatial < 1:
+        raise ValueError(f"spatial={spatial} must be at least 1")
+    mesh = data_parallel_mesh(**kw)
+    if spatial > 1 and mesh.group is None:
+        raise ValueError(f"spatial={spatial} must divide the device count 1 (one process a card)")
+    return spatial_subgroups(mesh, spatial)

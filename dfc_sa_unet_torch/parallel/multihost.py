@@ -117,9 +117,10 @@ def broadcast_tree(tree: Any) -> Any:
     return _unflatten(obj[0], leaves)
 
 
-def gather_rows_many(arrs, n_real: int):
+def gather_rows_many(arrs, n_real: int, every: int = 1):
     """Global per-sample values in the global batch's order, without the padded rows, for several
-    [L] arrays of this process's chunk in one gather.
+    [L] arrays of this process's chunk in one gather.  ``every``: the chunks of processes 0,
+    every, 2 every, ... (under row sharding the ranks of a spatial group hold the same chunk).
 
     Each process holds the contiguous chunk of the padded global batch that the loader gave it
     (``BatchLoader(shard=...)``): real rows sit at their global index and the padding at the end,
@@ -129,7 +130,7 @@ def gather_rows_many(arrs, n_real: int):
     if _active():
         parts: list = [None] * dist.get_world_size()
         dist.all_gather_object(parts, local)
-        local = np.concatenate(parts)
+        local = np.concatenate(parts[::every])
     return [local[:n_real, j] for j in range(len(arrs))]
 
 

@@ -7,11 +7,12 @@ the JAX package's train.py, with its flags).
         [--dice_weight W] [--contour_weight W] [--augmentation true|false]
         [--bf16 | --no_bf16] [--remat [all|l12|deep]] [--seed N]
         [--grad_accum N [--grad_accum_exact]] [--exe_cache DIR] [--device cuda|cpu]
-        [--data_parallel] [--multihost] [--coordinator HOST:PORT
+        [--data_parallel] [--spatial_parallel S] [--multihost] [--coordinator HOST:PORT
         --num_processes N --process_id I]
 
     torchrun --nproc_per_node N -m dfc_sa_unet_torch.train --config CFG --data_parallel \\
         [--grad_accum 2 [--grad_accum_exact]]
+    torchrun --nproc_per_node N -m dfc_sa_unet_torch.train --config CFG --spatial_parallel S
 
 Trains any of the factory's twelve models (``--remat`` reaches the flagship
 and the transformers only, as in the JAX package; ``UNet_FullResAttention``
@@ -31,9 +32,16 @@ loss over all of them, which for the Dice and Tversky terms is the whole
 batch's loss (the flagship's B=128 on one H100: ``--grad_accum 2
 --grad_accum_exact``).  ``--exe_cache DIR`` builds and loads the CUDA kernels
 in DIR (the nvcc libraries are the port's only compiled artifacts).
-Not taken yet (ROADMAP.md, Queue A 4): ``--spatial_parallel`` above 1; nor
-``--use_pallas`` / ``--no_pallas``: on the card the attention kernels always
-run.
+``--spatial_parallel S`` (or ``training.spatial_parallel``) under torchrun
+shards the rows of every image over S processes (row sharding of the DFC
+family, parallel/rows.py: large crops whose activations exceed one card's
+memory): N / S data groups, each loading its chunk of every batch, each rank
+training on a band of its rows; the step equals one card's on the whole
+batch.  The crop's height must be a multiple of 16 S (else the batch shards on
+the data axis only, with a warning); the transformer families,
+UNet_FullResAttention and the vanilla UNet with ``bilinear: true`` raise under
+it (ROADMAP.md, Queue A 4.2).  Not taken: ``--use_pallas`` / ``--no_pallas``:
+on the card the attention kernels always run.
 """
 
 import argparse
@@ -41,7 +49,7 @@ import argparse
 import torch
 
 from dfc_sa_unet_torch.config import apply_overrides, load_config, merge_parallel_flags
-from dfc_sa_unet_torch.parallel.mesh import ROW_SHARDING, ProcessMesh, add_parallel_flags, mesh_from_flags
+from dfc_sa_unet_torch.parallel.mesh import ProcessMesh, add_parallel_flags, mesh_from_flags
 from dfc_sa_unet_torch.utils.device import resolve_device
 
 
@@ -88,7 +96,7 @@ def parse_args(argv=None):
 def build_trainer(config, args, mesh=None):
     """The Trainer of ``config``, the parsed flags and ``mesh`` (parallel.mesh.ProcessMesh; None: one
     process on ``args.device``, raising without CUDA unless it is the CPU); with a group each process
-    loads its chunk of every batch."""
+    loads its data index's chunk of every batch (the ranks of a spatial group the same chunk)."""
     from dfc_sa_unet_torch.data.loader import DataLoaderFactory
     from dfc_sa_unet_torch.models.factory import create_model
     from dfc_sa_unet_torch.train.trainer import Trainer
@@ -107,7 +115,7 @@ def build_trainer(config, args, mesh=None):
     if mesh.group is None:
         train_loader, val_loader = factory.get_train_loader(), factory.get_val_loader()
     else:
-        shard = (mesh.rank, mesh.world_size)
+        shard = (mesh.data_index, mesh.data_size)
         train_loader = factory.get_train_loader(drop_last=True, shard=shard,
                                                 microbatches=int(config["training"].get("grad_accum", 1)))
         val_loader = factory.get_val_loader(shard)
@@ -127,8 +135,6 @@ def main(argv=None):
     apply_overrides(config, args.loss, args.alpha, args.beta, args.weight_bce, args.weight_dice,
                     args.bce_weight, args.dice_weight, args.contour_weight, args.augmentation)
     merge_parallel_flags(args, config, sections=("training",))
-    if args.spatial_parallel > 1:
-        raise NotImplementedError(f"--spatial_parallel {args.spatial_parallel}: {ROW_SHARDING}")
     mesh = mesh_from_flags(args)
     try:
         trainer = build_trainer(config, args, mesh)

@@ -36,6 +36,19 @@ Kept from the JAX trainer (reference utils/trainer.py:105-461):
     not) runs whole on every process with every collective off; a padded
     eval batch masks its padding (``sample_mask``).  Only the primary
     process writes files;
+  * row (spatial) sharding of the DFC family (a mesh with ``spatial`` S > 1,
+    ``parallel.mesh.serving_mesh``): each of the S ranks of a data index takes
+    that index's chunk of every batch and its band of the images' rows, cut
+    on the host before the copy to the card, and runs the step in the band's
+    context (parallel/rows.py: halo exchanges, the pooled attention's pool
+    over the bands).  The loss sums, the hard counts and BatchNorm's
+    statistics reduce over every process, whose pixels are all different,
+    and the gradient average stays over every process: the step equals one
+    process's on the whole batch, with ``grad_accum``, ``grad_accum_exact``
+    and ``remat`` too.  A height that is not a multiple of 16 S shards the
+    batch on the data axis only, with JAX's warning, the spatial ranks of a
+    data index computing the same thing (the collectives then over the data
+    axis);
   * ``exe_cache_dir`` is where the hand-written CUDA kernels are built and
     loaded from (``ops/_build.py::set_build_dir``): eager PyTorch compiles
     nothing per shape, so the nvcc libraries are the only compiled
@@ -49,10 +62,13 @@ compute keeps f32 parameters and an f32 loss.  Dropout masks depend on
 parallelism the rank is folded in as well, so processes drop different
 units (as JAX's explicit SPMD step does).
 
-Not ported yet, raising with a pointer to ROADMAP.md: row (spatial) sharding.
+Row sharding of the transformer families, of UNet_FullResAttention and of
+the vanilla UNet with ``bilinear: true`` raises with a pointer to ROADMAP.md
+(Queue A 4.2).
 """
 
 import contextlib
+import functools
 import os
 import signal
 import threading
@@ -72,8 +88,7 @@ from dfc_sa_unet_torch.metrics import hard_dice_iou, per_sample_hard_dice_iou
 from dfc_sa_unet_torch.nn.layers import bn_cross_replica
 from dfc_sa_unet_torch.ops import _build
 from dfc_sa_unet_torch.ops.dropout import remat_call, set_dropout_generator
-from dfc_sa_unet_torch.parallel import multihost as mh, spmd
-from dfc_sa_unet_torch.parallel.mesh import ROW_SHARDING
+from dfc_sa_unet_torch.parallel import multihost as mh, rows, spmd
 from dfc_sa_unet_torch.train import optim
 from dfc_sa_unet_torch.utils import checkpoint as ckpt_util
 from dfc_sa_unet_torch.utils.device import resolve_device
@@ -115,9 +130,14 @@ class Trainer:
         self.data_parallel = mesh is not None and mesh.group is not None
         self.rank, self.world = (mesh.rank, mesh.world_size) if self.data_parallel else (0, 1)
         self.is_primary = self.rank == 0
+        # row sharding: S ranks a data index, each on a band of the rows (training.spatial_parallel is
+        # the CLI's to act on, as data_parallel is: the Trainer takes its mesh)
+        self.mesh = mesh if self.data_parallel else None
+        self.spatial = mesh.spatial if self.data_parallel else 1
+        self.data_axis = self.world // self.spatial
+        if self.spatial > 1:
+            rows.check_model(model)
         tr = config["training"]
-        if int(tr.get("spatial_parallel", 1) or 1) > 1:
-            raise NotImplementedError(f"training.spatial_parallel: {ROW_SHARDING}")
         self.grad_accum = int(tr.get("grad_accum", 1))
         self.grad_accum_exact = bool(tr.get("grad_accum_exact", False))
         if (self.data_parallel and self.grad_accum > 1 and getattr(train_loader, "shard", None) is not None
@@ -168,6 +188,7 @@ class Trainer:
         self._stop_requested = threading.Event()
         self._input_bound_warned = False
         self._warned_accum_replicated = False
+        self._warned_spatial = False
         self.last_epoch_timer, self.last_epoch_applied = None, 0  # of the newest train_epoch
 
     # ---------------------------------------------------------------- steps
@@ -181,10 +202,39 @@ class Trainer:
     def _probs(self, x: torch.Tensor) -> torch.Tensor:
         return torch.sigmoid(self.model(x).float())
 
-    def train_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor, replicated: bool = False) -> dict:
+    def layout(self, height: int, sharded: bool):
+        """(band, group, sharded) of a batch of ``height`` rows that the loader sharded over the data
+        axis (``sharded``) or not: under row sharding, this process's band of the rows and the
+        collectives over every process (group None); where the height breaks the band rule
+        (rows.divides), no band, with JAX's warning once, and the collectives over the data axis (none
+        where the data axis is one process)."""
+        if not sharded or self.spatial == 1:
+            return None, None, sharded
+        if rows.divides(height, self.spatial):
+            return self.mesh.band(height), None, True
+        if not self._warned_spatial and self.is_primary:
+            print(f"Warning: image height {height} is not divisible by the mesh's spatial axis ({self.spatial}) "
+                  f"into bands of an even height at every pooling level (a multiple of "
+                  f"{self.spatial << rows.LEVELS}); sharding the batch dimension only.")
+        self._warned_spatial = True
+        if self.data_axis == 1:
+            return None, None, False
+        return None, self.mesh.data_group, True
+
+    def band_rows(self, batch: dict, band) -> dict:
+        """The batch's images and masks cut to ``band``'s rows on the host (the batch itself without one)."""
+        if band is None:
+            return batch
+        cut = slice(band.row0, band.row0 + band.rows)
+        return {**batch, "image": batch["image"][:, cut], "mask": batch["mask"][:, cut]}
+
+    def train_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor, replicated: bool = False, band=None,
+                   group=None) -> dict:
         """One update from one uint8 batch on the device: this process's share of the global
         batch under data parallelism (with ``grad_accum`` > 1, its share of each microbatch in
-        turn), or the whole batch on every process when ``replicated``.
+        turn), or the whole batch on every process when ``replicated``.  Under row sharding
+        (``layout``) the images are ``band``'s rows, or, without a band, the collectives run over
+        ``group`` (the data axis).
         Returns Python numbers: loss, iou, dice, and ``finite`` (False: the step was skipped)."""
         self.model.train()
         x, t = self._inputs(images_u8, masks_u8)
@@ -195,14 +245,14 @@ class Trainer:
         self.optimizer.zero_grad()
         bsz = x.shape[0]
         accum = self.grad_accum if self.grad_accum > 1 and bsz % self.grad_accum == 0 else 1
-        if self.data_parallel and replicated and accum > 1 and (bsz // accum) % self.world:
+        if self.data_parallel and replicated and accum > 1 and (bsz // accum) % self.data_axis:
             if not self._warned_accum_replicated and self.is_primary:
-                print(f"Warning: microbatch {bsz}//{accum} does not divide the data axis ({self.world}); running "
+                print(f"Warning: microbatch {bsz}//{accum} does not divide the data axis ({self.data_axis}); running "
                       f"the grad-accum loop fully replicated for exactness (all parallel speedup lost) — pick "
                       f"grad_accum/batch so (B/accum) % data == 0")
             self._warned_accum_replicated = True
-        loss_fn = spmd.global_loss if collective else compute_loss
-        with bn_cross_replica() if collective else contextlib.nullcontext():
+        loss_fn = functools.partial(spmd.global_loss, group=group) if collective else compute_loss
+        with (bn_cross_replica(group=group) if collective else contextlib.nullcontext()), rows.band_context(band):
             if accum > 1 and self.grad_accum_exact:
                 # one loss over the whole batch's probabilities; each microbatch's forward runs again
                 # in the backward (with the same dropout masks and BatchNorm statistics left alone),
@@ -234,6 +284,8 @@ class Trainer:
             n_grad = flat.numel() - extra.numel()
             torch._foreach_copy_(grads, _unflatten_dense_tensors(flat[:n_grad].div_(self.world), grads))
             bad_loss, counts = flat[n_grad:n_grad + 1], flat[n_grad + 1:]
+            if group is not None:  # the data axis's counts, summed once by each spatial rank
+                counts = counts / self.spatial
         # finiteness per tensor through its largest magnitude (NaN and inf pass through a max; a
         # squared norm would overflow long before a gradient does), fused over the tensors; one
         # flag, read once
@@ -252,23 +304,30 @@ class Trainer:
         return {"loss": loss_v, "iou": iou_v, "dice": dice_v, "finite": bool(finite_v)}
 
     @torch.no_grad()
-    def eval_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor, valid=None, sharded: bool = False) -> dict:
+    def eval_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor, valid=None, sharded: bool = False,
+                  band=None, group=None) -> dict:
         """Loss, hard IoU and Dice of one batch, and both per sample, in eval mode.  ``valid`` ([B]
         of 0/1) marks the real rows of a zero-padded batch: the padding's probabilities are zeroed
         and the losses skip it, so the metrics are those of the real rows.  ``sharded``: the batch
-        is this process's chunk and loss, IoU and Dice are the global batch's."""
+        is this process's chunk and loss, IoU and Dice are the global batch's (reduced over
+        ``group``, default every process); ``band``: the images are its rows (``layout``), and the
+        per-sample metrics are summed over the spatial group."""
         self.model.eval()
         x, t = self._inputs(images_u8, masks_u8)
-        probs = torch.sigmoid(self.model(x).float())
-        if valid is not None:
-            probs = probs * valid.reshape(-1, 1, 1, 1)
-        if sharded:
-            loss = spmd.global_loss(probs, t, self.loss_type, self.loss_params, sample_mask=valid)
-            iou, dice = spmd.global_hard_dice_iou(probs, t)
+        with rows.band_context(band):
+            probs = torch.sigmoid(self.model(x).float())
+            if valid is not None:
+                probs = probs * valid.reshape(-1, 1, 1, 1)
+            if sharded:
+                loss = spmd.global_loss(probs, t, self.loss_type, self.loss_params, sample_mask=valid, group=group)
+                iou, dice = spmd.global_hard_dice_iou(probs, t, group=group)
+            else:
+                loss = compute_loss(probs, t, self.loss_type, self.loss_params, sample_mask=valid)
+                iou, dice = hard_dice_iou(probs, t)
+        if band is not None:
+            ps_iou, ps_dice = spmd.per_sample_hard_dice_iou(probs, t, group=band.group)
         else:
-            loss = compute_loss(probs, t, self.loss_type, self.loss_params, sample_mask=valid)
-            iou, dice = hard_dice_iou(probs, t)
-        ps_iou, ps_dice = per_sample_hard_dice_iou(probs, t)
+            ps_iou, ps_dice = per_sample_hard_dice_iou(probs, t)
         loss_v, iou_v, dice_v = torch.stack([loss, iou, dice]).tolist()
         return {"loss": loss_v, "iou": iou_v, "dice": dice_v,
                 "per_sample_iou": ps_iou.cpu().numpy(), "per_sample_dice": ps_dice.cpu().numpy()}
@@ -305,10 +364,12 @@ class Trainer:
             if batch.get("valid") is not None:
                 raise ValueError("a padded batch reached the train step: build the train loader with "
                                  "partial='replicate' (padding would change the BatchNorm statistics)")
-            imgs, masks = to_device(batch, self.device)
             # a partial batch, or a loader that does not shard, runs whole on every process
             replicated = self.data_parallel and (bool(batch.get("replicated")) or "filename_global" not in batch)
-            metrics = self.train_step(imgs, masks, replicated=replicated)
+            band, group, sharded = self.layout(batch["image"].shape[1], not replicated)
+            imgs, masks = to_device(self.band_rows(batch, band), self.device)
+            metrics = self.train_step(imgs, masks, replicated=self.data_parallel and not sharded, band=band,
+                                      group=group)
             timer.tick(items=int(imgs.shape[0]))
             if not metrics["finite"]:
                 if self.is_primary:
@@ -345,9 +406,11 @@ class Trainer:
         sample_records = []  # (dice, iou, filename)
         for batch in loader:
             sharded = self.data_parallel and "filename_global" in batch and not batch.get("replicated")
+            band, group, sharded = self.layout(batch["image"].shape[1], sharded)
             valid = batch.get("valid")
             valid = None if valid is None else torch.as_tensor(valid, dtype=torch.float32).to(self.device)
-            metrics = self.eval_step(*to_device(batch, self.device), valid=valid, sharded=sharded)
+            metrics = self.eval_step(*to_device(self.band_rows(batch, band), self.device), valid=valid,
+                                     sharded=sharded, band=band, group=group)
             if not np.isfinite(metrics["loss"]):
                 if self.is_primary:
                     print("Warning: NaN loss detected in validation; batch skipped")
@@ -358,7 +421,7 @@ class Trainer:
             names = batch["filename_global"] if sharded else batch["filename"]
             ps_dice, ps_iou = metrics["per_sample_dice"], metrics["per_sample_iou"]
             if sharded:  # per-sample values in the global batch's order, on every process
-                ps_dice, ps_iou = mh.gather_rows_many([ps_dice, ps_iou], len(names))
+                ps_dice, ps_iou = mh.gather_rows_many([ps_dice, ps_iou], len(names), every=self.spatial)
             for i, fname in enumerate(names):
                 sample_records.append((float(ps_dice[i]), float(ps_iou[i]), fname))
         n = max(n_batches, 1)

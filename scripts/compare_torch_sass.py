@@ -9,7 +9,10 @@ toolkit's ``cuobjdump -sass``, and prints, for each instance of the named kernel
 instructions are the same in both builds (addresses stripped; the unnamed-namespace prefix of the
 mangled name, which differs from build to build, removed).  It answers whether a change to a
 shared header left a kernel's code as it was.  Needs nvcc and cuobjdump, not a card.  The default
-kernels are those of conv3x3_bn_relu (bf16), the bf16 DFC tail and the matrix-unit probes.
+kernels are every kernel of the libraries that share the conv headers (conv3x3_bn_relu and the DFC
+tail in bf16 and f32, conv3x3_bias_stats, the matrix-unit probes, conv3x3_s8) and of the two that
+share only common.cuh (the attention kernels).  The halo instantiations of row sharding
+(``*_halo_kernel``) match none of these names.
 """
 
 import argparse
@@ -20,8 +23,11 @@ import shutil
 import subprocess
 import sys
 
-KERNELS = ("conv3x3_bn_relu_narrow_kernel", "conv3x3_bn_relu_wgmma_kernel", "dfc_tail_wgmma_kernel",
-           "probe_conv_kernel", "probe_matmul_kernel")
+KERNELS = ("conv3x3_bn_relu_kernel", "conv3x3_bn_relu_narrow_kernel", "conv3x3_bn_relu_wgmma_kernel",
+           "dfc_tail_kernel", "dfc_tail_wgmma_kernel", "conv3x3_bias_stats_kernel", "conv3x3_bias_stats_wgmma_kernel",
+           "conv3x3_bias_stats_narrow_kernel", "probe_conv_kernel", "probe_matmul_kernel", "conv3x3_s8_kernel",
+           "pooled_attention_kernel", "pooled_attention_long_kernel", "pooled_attention_mma_kernel",
+           "mha_simt_kernel", "mha_mma_kernel", "mha_wgmma_kernel")
 
 
 def build(root):
@@ -38,7 +44,10 @@ def sass(root, kernels, cuobjdump):
             name = chunk.split("\n", 1)[0].strip()
             if not any(k in name for k in kernels):
                 continue
-            name = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_[A-Za-z0-9_]+?_cu_[0-9a-f]{8}", "", name)
+            # the unnamed namespace's name, which differs from build to build, by its length prefix
+            anon = re.match(r"_ZN(\d+)_GLOBAL__N__", name)
+            if anon:
+                name = "_ZN" + name[anon.end(1) + int(anon.group(1)):]
             out[name] = [re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).split(";")[0].strip() for ln in chunk.splitlines()
                          if re.search(r"/\*[0-9a-f]{4}\*/", ln)]
     return out

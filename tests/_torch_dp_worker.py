@@ -32,6 +32,9 @@ FLAGSHIP = {"name": "DFC-SA-Res-Block", "features": [8, 16, 24, 32], "pool_size"
 VIT = {"name": "VisionTransformerSegmentation", "img_dim": 32, "patch_dim": 8, "embed_dim": 32, "num_layers": 1,
        "num_heads": 2, "mlp_dim": 64, "dropout": 0.3}
 BCE_DICE = ("bce_dice", {"bce_weight": 0.5, "dice_weight": 0.5})
+ROW_FLAGSHIP = {"name": "DFC-SA-Res-Block", "features": [8, 16, 24, 32], "pool_size": 2}
+ROW_ZOO = ["UNet", "UNet_Baseline", "UNet_BothStandardConv", "UNet_AttentionOnly", "UNet_AdditionFusion",
+           "UNet_ConcatFusion", "UNet_EncoderOnlyDFC", "UNet_DecoderOnlyDFC"]
 CASES = {
     "mini_bce_dice": ("mini", *BCE_DICE, 8, 8, 16),
     "mini_dice": ("mini", "dice", {}, 8, 8, 16),
@@ -48,8 +51,27 @@ CASES = {
     "mini_dice_exact16": ("mini", "dice", {}, 16, 16, 16, {"grad_accum": 2, "grad_accum_exact": True}),
     # microbatches of 3 do not divide among 2 processes: every batch whole on each, with a warning
     "accum_replicated": ("mini", *BCE_DICE, 12, 6, 16, {"grad_accum": 2}),
+    # row sharding (tests/test_torch_rows_*.py, 2 bands of 16 rows): the mini-net under each loss, grad_accum
+    # 2 default and exact, a height that breaks the band rule (24 rows: the data axis only), the flagship two
+    # steps and exact; the DFC family's nine models one step each (ROW_ZOO)
+    "rows_mini_bce_dice": ("mini", *BCE_DICE, 8, 8, 32),
+    "rows_mini_dice": ("mini", "dice", {}, 8, 8, 32),
+    "rows_mini_tversky": ("mini", "tversky", {"alpha": 0.3, "beta": 0.7}, 8, 8, 32),
+    "rows_mini_joint": ("mini", "joint", {"bce_weight": 0.4, "dice_weight": 0.4, "contour_weight": 0.2}, 8, 8, 32),
+    "rows_mini_accum2": ("mini", *BCE_DICE, 8, 8, 32, {"grad_accum": 2}),
+    "rows_mini_exact2": ("mini", *BCE_DICE, 8, 8, 32, {"grad_accum": 2, "grad_accum_exact": True}),
+    "rows_mini_joint_exact2": ("mini", "joint", {"bce_weight": 0.4, "dice_weight": 0.4, "contour_weight": 0.2},
+                               8, 8, 32, {"grad_accum": 2, "grad_accum_exact": True}),
+    "rows_fallback": ("mini", *BCE_DICE, 8, 8, 24),
+    "rows_flagship": (ROW_FLAGSHIP, *BCE_DICE, 16, 8, 32),
+    "rows_flagship_exact2": (ROW_FLAGSHIP, *BCE_DICE, 16, 8, 32, {"grad_accum": 2, "grad_accum_exact": True}),
+    "rows_flagship_remat": ({**ROW_FLAGSHIP, "remat": "all"}, *BCE_DICE, 8, 8, 32),
+    "rows_grid_flagship": (ROW_FLAGSHIP, *BCE_DICE, 8, 8, 32),  # data 2 x spatial 2: tests/test_torch_rows_grid.py
+    **{f"rows_zoo_{name}": ({"name": "UNet", "bilinear": False} if name == "UNet" else {**ROW_FLAGSHIP, "name": name},
+                            *BCE_DICE, 4, 4, 32) for name in ROW_ZOO},
 }
 ACCUM_WARNING = "does not divide the data axis"
+SPATIAL_WARNING = "sharding the batch dimension only"
 VAL_SAMPLES = 5
 
 
@@ -106,7 +128,7 @@ def run_case(name, mesh, log_dir, state_dict=None, items=None):
     weights and the synthetic data.  Returns numpy arrays: the state dict after the epoch
     (``sd/<key>``), the epoch's and the validation's loss, IoU and Dice, the validation's
     per-sample Dice and IoU in name order, the last step's dropout seed and the count of the
-    replicated-microbatch warnings the epoch printed."""
+    replicated-microbatch and band-rule warnings the epoch printed."""
     import contextlib
     import io
 
@@ -122,7 +144,8 @@ def run_case(name, mesh, log_dir, state_dict=None, items=None):
         net.load_state_dict(state_dict, strict=True)
     items = list(samples(n=n_train, size=side, seed=5)) if items is None else items
     val_items = val_samples(side)
-    shard = None if mesh is None or mesh.group is None else (mesh.rank, mesh.world_size)
+    # under row sharding the ranks of a spatial group load their data index's chunk
+    shard = None if mesh is None or mesh.group is None else (mesh.data_index, mesh.data_size)
     train = BatchLoader(ArrayDataset(items), batch, shuffle=True, num_workers=1, seed=0, shard=shard,
                         partial="replicate", microbatches=cfg["training"].get("grad_accum", 1))
     val = BatchLoader(ArrayDataset(val_items), VAL_SAMPLES, shuffle=False, num_workers=1, seed=0, shard=shard,
@@ -147,7 +170,8 @@ def run_case(name, mesh, log_dir, state_dict=None, items=None):
     out.update(train=np.array([tr_loss, tr_iou, tr_dice]), val=np.array([v["loss"], v["iou"], v["dice"]]),
                val_dice=np.array([r[0] for r in records]), val_iou=np.array([r[1] for r in records]),
                val_names=np.array([r[2] for r in records]), seed=np.array(seeds[-1], np.uint64),
-               accum_warnings=np.array(printed.getvalue().count(ACCUM_WARNING)))
+               accum_warnings=np.array(printed.getvalue().count(ACCUM_WARNING)),
+               spatial_warnings=np.array(printed.getvalue().count(SPATIAL_WARNING)))
     return out
 
 
@@ -187,8 +211,9 @@ def run_preemption(mesh, log_dir):
             "checkpoints": np.array(sorted(os.listdir(ckpt_dir)) if os.path.isdir(ckpt_dir) else [])}
 
 
-def spawn(cases, out_dir, world=2, inputs=None):
-    """Run ``cases`` in a group of ``world`` processes of this module; returns
+def spawn(cases, out_dir, world=2, inputs=None, spatial=1):
+    """Run ``cases`` in a group of ``world`` processes of this module (``spatial`` > 1: a 2-D mesh of
+    world / spatial data groups of ``spatial`` bands, ``parallel.mesh.serving_mesh``); returns
     {case: [result of rank 0, rank 1, ...]}.  Fails the calling test on a non-zero exit or when a
     process outlives PROCESS_TIMEOUT_S (it is killed)."""
     from dfc_sa_unet_torch.parallel.mesh import local_coordinator
@@ -199,7 +224,7 @@ def spawn(cases, out_dir, world=2, inputs=None):
     procs = []
     for rank in range(world):
         cmd = [sys.executable, os.path.abspath(__file__), "--rank", str(rank), "--world", str(world),
-               "--coordinator", coordinator, "--out", str(out_dir), "--cases", ",".join(cases)]
+               "--coordinator", coordinator, "--out", str(out_dir), "--cases", ",".join(cases), "--spatial", str(spatial)]
         if inputs:
             cmd += ["--inputs", str(inputs)]
         procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -226,6 +251,7 @@ def main():
     ap.add_argument("--out", required=True)
     ap.add_argument("--cases", required=True)
     ap.add_argument("--inputs", default=None, help="a torch.save'd {case: (state dict, training items)}")
+    ap.add_argument("--spatial", type=int, default=1, help="ranks of a spatial group (row sharding)")
     args = ap.parse_args()
 
     import faulthandler
@@ -234,12 +260,12 @@ def main():
 
     faulthandler.enable()  # a native abort prints the Python stack of every thread
 
-    from dfc_sa_unet_torch.parallel.mesh import data_parallel_mesh
+    from dfc_sa_unet_torch.parallel.mesh import serving_mesh
 
     torch.set_num_threads(1)
     inputs = torch.load(args.inputs, weights_only=False) if args.inputs else {}
-    mesh = data_parallel_mesh(device="cpu", coordinator=args.coordinator, num_processes=args.world,
-                              process_id=args.rank, timeout_s=INIT_TIMEOUT_S)
+    mesh = serving_mesh(args.spatial, device="cpu", coordinator=args.coordinator, num_processes=args.world,
+                        process_id=args.rank, timeout_s=INIT_TIMEOUT_S)
     try:
         for case in args.cases.split(","):
             log_dir = os.path.join(args.out, f"logs_{case}_{args.rank}")

@@ -223,3 +223,89 @@ def normalised(items):
     from dfc_sa_unet_torch.data.normalize import normalize
 
     return normalize(torch.from_numpy(np.stack([img for _, img, _ in items]))).permute(0, 3, 1, 2)
+
+
+# ---------------------------------------------------------------- row sharding
+
+def jax_mini_net():
+    """tests/test_parallel_fast.py:45-66's conv + BatchNorm + conv mini-net."""
+    import flax.linen as nn
+
+    from dfc_sa_unet_tpu.nn.layers import BatchNorm, Conv
+
+    class MiniNet(nn.Module):
+        @nn.compact
+        def __call__(self, x, train: bool = False):
+            x = Conv(features=4, kernel_size=3, padding=1, name="c1")(x)
+            x = BatchNorm(name="bn1")(x, train=train)
+            x = nn.relu(x)
+            return Conv(features=1, kernel_size=1, name="c2")(x)
+
+    return MiniNet()
+
+
+def jax_row_step(worker, case, log_dir, mesh):
+    """The JAX Trainer's step of ``_torch_dp_worker`` case ``case`` (one batch) over ``mesh`` (a JAX
+    ``serving_mesh``, or None: one device), and its eval of the case's validation samples after it
+    (padded to the mesh).  The mini-net starts from JAX's seeded weights with jittered BatchNorm
+    statistics, a port model from the port's seeded weights.  Returns (the JAX results, the port's
+    inputs: the starting state dict and the training items)."""
+    from dfc_sa_unet_tpu.train.trainer import Trainer as JaxTrainer
+    from dfc_sa_unet_torch.data.dataset import ArrayDataset
+    from dfc_sa_unet_torch.data.loader import BatchLoader
+    from dfc_sa_unet_torch.utils.weights import from_jax_variables
+
+    model, loss, params, n, batch, side, *training = worker.CASES[case]
+    assert n == batch, "one step"
+    cfg = worker.config(log_dir, model, loss, params, batch, side, *training)
+    img, mask = uint8_batches(4, 1, n, (side, side))[0]
+    items = [(f"s{i:02d}", img[i], mask[i]) for i in range(n)]
+    # the port's loader shuffles the epoch's one batch; JAX takes its rows in the same order
+    first = next(iter(BatchLoader(ArrayDataset(items), batch, shuffle=True, num_workers=1, seed=0)))
+    if model == "mini":
+        jmodel = jax_mini_net()
+        variables = jmodel.init(jax.random.key(1), jnp.zeros((1, side, side, 3), jnp.float32), train=False)
+        variables = {"params": variables["params"], "batch_stats": jax.tree.map(
+            lambda v: v + 0.1 * jnp.arange(v.size, dtype=v.dtype), variables["batch_stats"])}
+        start = from_jax_variables(jax.tree.map(np.asarray, variables))  # before the step donates them
+    else:
+        net = worker.build_model(model)
+        jmodel, variables = jax_model_and_variables(model, net, (side, side))
+        start = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    jt = JaxTrainer(jmodel, None, None, cfg, mesh=mesh, seed=0, init_variables=variables)
+    state = jt.init_state(None)
+    if mesh is None:
+        imgs, masks = jnp.asarray(first["image"].numpy()), jnp.asarray(first["mask"].numpy())
+    else:
+        imgs, masks, valid = jt._put_batch({"image": first["image"].numpy(), "mask": first["mask"].numpy()})
+        assert valid is None and len(imgs.sharding.device_set) == mesh.devices.size
+    state, jm = jt._train_step(state, imgs, masks)
+    want = from_jax_variables({"params": jax.tree.map(np.asarray, state.params),
+                               "batch_stats": jax.tree.map(np.asarray, state.batch_stats)})
+    names, vimg, vmask = zip(*worker.val_samples(side))
+    val = {"image": np.stack(vimg), "mask": np.stack(vmask)}
+    if mesh is None:
+        _, em = jt._eval_step(state, jnp.asarray(val["image"]), jnp.asarray(val["mask"]), None)
+    else:
+        _, em = jt._eval_step(state, *jt._put_batch(val, pad_to_devices=True))
+    return ({"loss": float(jm["loss"]), "state": want, "names": list(names),
+             "val": np.array([float(em["loss"]), float(em["iou"]), float(em["dice"])]),
+             "val_dice": np.asarray(em["per_sample_dice"])[:len(names)],
+             "val_iou": np.asarray(em["per_sample_iou"])[:len(names)]}, (start, items))
+
+
+def assert_row_step(got, want, accum=1, label=""):
+    """A port rank's result of ``_torch_dp_worker.run_case`` against :func:`jax_row_step`'s: loss
+    atol 1e-5 / rtol 1e-5, the state and the validation's metrics atol 1e-5 / rtol 1e-4
+    (tests/test_parallel_fast.py:89-93)."""
+    np.testing.assert_allclose(got["train"][0], want["loss"], atol=1e-5, rtol=1e-5, err_msg=label)
+    for k, v in want["state"].items():
+        if k.endswith("num_batches_tracked"):
+            assert int(got[f"sd/{k}"]) == accum, k  # once a microbatch
+        else:
+            np.testing.assert_allclose(got[f"sd/{k}"], v.numpy(), atol=1e-5, rtol=1e-4, err_msg=f"{label} {k}")
+    assert list(got["val_names"]) == want["names"]
+    np.testing.assert_allclose(got["val"][0], want["val"][0], atol=1e-5, rtol=1e-5, err_msg=label)
+    np.testing.assert_allclose(got["val"][1:], want["val"][1:], atol=1e-5, rtol=1e-4, err_msg=label)
+    np.testing.assert_allclose(got["val_dice"], want["val_dice"], atol=1e-5, rtol=1e-4, err_msg=label)
+    np.testing.assert_allclose(got["val_iou"], want["val_iou"], atol=1e-5, rtol=1e-4, err_msg=label)

@@ -84,7 +84,7 @@ def test_both_clis_take_the_flag(build_state, tmp_path):
     torch.save(port_model(SMALL).state_dict(), weights)
     data = generate(str(tmp_path / "data"), n=1, size=32, seed=0)
 
-    def fake_build_predictor(config, w, bf16=False, engine=False, device=None, exe_cache_dir=None):
+    def fake_build_predictor(config, w, bf16=False, engine=False, device=None, exe_cache_dir=None, mesh=None):
         seen["serve"] = (exe_cache_dir, _build.BUILD_DIR)
         raise _Stop
 

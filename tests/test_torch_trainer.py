@@ -18,6 +18,7 @@ import torch
 
 from _torch_port import (SMALL, assert_step_matches, jax_model_and_variables, port_model, run_both_trainers,
                          train_config, uint8_batches)
+import _torch_rows_worker as rows_worker
 from dfc_sa_unet_torch.data.loader import DataLoaderFactory
 from dfc_sa_unet_torch.data.synthetic import generate
 from dfc_sa_unet_torch.models.factory import create_model
@@ -234,11 +235,21 @@ def test_unknown_remat_and_unported_options_raise(tmp_path):
     model = create_model({"model": SMALL}, device="cpu", remat="some")
     with pytest.raises(ValueError, match="remat"):
         model(torch.zeros(1, 3, 32, 32))
-    # row sharding is the one option still to port
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A 4: row sharding"):
-        Trainer(port_model(SMALL), None, None, train_config(tmp_path, spatial_parallel=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 4: row sharding"):
-        serving_mesh(spatial=2)
+    # row sharding of the DFC family constructs: training.spatial_parallel is the CLI's to act on (the
+    # Trainer takes its mesh), and serving_mesh(spatial=2) needs two processes (one raises JAX's
+    # ValueError); over two, the 2-D layout forms and the flagship's Trainer constructs, and what is
+    # still to port (ROADMAP.md, Queue A 4.2) raises with its text
+    Trainer(port_model(SMALL), None, None, train_config(tmp_path, spatial_parallel=2), device="cpu")
+    with pytest.raises(ValueError, match="must divide the device count 1"):
+        serving_mesh(spatial=2, device="cpu")
+    pair = rows_worker.spawn(["mesh"], tmp_path)["mesh"]
+    # world, rank, spatial, data size, data index, spatial index, has a spatial group, has a data group,
+    # and the flagship Trainer's spatial and data axes
+    assert [list(r["fields"]) for r in pair] == [[2, 0, 2, 1, 0, 0, 1, 1, 2, 1], [2, 1, 2, 1, 0, 1, 1, 1, 2, 1]]
+    for got in pair:
+        for label in rows_worker.UNPORTED:
+            for kind in ("Trainer", "Predictor"):
+                assert "(ROADMAP.md, Queue A 4.2)" in str(got[f"{label} {kind}"]), (label, kind)
     # ported since: exact accumulation and the kernels' build directory construct
     from dfc_sa_unet_torch.ops import _build
 
