@@ -11,7 +11,7 @@ any failure exits non-zero:
 2. build the CUDA kernels from dfc_sa_unet_torch/csrc; ptxas must neither
    serialize the products (C7515) nor spill in the wgmma kernels of
    conv3x3_bn_relu (its halo instantiations too), conv3x3_bias_stats,
-   probe_matmul and conv3x3_s8;
+   probe_matmul and conv3x3_s8 (its halo instantiation too);
 3. hold every kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and at awkward ones, in f32 and bf16
    (pooled attention: in bf16 the tensor-core kernel at every N from 1 to
@@ -154,7 +154,24 @@ any failure exits non-zero:
    rank, each rank's peak memory and wall time beside one process's; (c) the
    flagship's f32 training at 224x224, B=4, 2 steps, on a Gloo pair of
    bands against one process (phase 14(b)'s limits), then with grad_accum 2
-   exact.
+   exact;
+17. the rest of row sharding: (a) conv3x3_s8's halo instantiation band by
+   band at the int8 engine's four levels (B=4), bf16 and f32 out, 2 and 4
+   bands and a band of one row, after a launch on rows of +127: stitched,
+   equal bit for bit to the whole image's kernel and to the plain version;
+   the pooled attention with a band's queries against every key (nq < nk)
+   at the full-resolution model's key counts, bf16 and f32, after a launch on
+   NaN queries: within phase 3's limits of the plain version and equal bit
+   for bit to the band's rows of the whole map's launch; (b) ViT-B/16 and
+   R50-ViT-B/16 at 224x224 (tokens gathered, the transformer whole on each
+   rank), UNet_FullResAttention at 64x64 (the band's queries against the
+   gathered keys), the bilinear UNet at 224x224, and the three int8 engines
+   (the flagship's on one 2048x2048 image) served in bf16 by a Gloo pair of
+   bands sharing the card (this script with --rows17_worker) against one
+   process, with the f32 logits beside, each rank's launches a forward, peak
+   memory and wall time beside one process's; (c) one f32 training step of
+   each of the four models on the pair against one process (a Gloo group of
+   one, so that its dropout seed is the pair's; phase 14(b)'s limits).
 
 The launch counts are set to 0 before phase 4 and read after phase 5 (the
 flagship's serving paths), and again around phase 6 (the transformers'),
@@ -168,7 +185,12 @@ each Gloo rank's and each cache child's; not the single-device, CPU and
 native references) and of phase 16 (each band's runs in (b) and (c); not
 (a)'s comparisons, nor the single-process references; the tail's and
 conv3x3's are their halo instantiations' and stand in the kernels line as
-``halo_launches`` too).  The line before
+``halo_launches`` too) and of phase 17 (each band's runs in (b) and (c), not
+(a)'s nor one process's; the int8 flagship's conv3x3_s8, tail and conv3x3
+launches there are their halo instantiations', added to ``halo_launches``;
+the full-resolution model's attention launches there are its launches with
+fewer queries than keys, ``fewer_query_launches``; the MHA launches there
+run on the gathered token maps, ``gathered_token_launches``).  The line before
 the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -343,6 +365,39 @@ ROWS_TRAIN_BATCH = 4
 # 16(b) in f32: the pair's logits against one process's, of max |logit|: the pool's window sums and
 # the upsample's band rows are summed in another order, and cuDNN picks its algorithm per shape
 ROWS_F32_TOL = 1e-5
+# phase 17: the rest of row sharding.  (b) the families banded after the DFC family, each served by a Gloo
+# pair sharing the card, each rank a band of half the rows, against one process: label -> (config, image side,
+# launches of one forward); the transformers' configs are phase 6's, the full-resolution model's phase 10's
+ROWS17_MODELS = {
+    "ViT-B/16": (ZOO["ViT-seg"][0], IMG, {"fused_mha": 12}),
+    "R50-ViT-B/16": (ZOO["TransUNet"][0], IMG, {"fused_mha_sep": 12}),
+    "UNet_FullResAttention": ({"model": {"name": "UNet_FullResAttention", **DFC_WIDTHS}}, 64, {"pooled_attention": 9}),
+    "UNet bilinear": ({"model": {"name": "UNet", "bilinear": True}}, IMG, {}),
+}
+# the int8 engines: label -> (the weights' model, image side, launches of one forward); the flagship on phase
+# 16(b)'s one large image, its fp levels on the tail and conv kernels
+ROWS17_INT8 = {
+    "int8 flagship": ("flagship", 2048, {"pooled_attention": 9, "dfc_tail": 4, "conv3x3_bn_relu": 1, "conv3x3_s8": 4}),
+    "int8 ViT-B/16": ("ViT-B/16", IMG, {"fused_mha": 12}),
+    "int8 R50-ViT-B/16": ("R50-ViT-B/16", IMG, {"fused_mha": 12}),
+}
+# the bf16 requests' limits against one process, |dlogit| / std: phase 5's, and TransUNet's wider ones of phase 6
+# (its int8 engine keeps the module's bf16 R50 stem), which phase 13 holds the int8 transformers to; the f32
+# int8 flagship's are phase 13's against the CPU (DLOGIT_TOL_INT8_CPU: a sum in another order moves a value
+# across a quantize step)
+ROWS17_TOL = {"R50-ViT-B/16": DLOGIT_TOL_BF16_ZOO["TransUNet"], "int8 R50-ViT-B/16": DLOGIT_TOL_BF16_ZOO["TransUNet"]}
+# the f32 logits against one process, of max |logit|: ROWS_F32_TOL (phase 16(b)'s), but R50-ViT-B/16's, set
+# above its readings on the card, 1.59e-5 (phase 17) and 1.59-1.63e-5 (four cards over NCCL,
+# scripts/bench_torch_rows.py): its R50 body amplifies the reordered sums of the band's convs and GroupNorm,
+# 1e-6 of the activations after block1 to 2e-5 after block3, with either GroupNorm formula in the one process
+# (a trace at 64x64 on the CPU).  The control: the pair's bf16 logits on the same images must fall outside it
+ROWS17_F32_TOL = {"R50-ViT-B/16": 4e-5}
+ROWS17_LOGIT_CLIP = 15.0  # the control reads logits from probabilities: |logit| above this saturates logit_of
+ROWS17_IMAGES = 8       # a bf16 request of each model at 224 or 64 (the int8 flagship: one image)
+ROWS17_F32_IMAGES = 2   # the f32 logits
+ROWS17_TRAIN_BATCH = 2  # (c): one f32 step of each model on the pair
+# (a) the pooled attention's band of queries against every key, at the full-resolution model's key counts
+ROWS17_ATTN_BATCH = 4
 
 
 def seeded_trainer(cfg, batch, data, bf16, device, log_dir, seed, remat=False, weight_seed=None, mesh=None,
@@ -853,9 +908,10 @@ def band_cuts(h):
 def by_bands(kernel, x, banded, shared, cuts, poison=False):
     """``kernel`` band by band over x's rows (``banded``: its other band-sized operands; ``shared``: the
     rest), each band with its neighbours' rows as ``top`` and ``bottom`` (None at the image's edge),
-    stitched back; ``poison``: a launch with NaN rows and halo rows before each band's."""
+    stitched back; ``poison``: a launch with NaN rows and halo rows (s8: all +127) before each band's."""
     import torch
 
+    bad = float("nan") if x.is_floating_point() else 127
     outs, r0 = [], 0
     for n in cuts:
         r1 = r0 + n
@@ -863,9 +919,9 @@ def by_bands(kernel, x, banded, shared, cuts, poison=False):
         bottom = x[:, r1].contiguous() if r1 < x.shape[1] else None
         part = [t[:, r0:r1].contiguous() for t in (x, *banded)]
         if poison:
-            nan = [torch.full_like(t, float("nan")) for t in part]
-            kernel(*nan, *shared, top=None if top is None else torch.full_like(top, float("nan")),
-                   bottom=None if bottom is None else torch.full_like(bottom, float("nan")))
+            nan = [torch.full_like(t, bad) for t in part]
+            kernel(*nan, *shared, top=None if top is None else torch.full_like(top, bad),
+                   bottom=None if bottom is None else torch.full_like(bottom, bad))
         outs.append(kernel(*part, *shared, top=top, bottom=bottom))
         r0 = r1
     return torch.cat(outs, 1)
@@ -1098,6 +1154,334 @@ def row_sharding(seed, card, dev, gen, max_err, run_epochs):
     return path
 
 
+# ------------------------------------------------------------------ phase 17: the rest of row sharding
+
+def rows17_kernels(dev, gen, max_err, card):
+    """Phase 17(a): conv3x3_s8's halo instantiation band by band at the int8 engine's four levels (B=4,
+    224x224), bf16 and f32 out, in 2 and 4 bands and a band of one row beside one of odd height, after a
+    launch on rows of all +127: stitched, equal bit for bit to the whole image's kernel and to the plain
+    version given the same rows; then the pooled attention with a band's queries against every key (2
+    bands) at the full-resolution model's key counts (4096, 1024, 256, 64; C' = C / 8), bf16 and f32, after
+    a launch on NaN queries: each band within phase 3's limits of the plain version and equal bit for bit
+    to the band's rows of the whole image's kernel (a query's row of the product does not depend on the
+    others).  Fails the phase otherwise."""
+    import torch
+
+    from dfc_sa_unet_torch.ops import conv_s8 as s8_ops
+    from dfc_sa_unet_torch.ops import pooled_attention as attn_ops
+    from scripts import bench_torch_int8 as int8_bench
+
+    bad, t0 = [], time.perf_counter()
+    with torch.inference_mode():
+        for out_dtype in (torch.bfloat16, torch.float32):
+            dn = str(out_dtype).split(".")[-1]
+            for name, h, cin, c in int8_bench.LEVELS:
+                x8, w8, scale, bias = int8_bench.inputs(4, h, h, cin, c, gen)
+
+                def kernel(x, top=None, bottom=None, fn=s8_ops.conv3x3_s8):
+                    return fn(x, w8, scale, bias, out_dtype, top=top, bottom=bottom)
+
+                whole = kernel(x8)
+                for label, cuts in band_cuts(h).items():
+                    got = by_bands(kernel, x8, (), (), cuts, poison=True)
+                    want = by_bands(lambda x, top=None, bottom=None: kernel(x, top, bottom, s8_ops.conv3x3_s8_plain),
+                                    x8, (), (), cuts)
+                    torch.cuda.synchronize()
+                    equal, plain = torch.equal(got, whole), torch.equal(got, want)
+                    err = (got.float() - want.float()).abs().max().item()
+                    max_err["conv3x3_s8"] = max(max_err["conv3x3_s8"], err)
+                    print(f"    conv3x3_s8 halo  {dn} {name:10s} B=4 {h}x{h} {cin}->{c}, {label} {cuts}: stitched "
+                          f"{'equal to' if equal else 'DIFFERENT from'} the whole image's kernel, "
+                          f"{'equal to' if plain else 'DIFFERENT from'} the plain version (max_abs_err {err:.1e})",
+                          flush=True)
+                    if not (equal and plain):
+                        bad.append(f"conv3x3_s8 {dn} {name} {label}")
+                del x8, w8, whole
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            for name, h, c in FULLRES_SHAPES[:4]:
+                shape = (ROWS17_ATTN_BATCH, h, h)
+                q, k = (torch.randn(*shape, c // 8, generator=gen, device=dev).to(dtype) for _ in range(2))
+                v = torch.randn(*shape, c, generator=gen, device=dev).to(dtype)
+                whole = attn_ops.pooled_attention(q, k, v)
+                for s in range(2):
+                    qb = q[:, s * h // 2:(s + 1) * h // 2].contiguous()
+                    attn_ops.pooled_attention(torch.full_like(qb, float("nan")), k, v)
+                    got = attn_ops.pooled_attention(qb, k, v)
+                    want = attn_ops.pooled_attention_plain(qb, k, v)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    lim = TOL[dn] * max(1.0, want.float().abs().max().item())
+                    equal = torch.equal(got, whole[:, s * h // 2:(s + 1) * h // 2])
+                    max_err["pooled_attention"] = max(max_err["pooled_attention"], err)
+                    print(f"    pooled_attention {dn} {name:6s} B={ROWS17_ATTN_BATCH} {h * h // 2} queries of {h * h} keys, "
+                          f"C' {c // 8}, C {c}, band {s} of 2 ({attn_ops.entry_point(dtype, h * h)}): max_abs_err vs plain "
+                          f"{err:.3e} (tol {lim:.2e}); {'equal to' if equal else 'DIFFERENT from'} the band's rows of "
+                          f"the whole map's launch", flush=True)
+                    if not (equal and np.isfinite(err) and err <= lim):
+                        bad.append(f"pooled_attention {dn} {name} band {s}")
+    print(f"    halo conv3x3_s8 and fewer-query attention checked in {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    if bad:
+        fail("phase 17(a): " + "; ".join(bad[:8]))
+
+
+def band_logits(fn, x, band):
+    """f32 logits [B, C, H, W] of ``fn`` on the normalised NCHW images x: the band's rows, gathered over
+    its group (the whole images' without a band)."""
+    import torch
+
+    from dfc_sa_unet_torch.parallel import rows
+
+    with torch.inference_mode(), rows.band_context(band):
+        part = x if band is None else x[:, :, band.row0:band.row0 + band.rows]
+        logits = fn(part.contiguous(memory_format=torch.channels_last)).float()
+        return (logits if band is None else rows.all_gather_rows(logits, band)).cpu().numpy()
+
+
+def rows17_worker(args, device="cuda:0"):
+    """One process of phase 17(b)-(c), on cuda:0 in a Gloo group of ``--rows_world`` (2: a serving mesh of
+    two bands; 1: one process, whose group makes the Trainer take the data-parallel path, so that its
+    dropout seed is the pair's).  For each model of ROWS17_MODELS (the weights in ``--rows_out``): a bf16
+    request of ROWS17_IMAGES images through the Predictor (a warm-up, then the timed one: its launches,
+    its pooled-attention launches with fewer queries than keys, its peak memory and wall time) and the
+    f32 module's logits of two; the int8 engines (calibrated at max |t| on 8 whole synthetic images, the
+    same in every process): the bf16 request, the flagship's on one 2048x2048 image, and the f32 int8
+    flagship's logits of that image with the same scales; then one f32 training step of each model at a
+    global batch of ROWS17_TRAIN_BATCH.  Saves everything into ``--rows_out``."""
+    import torch
+
+    from dfc_sa_unet_torch.data.normalize import normalize
+    from dfc_sa_unet_torch.data.synthetic import samples
+    from dfc_sa_unet_torch.infer.predictor import Predictor
+    from dfc_sa_unet_torch.infer.quant import Int8DFCEngine
+    from dfc_sa_unet_torch.infer.quant_transunet import Int8TransUNetEngine
+    from dfc_sa_unet_torch.infer.quant_vit import Int8ViTEngine
+    from dfc_sa_unet_torch.models.factory import create_model
+    from dfc_sa_unet_torch.ops import launches, pooled_attention as attn_ops, reset_launches
+    from dfc_sa_unet_torch.parallel.mesh import serving_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    mesh = serving_mesh(args.rows_world, device=dev, backend="gloo", coordinator=args.rows_coordinator,
+                        num_processes=args.rows_world, process_id=args.rows17_worker, timeout_s=DP_CHILD_TIMEOUT_S)
+    weights = torch.load(os.path.join(args.rows_out, "weights17.pt"))
+    rec = {"serve": {}, "train": {}}
+
+    def request(pred, images):
+        with torch.inference_mode():
+            pred.predict_probs(images)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            probs = pred.predict_probs(images)
+            return {"probs": probs, "wall_ms": (time.perf_counter() - t0) * 1e3, "launches": launches(),
+                    "fewer_queries": attn_ops.FEWER_QUERIES["pooled_attention"],
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    def band_of(side):
+        return mesh.band(side) if mesh.spatial > 1 else None
+
+    def calibration(side, dtype):
+        synthetic = np.stack([img for _, img, _ in samples(n=INT8_CALIB_IMAGES, size=side, seed=args.seed)])
+        return normalize(torch.from_numpy(synthetic).to(dev), dtype).permute(0, 3, 1, 2)
+
+    try:
+        bf = torch.bfloat16
+        for label, (cfg, side, _) in ROWS17_MODELS.items():
+            images = np.random.default_rng(args.seed).integers(0, 256, (ROWS17_IMAGES, side, side, 3), dtype=np.uint8)
+            for dtype in (bf, torch.float32):
+                model = create_model(cfg, dtype=dtype if dtype == bf else None, device=dev)
+                model.load_state_dict(weights[label])
+                model.eval()
+                if dtype == bf:
+                    rec["serve"][label] = request(Predictor(model, compute_dtype=bf, device=dev, mesh=mesh), images)
+                else:
+                    x = normalize(torch.from_numpy(images[:ROWS17_F32_IMAGES]).to(dev)).permute(0, 3, 1, 2)
+                    rec["serve"][label]["logits"] = band_logits(model, x, band_of(side))
+                del model
+                torch.cuda.empty_cache()
+        for label, (source, side, _) in ROWS17_INT8.items():
+            images = np.random.default_rng(args.seed).integers(0, 256, (1 if source == "flagship" else ROWS17_IMAGES,
+                                                                        side, side, 3), dtype=np.uint8)
+            kw = dict(device=dev, calib_batches=[calibration(IMG, bf)])
+            with torch.inference_mode():
+                if source == "flagship":
+                    engine = Int8DFCEngine(CONFIG, weights[source], dtype=bf, tail_kernel_levels="auto",
+                                           conv_kernel_levels="auto", **kw)
+                elif source == "ViT-B/16":
+                    engine = Int8ViTEngine(ZOO["ViT-seg"][0], weights[source], dtype=bf, **kw)
+                else:
+                    engine = Int8TransUNetEngine(ZOO["TransUNet"][0], weights[source], dtype=bf, **kw)
+            rec["serve"][label] = request(Predictor(engine, compute_dtype=bf, device=dev, mesh=mesh), images)
+            if source == "flagship":  # the f32 int8 engine with the same scales, on the same image
+                scales = engine.act_scales
+                del engine
+                torch.cuda.empty_cache()
+                engine = Int8DFCEngine(CONFIG, weights[source], dtype=torch.float32, device=dev, act_scales=scales,
+                                       tail_kernel_levels="auto", conv_kernel_levels="auto")
+                x = normalize(torch.from_numpy(images).to(dev)).permute(0, 3, 1, 2)
+                rec["serve"][label]["logits"] = band_logits(engine, x, band_of(side))
+            del engine
+            torch.cuda.empty_cache()
+        for label, (cfg, side, _) in ROWS17_MODELS.items():
+            data = list(samples(n=ROWS17_TRAIN_BATCH, size=side, seed=args.seed))
+            trainer = seeded_trainer(cfg, ROWS17_TRAIN_BATCH, data, False, dev,
+                                     os.path.join(args.rows_out, f"train{args.rows17_worker}of{args.rows_world}"),
+                                     args.seed, mesh=mesh)
+            reset_launches()
+            trainer.train_epoch(0)
+            rec["train"][label] = {"step_log": trainer.step_log, "launches": launches(),
+                                   "fewer_queries": attn_ops.FEWER_QUERIES["pooled_attention"],
+                                   "state": {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}}
+            del trainer
+            torch.cuda.empty_cache()
+        torch.save(rec, os.path.join(args.rows_out, f"rows17_rank{args.rows17_worker}of{args.rows_world}.pt"))
+    finally:
+        mesh.close()
+
+
+def row_sharding_families(seed, card, dev, gen, max_err):
+    """Phase 17: the rest of row sharding.  (a) the s8 conv's halo instantiation and the attention with
+    fewer queries than keys (``rows17_kernels``); (b) ViT-B/16 and R50-ViT-B/16 at 224x224 (the tokens
+    gathered over the bands, the transformer whole on each), UNet_FullResAttention at 64x64 (the band's
+    queries against the gathered keys) and the bilinear UNet at 224x224 served in bf16 by a Gloo pair
+    sharing the card, each rank a band of half the rows, against one process (phase 5's bf16 limits,
+    TransUNet at phase 6's wider ones; their f32 logits within ROWS_F32_TOL of max |logit|, R50-ViT-B/16's
+    within ROWS17_F32_TOL, each limit failed by the pair's bf16 logits), and the three int8 engines (the
+    flagship's on one 2048x2048 image, bf16, and f32 at phase 13's limits; the transformers' at their
+    modules' bf16 limits, as phase 13 holds them); each
+    rank's launches a forward, peak memory and wall time beside one process's; (c) one f32 training step of
+    each of the four models on the pair against one process (phase 14(b)'s limits; the transformers at
+    their configured dropout, whose masks the pair draws alike).  Returns the launch counts of the pair's
+    runs (not those of (a)'s comparisons, nor of the single-process references) and, of its pooled-attention
+    launches, those with fewer queries than keys."""
+    import torch
+
+    from dfc_sa_unet_torch.data.normalize import normalize
+    from dfc_sa_unet_torch.models.factory import create_model
+    from dfc_sa_unet_torch.ops import launches
+    from dfc_sa_unet_torch.parallel.mesh import local_coordinator
+    from dfc_sa_unet_torch.utils.weights import calibrate_batch_stats_, init_random_
+
+    print(f"[17] row sharding of the transformers, the full-resolution attention, the bilinear UNet and the int8 "
+          f"engines, seed {seed} ({card})", flush=True)
+    t_phase = time.perf_counter()
+    path = {k: 0 for k in launches()}
+    fewer = 0
+    run_counts = {}
+
+    def count(label, got):
+        run_counts[label] = {k: v for k, v in got.items() if v}
+        for k, v in got.items():
+            path[k] += v
+
+    # (a) the kernels, in this process
+    rows17_kernels(dev, gen, max_err, card)
+
+    # the weights: seeded, BatchNorm statistics fitted to 16 synthetic images so that the logits spread
+    tmp = tempfile.TemporaryDirectory()
+    weights = {}
+    for label, (cfg, side, _) in [("flagship", (CONFIG, IMG, None)), *ROWS17_MODELS.items()]:
+        model = init_random_(create_model(cfg, device="cpu"), torch.Generator().manual_seed(seed)).to(dev)
+        calib = np.random.default_rng(seed).integers(0, 256, (16, side, side, 3), dtype=np.uint8)
+        calibrate_batch_stats_(model, normalize(torch.from_numpy(calib).to(dev)).permute(0, 3, 1, 2))
+        weights[label] = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model
+    torch.save(weights, os.path.join(tmp.name, "weights17.pt"))
+    del weights
+    torch.cuda.empty_cache()
+    t_weights = time.perf_counter() - t_phase
+
+    # (b) and (c): one process, then the pair
+    child = ["--seed", str(seed), "--rows_out", tmp.name]
+    run_children([[*child, "--rows17_worker", "0", "--rows_world", "1", "--rows_coordinator", local_coordinator()]],
+                 "phase 17(b)-(c), one process")
+    one = torch.load(os.path.join(tmp.name, "rows17_rank0of1.pt"), weights_only=False)
+    coordinator = local_coordinator()
+    run_children([[*child, "--rows17_worker", str(r), "--rows_world", "2", "--rows_coordinator", coordinator]
+                  for r in range(2)], "phase 17(b)-(c), the Gloo pair")
+    pair = [torch.load(os.path.join(tmp.name, f"rows17_rank{r}of2.pt"), weights_only=False) for r in range(2)]
+    tmp.cleanup()
+    bad = []
+    expected = {**{label: want for label, (_, _, want) in ROWS17_MODELS.items()},
+                **{label: want for label, (_, _, want) in ROWS17_INT8.items()}}
+    for label, want in expected.items():
+        ref = one["serve"][label]
+        lim = ROWS17_TOL.get(label, DLOGIT_TOL_BF16)
+        want_logit = logit_of(ref["probs"])
+        std = float(want_logit.std())
+        per_forward = {**{k: 0 for k in path}, **want}
+        if ref["launches"] != per_forward:
+            bad.append(f"{label}: one process launched {ref['launches']}")
+        for r, got in enumerate(pair):
+            g = got["serve"][label]
+            count(f"(b) {label} rank {r}", g["launches"])
+            fewer += g["fewer_queries"]
+            d = np.abs(logit_of(g["probs"]) - want_logit) / std
+            f32 = ""
+            if "logits" in ref:
+                rel = float(np.abs(g["logits"] - ref["logits"]).max() / np.abs(ref["logits"]).max())
+                if label.startswith("int8"):  # the f32 int8 flagship: phase 13's limits, in units of std
+                    dl = np.abs(g["logits"] - ref["logits"]) / ref["logits"].std()
+                    f32 = (f"; f32 int8 |dlogit| / std max {dl.max():.3e} mean {dl.mean():.3e} (tol "
+                           f"{DLOGIT_TOL_INT8_CPU['max']}, {DLOGIT_TOL_INT8_CPU['mean']})")
+                    f32_ok = dl.max() <= DLOGIT_TOL_INT8_CPU["max"] and dl.mean() <= DLOGIT_TOL_INT8_CPU["mean"]
+                else:
+                    tol = ROWS17_F32_TOL.get(label, ROWS_F32_TOL)
+                    n, ref_logit = ref["logits"].shape[0], ref["logits"][:, 0]
+                    seen = np.abs(ref_logit) < ROWS17_LOGIT_CLIP
+                    ctl = float(np.abs(logit_of(g["probs"][:n]) - ref_logit)[seen].max() / np.abs(ref_logit).max())
+                    f32 = (f"; f32 logits within {rel:.3e} of max|logit| (tol {tol}); control, the bf16 logits "
+                           f"{ctl:.3e}")
+                    f32_ok = rel <= tol
+                    if ctl <= tol:
+                        bad.append(f"{label} rank {r}: the bf16 control passes the f32 limit {tol}")
+                if not f32_ok:
+                    bad.append(f"{label} rank {r}: f32 disagrees with one process")
+            fq = g["fewer_queries"]
+            print(f"    (b) {label} rank {r} of 2, bf16, {g['probs'].shape[0]} x {g['probs'].shape[1]}x{g['probs'].shape[2]} "
+                  f"(a band of {g['probs'].shape[1] // 2} rows): |dlogit| / std max {d.max():.3e} (tol {lim['max']}), "
+                  f"mean {d.mean():.3e} (tol {lim['mean']}) against one process (logit std {std:.3e}){f32}; launches "
+                  f"{run_counts[f'(b) {label} rank {r}']} a forward ({fq} with fewer queries than keys); peak "
+                  f"{g['peak_gib']:.3f} GiB against one process's {ref['peak_gib']:.3f}; request {g['wall_ms']:.1f} ms "
+                  f"wall against one process's {ref['wall_ms']:.1f} ({card})", flush=True)
+            if not np.isfinite(g["probs"]).all() or g["probs"].shape != ref["probs"].shape or std < MIN_LOGIT_STD:
+                bad.append(f"{label} rank {r}: probabilities of shape {g['probs'].shape}, logit std {std:.3e}")
+            if not (d.max() <= lim["max"] and d.mean() <= lim["mean"]):
+                bad.append(f"{label} rank {r} disagrees with one process")
+            if g["launches"] != per_forward:
+                bad.append(f"{label} rank {r} launched {g['launches']}, expected {want} a forward")
+            if label == "UNet_FullResAttention" and fq != want["pooled_attention"]:
+                bad.append(f"{label} rank {r}: {fq} of its attention launches had fewer queries than keys")
+    for label, (cfg, side, want) in ROWS17_MODELS.items():
+        ref = one["train"][label]
+        want_loss = [s["loss"] for s in ref["step_log"]]
+        for r, got in enumerate(pair):
+            g = got["train"][label]
+            count(f"(c) {label} rank {r}", g["launches"])
+            fewer += g["fewer_queries"]
+            loss = [s["loss"] for s in g["step_log"]]
+            worst = max(float(((a.double() - b.double()).abs() - (DP_STATE_TOL["atol"] + DP_STATE_TOL["rtol"]
+                                                                    * b.double().abs())).max())
+                        for a, b in ((g["state"][k], v) for k, v in ref["state"].items()) if b.is_floating_point())
+            print(f"    (c) {label} rank {r} of 2, f32, global batch {ROWS17_TRAIN_BATCH} at {side}x{side}: loss "
+                  f"{[round(v, 6) for v in loss]} against one process's {[round(v, 6) for v in want_loss]}; state "
+                  f"{'within' if worst <= 0 else 'OUTSIDE'} phase 14(b)'s limits; {g['step_log'][0]['ms']:.1f} ms/step "
+                  f"against one process's {ref['step_log'][0]['ms']:.1f}; launches {run_counts[f'(c) {label} rank {r}']} "
+                  f"({card})", flush=True)
+            if not np.allclose(loss, want_loss, **DP_LOSS_TOL) or len(loss) != 1 or worst > 0:
+                bad.append(f"(c) {label} rank {r} disagrees with one process")
+            if g["launches"] != ref["launches"]:
+                bad.append(f"(c) {label} rank {r} launched {g['launches']}, one process {ref['launches']}")
+    if bad:
+        fail("phase 17: " + "; ".join(bad[:10]))
+    print(f"    phase 17 launches, run by run: {run_counts}; the phase's {path}, {fewer} attention launches with "
+          f"fewer queries than keys; weights {t_weights:.1f} s; {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return path, fewer
+
+
 def model_config(name):
     """The YAML model section of one of the DFC zoo's nine names."""
     return {"model": {"name": name, "bilinear": False} if name == "UNet" else {"name": name, **DFC_WIDTHS}}
@@ -1129,6 +1513,8 @@ def main():
     ap.add_argument("--rows_coordinator", type=str, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--rows_out", type=str, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--rows_side", type=int, default=None, help=argparse.SUPPRESS)
+    # phase 17(b)-(c)'s processes: one band each of a Gloo pair (--rows_world 2), or one process
+    ap.add_argument("--rows17_worker", type=int, default=None, help=argparse.SUPPRESS)
     # phase 14(c)'s serving processes: the inference CLI on the arguments after "--"
     ap.add_argument("--serve_worker", type=str, default=None, help=argparse.SUPPRESS)
     # phase 15(d)'s processes: a first request with the kernels built in, or loaded from, a directory
@@ -1156,6 +1542,8 @@ def main():
         return cache_child(cli)
     if cli.rows_worker is not None:
         return rows_worker(cli)
+    if cli.rows17_worker is not None:
+        return rows17_worker(cli)
     from dfc_sa_unet_torch.infer.engine import AUTO_TAIL_LEVELS, DFCEngine
     from dfc_sa_unet_torch.infer.predictor import Predictor
     from dfc_sa_unet_torch.infer.quant import Int8DFCEngine, int8_self_check
@@ -1209,7 +1597,7 @@ def main():
                          ("dfc_tail", "conv3x3_bn_relu_narrow_halo_kernel"),
                          ("conv_bn_stats", "conv3x3_bias_stats_wgmma_kernel"),
                          ("conv_bn_stats", "conv3x3_bias_stats_narrow_kernel"), ("mxu_probes", "probe_matmul_kernel"),
-                         ("conv3x3_s8", "conv3x3_s8_kernel")):
+                         ("conv3x3_s8", "conv3x3_s8_kernel"), ("conv3x3_s8", "conv3x3_s8_halo_kernel")):
         text = (_build.BUILD_DIR / f"{stem}.log").read_text()
         entry, found = "", []
         for ln in text.splitlines():
@@ -2177,6 +2565,10 @@ def main():
     banded = row_sharding(seed, card, dev, gen, max_err, run_epochs)
     main_launches = {k: main_launches[k] + banded[k] for k in main_launches}
 
+    # ------------------------------------------------------------ phase 17
+    families, fewer_queries = row_sharding_families(seed, card, dev, gen, max_err)
+    main_launches = {k: main_launches[k] + families[k] for k in main_launches}
+
     sources = {"pooled_attention": ("dfc_sa_unet_torch/csrc/pooled_attention.cu",
                                     "dfc_sa_unet_tpu/ops/pallas_attention.py:74"),
                "dfc_tail": ("dfc_sa_unet_torch/csrc/dfc_tail.cu", "dfc_sa_unet_tpu/ops/pallas_conv.py:198"),
@@ -2207,8 +2599,13 @@ def main():
             "library_ms": r["library_ms"],
             **({"bf16_yardstick_ms": r["bf16_ms"]} if "bf16_ms" in r else {}),
             **({"levels": levels[name]} if name in levels else {}),
-            # the launches of the kernel's halo instantiation (row sharding, phase 16), among "launches"
-            **({"halo_launches": banded[name]} if name in ("dfc_tail", "conv3x3_bn_relu") else {}),
+            # the launches of the kernel's halo instantiation (row sharding, phases 16 and 17), among "launches"
+            **({"halo_launches": banded[name] + families[name]}
+               if name in ("dfc_tail", "conv3x3_bn_relu", "conv3x3_s8") else {}),
+            # phase 17: the attention's launches with a band's queries against every key, and the MHA's on
+            # the token maps gathered over the bands, among "launches"
+            **({"fewer_query_launches": fewer_queries} if name == "pooled_attention" else {}),
+            **({"gathered_token_launches": families[name]} if name in ("fused_mha", "fused_mha_sep") else {}),
         })
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -33,6 +33,12 @@
 // rounding: with the _rn intrinsics no multiply-add is contracted, so the kernel
 // equals its plain version (ops/conv_s8.py::conv3x3_s8_plain) bit for bit.  The
 // output leaves through the ring in coalesced 16-byte stores.
+//
+// Row sharding (parallel/rows.py): conv3x3_s8_halo_kernel is the same body with
+// dfc::HaloRows, whose taps in rows -1 and H read the halo rows top and bot
+// ([B][W][Cin] s8 each, Cin zero-padded as x is, null at the image's edge) as
+// PixelSlots reads x, in 2-byte units; conv3x3_s8_kernel keeps dfc::NoHalo and
+// its code.
 
 #include <cuda.h>
 #include <stdint.h>
@@ -165,10 +171,12 @@ __device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
 // blockIdx.x * 128.. and output channels blockIdx.y * NB..; K = 9 * cin bytes is walked flat in
 // 128-byte steps, one tap a step where cin is a multiple of 128 (PixelSlots::gather, the tap's shift
 // uniform across the block), several taps or a step across a tap's end otherwise (gather_taps).
-template <int NB, typename OutT>
-__global__ void __launch_bounds__(kThreads, wgconv::conv_blocks(s8_smem_bytes<NB>()))
-conv3x3_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ scale,
-                  const float* __restrict__ bias, OutT* __restrict__ out, int P, int H, int W, int cin, int cout) {
+// Halo: dfc::NoHalo, or dfc::HaloRows<bf16> over the s8 halo rows seen as 2-byte units.
+template <int NB, typename OutT, class Halo>
+__device__ __forceinline__ void conv3x3_s8_body(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                                                const float* __restrict__ scale, const float* __restrict__ bias,
+                                                OutT* __restrict__ out, int P, int H, int W, int cin, int cout,
+                                                Halo halo) {
   using R = S8Ring<NB>;
   constexpr int LD = NB + 16 / static_cast<int>(sizeof(OutT));  // staging row: NB values and 16 bytes
   static_assert(kBM * LD * static_cast<int>(sizeof(OutT)) <= R::kBytes, "the staging tile reuses the ring");
@@ -179,7 +187,7 @@ conv3x3_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, co
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * NB;
   const int units = cin / 2, krow = 9 * cin, steps = (krow + kStepBytes - 1) / kStepBytes;
   const bf16* xu = reinterpret_cast<const bf16*>(x);  // x as 2-byte units: the bf16 gathers' chunks
-  const wgconv::PixelSlots<kBM, kThreads> px(m0, P, H, W);
+  const wgconv::PixelSlots<kBM, kThreads, Halo> px(m0, P, H, W, halo);
   // the next step issued (steps are issued in order) starts at unit row tap * units + c0
   int tap = 0, c0 = 0;
 
@@ -241,27 +249,57 @@ conv3x3_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, co
 }
 
 template <int NB, typename OutT>
-int launch(const void* x, const void* w, const void* scale, const void* b, void* out, int P, int H, int W, int cin,
-           int cout, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads, wgconv::conv_blocks(s8_smem_bytes<NB>()))
+conv3x3_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ scale,
+                  const float* __restrict__ bias, OutT* __restrict__ out, int P, int H, int W, int cin, int cout) {
+  conv3x3_s8_body<NB, OutT>(x, w, scale, bias, out, P, H, W, cin, cout, dfc::NoHalo{});
+}
+
+// the same reading the halo rows top and bot ([B][W][cin] s8 each, null at the image's edge)
+template <int NB, typename OutT>
+__global__ void __launch_bounds__(kThreads, wgconv::conv_blocks(s8_smem_bytes<NB>()))
+conv3x3_s8_halo_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ scale,
+                       const float* __restrict__ bias, const int8_t* __restrict__ top, const int8_t* __restrict__ bot,
+                       OutT* __restrict__ out, int P, int H, int W, int cin, int cout) {
+  conv3x3_s8_body<NB, OutT>(x, w, scale, bias, out, P, H, W, cin, cout,
+                            dfc::HaloRows<bf16>{reinterpret_cast<const bf16*>(top), reinterpret_cast<const bf16*>(bot)});
+}
+
+// with a halo row (top or bot non-null), the kernel that reads them
+template <int NB, typename OutT>
+int launch(const void* x, const void* w, const void* scale, const void* b, const void* top, const void* bot, void* out,
+           int P, int H, int W, int cin, int cout, cudaStream_t stream) {
   constexpr int smem = s8_smem_bytes<NB>();
-  const cudaError_t err =
-      cudaFuncSetAttribute(conv3x3_s8_kernel<NB, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(dfc::ceil_div(P, kBM), dfc::ceil_div(cout, NB));
-  conv3x3_s8_kernel<NB, OutT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), static_cast<const float*>(scale),
-      static_cast<const float*>(b), static_cast<OutT*>(out), P, H, W, cin, cout);
+  const auto* x8 = static_cast<const int8_t*>(x);
+  const auto* w8 = static_cast<const int8_t*>(w);
+  const auto* sc = static_cast<const float*>(scale);
+  const auto* bias = static_cast<const float*>(b);
+  if (top != nullptr || bot != nullptr) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(conv3x3_s8_halo_kernel<NB, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv3x3_s8_halo_kernel<NB, OutT><<<grid, kThreads, smem, stream>>>(
+        x8, w8, sc, bias, static_cast<const int8_t*>(top), static_cast<const int8_t*>(bot), static_cast<OutT*>(out),
+        P, H, W, cin, cout);
+  } else {
+    const cudaError_t err =
+        cudaFuncSetAttribute(conv3x3_s8_kernel<NB, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv3x3_s8_kernel<NB, OutT><<<grid, kThreads, smem, stream>>>(x8, w8, sc, bias, static_cast<OutT*>(out), P, H,
+                                                                   W, cin, cout);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // nb: the B tile's width, ops/conv_s8.py::s8_tiling's (64, 128 or 256 from Cout)
 template <typename OutT>
-int dispatch(const void* x, const void* w, const void* scale, const void* b, void* out, int P, int H, int W, int cin,
-             int cout, int nb, cudaStream_t s) {
+int dispatch(const void* x, const void* w, const void* scale, const void* b, const void* top, const void* bot,
+             void* out, int P, int H, int W, int cin, int cout, int nb, cudaStream_t s) {
   if (cin % 16 || cout % 8) return static_cast<int>(cudaErrorInvalidValue);  // 16-byte chunks of x, w and out
-  if (nb == 64) return launch<64, OutT>(x, w, scale, b, out, P, H, W, cin, cout, s);
-  if (nb == 128) return launch<128, OutT>(x, w, scale, b, out, P, H, W, cin, cout, s);
-  if (nb == 256) return launch<256, OutT>(x, w, scale, b, out, P, H, W, cin, cout, s);
+  if (nb == 64) return launch<64, OutT>(x, w, scale, b, top, bot, out, P, H, W, cin, cout, s);
+  if (nb == 128) return launch<128, OutT>(x, w, scale, b, top, bot, out, P, H, W, cin, cout, s);
+  if (nb == 256) return launch<256, OutT>(x, w, scale, b, top, bot, out, P, H, W, cin, cout, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -270,10 +308,26 @@ int dispatch(const void* x, const void* w, const void* scale, const void* b, voi
 // x: s8 [P][cin]; w: s8 [cout][9 * cin]; scale, b: f32 [cout]; out: [P][cout] bf16 or f32
 extern "C" int conv3x3_s8_bf16(const void* x, const void* w, const void* scale, const void* b, void* out, int P,
                                int H, int W, int cin, int cout, int nb, void* stream) {
-  return dispatch<bf16>(x, w, scale, b, out, P, H, W, cin, cout, nb, static_cast<cudaStream_t>(stream));
+  return dispatch<bf16>(x, w, scale, b, nullptr, nullptr, out, P, H, W, cin, cout, nb,
+                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int conv3x3_s8_f32(const void* x, const void* w, const void* scale, const void* b, void* out, int P,
                               int H, int W, int cin, int cout, int nb, void* stream) {
-  return dispatch<float>(x, w, scale, b, out, P, H, W, cin, cout, nb, static_cast<cudaStream_t>(stream));
+  return dispatch<float>(x, w, scale, b, nullptr, nullptr, out, P, H, W, cin, cout, nb,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// the same with the halo rows top and bot of a band of rows: s8 [B][W][cin] each (cin as x's), null
+// at the image's edge
+extern "C" int conv3x3_s8_halo_bf16(const void* x, const void* w, const void* scale, const void* b, const void* top,
+                                    const void* bot, void* out, int P, int H, int W, int cin, int cout, int nb,
+                                    void* stream) {
+  return dispatch<bf16>(x, w, scale, b, top, bot, out, P, H, W, cin, cout, nb, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int conv3x3_s8_halo_f32(const void* x, const void* w, const void* scale, const void* b, const void* top,
+                                   const void* bot, void* out, int P, int H, int W, int cin, int cout, int nb,
+                                   void* stream) {
+  return dispatch<float>(x, w, scale, b, top, bot, out, P, H, W, cin, cout, nb, static_cast<cudaStream_t>(stream));
 }

@@ -3,7 +3,11 @@
 // Replaces the TPU kernel dfc_sa_unet_tpu/ops/pallas_attention.py::
 // fused_pooled_attention (body _attn_kernel, :32-43): for each batch element
 //
-//     out = softmax(q k^T) v        q, k: [N, Cq], v: [N, C], N = p*p <= 4096
+//     out = softmax(q k^T) v        q: [Nq, Cq], k: [Nk, Cq], v: [Nk, C], Nk = p*p <= 4096
+//
+// Nq = Nk but under row sharding, where the full-resolution attention takes a
+// band's queries against the whole image's keys (parallel/rows.py): the grid
+// and the row masks walk the Nq queries, the key loops the Nk keys.
 //
 // with no 1/sqrt(Cq) scale (the reference model has none), energies and the
 // softmax in f32, f32 accumulation, and the output rounded to v's dtype.  The
@@ -74,7 +78,7 @@ constexpr int kKeys = 32;      // keys staged per step
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 pooled_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ out, int n, int cq, int c) {
+                        const T* __restrict__ v, T* __restrict__ out, int nq, int n, int cq, int c) {
   extern __shared__ float smem[];
   const int cqp = cq + 1;  // padded row stride: no bank conflicts in q.k
   float* s_e = smem;                   // [kRows][n] energies, then P
@@ -86,8 +90,8 @@ pooled_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int col0 = blockIdx.y * kCols;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int rows = min(kRows, n - row0);
-  const T* qb = q + (size_t)b * n * cq;
+  const int rows = min(kRows, nq - row0);
+  const T* qb = q + (size_t)b * nq * cq;
   const T* kb = k + (size_t)b * n * cq;
   const T* vb = v + (size_t)b * n * c;
 
@@ -163,23 +167,23 @@ pooled_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int ch = col0 + lane + 32 * jj;
-      if (ch < c) out[((size_t)b * n + row0 + r) * c + ch] = dfc::from_f<T>(acc[ii][jj]);
+      if (ch < c) out[((size_t)b * nq + row0 + r) * c + ch] = dfc::from_f<T>(acc[ii][jj]);
     }
   }
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int n, int cq, int c,
+int launch(const void* q, const void* k, const void* v, void* out, int b, int nq, int n, int cq, int c,
            void* stream) {
   const int cqp = cq + 1;
   const int kv = kKeys * (cqp > kCols ? cqp : kCols);
   const size_t smem = sizeof(float) * ((size_t)kRows * n + (size_t)kRows * cqp + kv);
   cudaFuncSetAttribute(pooled_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  const dim3 grid(dfc::ceil_div(n, kRows), dfc::ceil_div(c, kCols), b);
+  const dim3 grid(dfc::ceil_div(nq, kRows), dfc::ceil_div(c, kCols), b);
   pooled_attention_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), n, cq, c);
+      static_cast<T*>(out), nq, n, cq, c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,7 +235,7 @@ __device__ __forceinline__ void stage_keys(float* s_k, const T* __restrict__ kb,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 pooled_attention_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, T* __restrict__ out, int n, int cq, int c) {
+                             const T* __restrict__ v, T* __restrict__ out, int nq, int n, int cq, int c) {
   extern __shared__ __align__(16) float smem_long[];
   const int cqp = cq + 1;  // padded row stride: no bank conflicts in q.k
   float* s_v = smem_long;                      // [kLKeys][kLCols]
@@ -243,13 +247,13 @@ pooled_attention_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = blockIdx.x * kLRows;
   const int col0 = blockIdx.y * kLCols;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const T* qb = q + (size_t)b * n * cq;
+  const T* qb = q + (size_t)b * nq * cq;
   const T* kb = k + (size_t)b * n * cq;
   const T* vb = v + (size_t)b * n * c;
 
   for (int i = tid; i < kLRows * cq; i += kThreads) {
     const int r = i / cq, ch = i - r * cq;
-    s_q[r * cqp + ch] = row0 + r < n ? dfc::to_f(qb[(size_t)(row0 + r) * cq + ch]) : 0.f;
+    s_q[r * cqp + ch] = row0 + r < nq ? dfc::to_f(qb[(size_t)(row0 + r) * cq + ch]) : 0.f;
   }
 
   // pass one: per row the running max m and l = sum exp(e - m)
@@ -319,26 +323,26 @@ pooled_attention_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = row0 + ty * 4 + i;
-    if (r >= n) continue;
+    if (r >= nq) continue;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int ch = col0 + tx * 4 + jj;
-      if (ch < c) out[((size_t)b * n + r) * c + ch] = dfc::from_f<T>(acc[i][jj]);
+      if (ch < c) out[((size_t)b * nq + r) * c + ch] = dfc::from_f<T>(acc[i][jj]);
     }
   }
 }
 
 template <typename T>
-int launch_long(const void* q, const void* k, const void* v, void* out, int b, int n, int cq, int c,
+int launch_long(const void* q, const void* k, const void* v, void* out, int b, int nq, int n, int cq, int c,
                 void* stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kLKeys * kLCols + kLRows * kLdp + (size_t)(kLRows + kLKeys) * (cq + 1));
   cudaFuncSetAttribute(pooled_attention_long_kernel<T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const dim3 grid(dfc::ceil_div(n, kLRows), dfc::ceil_div(c, kLCols), b);
+  const dim3 grid(dfc::ceil_div(nq, kLRows), dfc::ceil_div(c, kLCols), b);
   pooled_attention_long_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), n, cq, c);
+      static_cast<T*>(out), nq, n, cq, c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -472,8 +476,8 @@ size_t mma_smem_bytes(int n, int cqp) {
 template <int WARPS, int RT, int CT, int MINB, int G, int KEYS>
 __global__ void __launch_bounds__(WARPS * 32, MINB)
 pooled_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, bf16* __restrict__ out, int n, int cq, int c,
-                            int cqp, int vec) {
+                            const bf16* __restrict__ v, bf16* __restrict__ out, int nq, int n, int cq,
+                            int c, int cqp, int vec) {
   constexpr int THREADS = WARPS * 32, ROWS = 16 * WARPS * RT, LDV = CT + kMPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ldk = cqp + kMPad;
@@ -486,7 +490,7 @@ pooled_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const int b = blockIdx.z, row0 = blockIdx.x * ROWS, col0 = blockIdx.y * CT;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const bf16* qb = q + (size_t)b * n * cq;
+  const bf16* qb = q + (size_t)b * nq * cq;
   const bf16* kb = k + (size_t)b * n * cq;
   const bf16* vb = v + (size_t)b * n * c + col0;
   const int chunks = (n + KEYS - 1) / KEYS;
@@ -522,7 +526,7 @@ pooled_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     }
     dfc::cp_async_commit();
   };
-  load_rows<THREADS, 0>(s_q, ldk, qb, cq, row0, ROWS, n, cq, cq, vec);  // joins step 0's group
+  load_rows<THREADS, 0>(s_q, ldk, qb, cq, row0, ROWS, nq, cq, cq, vec);  // joins step 0's group
   for (int s = 0; s < kMStages - 1; ++s) issue(s);
 
   // ldmatrix row addresses of this lane: q as A (rows r, r+8 x channels c, c+8), k as B
@@ -626,7 +630,7 @@ pooled_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   }
   dfc::cp_async_wait<0>();
 
-  bf16* ob = out + (size_t)b * n * c;
+  bf16* ob = out + (size_t)b * nq * c;
   const bool pairs = c % 2 == 0;  // bf16x2 stores stay 4-byte aligned
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
@@ -638,7 +642,7 @@ pooled_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = ra + 8 * h;
-        if (r >= n || ch >= c) continue;
+        if (r >= nq || ch >= c) continue;
         bf16* dst = ob + (size_t)r * c + ch;
         if (pairs) {
           *reinterpret_cast<__nv_bfloat162*>(dst) =
@@ -653,7 +657,7 @@ pooled_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 }
 
 template <int WARPS, int RT, int CT, int MINB, int G, int KEYS>
-int launch_mma_t(const void* q, const void* k, const void* v, void* out, int b, int n, int cq,
+int launch_mma_t(const void* q, const void* k, const void* v, void* out, int b, int nq, int n, int cq,
                  int c, void* stream) {
   const int cqp = (cq + 15) / 16 * 16;
   const bool vec = cq % 8 == 0 && c % 8 == 0 &&
@@ -663,38 +667,39 @@ int launch_mma_t(const void* q, const void* k, const void* v, void* out, int b, 
   const cudaError_t err = cudaFuncSetAttribute(pooled_attention_mma_kernel<WARPS, RT, CT, MINB, G, KEYS>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(dfc::ceil_div(n, 16 * WARPS * RT), dfc::ceil_div(c, CT), b);
+  const dim3 grid(dfc::ceil_div(nq, 16 * WARPS * RT), dfc::ceil_div(c, CT), b);
   pooled_attention_mma_kernel<WARPS, RT, CT, MINB, G, KEYS><<<grid, WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), n, cq, c, cqp, vec ? 1 : 0);
+      static_cast<bf16*>(out), nq, n, cq, c, cqp, vec ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// every entry point: q [b][nq][cq], k [b][n][cq], v [b][n][c], out [b][nq][c]; nq <= n
 extern "C" int pooled_attention_long_f32(const void* q, const void* k, const void* v, void* out,
-                                         int b, int n, int cq, int c, void* stream) {
-  return launch_long<float>(q, k, v, out, b, n, cq, c, stream);
+                                         int b, int nq, int n, int cq, int c, void* stream) {
+  return launch_long<float>(q, k, v, out, b, nq, n, cq, c, stream);
 }
 
 extern "C" int pooled_attention_f32(const void* q, const void* k, const void* v, void* out, int b,
-                                    int n, int cq, int c, void* stream) {
-  return launch<float>(q, k, v, out, b, n, cq, c, stream);
+                                    int nq, int n, int cq, int c, void* stream) {
+  return launch<float>(q, k, v, out, b, nq, n, cq, c, stream);
 }
 
-// bf16, any N <= 4096 and Cq <= 256.  A block of 4 warps owns a whole image of N <= 64 (64
+// bf16, any N = nk <= 4096 and Cq <= 256 (the configuration goes by the keys).  A block of 4 warps owns a whole image of N <= 64 (64
 // query rows, one chunk).  For larger N and Cq <= 32 (the full-resolution model's N >= 256),
 // 128-key chunks and 256 query rows a block (8 warps of two row tiles) at C <= 64, 128 rows at
 // larger C (whose 128 channels of accumulators fill the registers): each image's K and V are
 // read from L2 by fewer blocks.  Wider q and k take 64-key chunks and 128 rows, which keep the
 // ring inside an SM's shared memory up to Cq = 256.
 extern "C" int pooled_attention_mma_bf16(const void* q, const void* k, const void* v, void* out,
-                                         int b, int n, int cq, int c, void* stream) {
+                                         int b, int nq, int n, int cq, int c, void* stream) {
   if (n <= 64) {
-    return c <= 64 ? launch_mma_t<4, 1, 64, 4, 2, 64>(q, k, v, out, b, n, cq, c, stream)
-                   : launch_mma_t<4, 1, 128, 2, 2, 64>(q, k, v, out, b, n, cq, c, stream);
+    return c <= 64 ? launch_mma_t<4, 1, 64, 4, 2, 64>(q, k, v, out, b, nq, n, cq, c, stream)
+                   : launch_mma_t<4, 1, 128, 2, 2, 64>(q, k, v, out, b, nq, n, cq, c, stream);
   }
-  if (cq > 32) return launch_mma_t<8, 1, 128, 1, 2, 64>(q, k, v, out, b, n, cq, c, stream);
-  return c <= 64 ? launch_mma_t<8, 2, 64, 1, 4, 128>(q, k, v, out, b, n, cq, c, stream)
-                 : launch_mma_t<8, 1, 128, 1, 4, 128>(q, k, v, out, b, n, cq, c, stream);
+  if (cq > 32) return launch_mma_t<8, 1, 128, 1, 2, 64>(q, k, v, out, b, nq, n, cq, c, stream);
+  return c <= 64 ? launch_mma_t<8, 2, 64, 1, 4, 128>(q, k, v, out, b, nq, n, cq, c, stream)
+                 : launch_mma_t<8, 1, 128, 1, 4, 128>(q, k, v, out, b, nq, n, cq, c, stream);
 }

@@ -116,7 +116,9 @@ class Predictor:
     ``exe_cache_dir``: the directory the CUDA kernels are built in and loaded
     from (``ops/_build.py::set_build_dir``).  ``mesh``: a ``parallel.mesh.ProcessMesh``
     whose ``spatial`` above 1 shards every image's rows over the ranks of a
-    spatial group (the DFC family and the folded ``DFCEngine`` only)."""
+    spatial group (every model of the factory and every serving engine; an
+    int8 engine's activation scales must then be the same on every rank of
+    the group, which is checked)."""
 
     def __init__(self, model, compute_dtype=None, device=None, exe_cache_dir=None, mesh=None):
         if exe_cache_dir is not None:
@@ -126,6 +128,10 @@ class Predictor:
         self.mesh = mesh if mesh is not None and mesh.group is not None and mesh.spatial > 1 else None
         if self.mesh is not None:
             rows.check_model(model)
+            if getattr(model, "act_scales", None) is not None:
+                rows.check_same_scales(model.act_scales, self.mesh.spatial_group,
+                                       self.device if self.mesh.backend == "nccl" else "cpu")
+        self.stride = rows.family_stride(model)
         self._warned_spatial = False
         if isinstance(model, torch.nn.Module):
             model = model.to(self.device, memory_format=torch.channels_last).eval()
@@ -136,11 +142,11 @@ class Predictor:
         breaks the band rule: the batch then runs whole, with JAX's note once)."""
         if self.mesh is None:
             return None
-        if rows.divides(height, self.mesh.spatial):
+        if rows.divides(height, self.mesh.spatial, self.stride):
             return self.mesh.band(height)
         if not self._warned_spatial and self.mesh.is_primary:
-            print(f"(spatial={self.mesh.spatial} does not divide H={height} into bands of an even height at every "
-                  f"pooling level, a multiple of {self.mesh.spatial << rows.LEVELS}; sharding batch only)")
+            print(f"(spatial={self.mesh.spatial} does not divide H={height} into bands of whole rows of the model's "
+                  f"coarsest grid, a multiple of {self.mesh.spatial * self.stride}; sharding batch only)")
         self._warned_spatial = True
         return None
 

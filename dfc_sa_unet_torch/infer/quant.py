@@ -22,6 +22,12 @@ fp engine's own forward with range taps (``DFCEngine._fwd``) on the engine's
 device.  ``int8_self_check`` compares the int8 engine with the fp
 probabilities captured during calibration.
 
+Under a band of rows (row sharding, parallel/rows.py) the s8 3x3 conv reads
+the neighbours' quantized halo rows (the kernel's halo instantiation).
+Calibration never runs under a band: every rank calibrates on the same whole
+images, so the ranks of a spatial group hold the same scales (the Predictor
+checks it, ``rows.check_same_scales``).
+
 The level tables are the JAX package's (quant.py:57-80).  Its "auto" set was
 measured on a TPU; on the H100 scripts/bench_torch_int8.py times each set.
 """
@@ -37,6 +43,7 @@ from dfc_sa_unet_torch.infer.engine import (AUTO_CONV_LEVELS, AUTO_TAIL_LEVELS, 
                                             _levels, fold_block)
 from dfc_sa_unet_torch.models.blocks import nchw, nhwc
 from dfc_sa_unet_torch.ops.conv_s8 import conv3x3_s8, pack_s8_taps, s8_matmul
+from dfc_sa_unet_torch.parallel import rows
 
 _ALL_OPS = frozenset({"conv", "attn0", "gate", "fuse", "res"})
 PROBE_INT8_OPS = {
@@ -287,9 +294,12 @@ class Int8DFCEngine(Calibrated, DFCEngine):
             x8 = quantize_act(nhwc(x), sx)
         if "conv" in ops:
             w8, s3 = q["conv"]
-            local = nchw(conv3x3_s8(x8, w8, sx * s3, d["conv"][1], out_dtype=dt))
+            # under a band of rows the neighbours' s8 rows: the scale is static and per tensor, so they
+            # are the rows the neighbours quantized, in half the bytes of the compute dtype's
+            top, bottom = self._halo(nchw(x8))
+            local = nchw(conv3x3_s8(x8, w8, sx * s3, d["conv"][1], out_dtype=dt, top=top, bottom=bottom))
         else:
-            y3 = F.conv2d(x, d["conv"][0], padding=1).to(dt)
+            y3 = rows.conv3x3(x, d["conv"][0]).to(dt)
             local = torch.relu(y3.float() + d["conv"][1].view(-1, 1, 1)).to(dt)
         if "attn0" in ops:
             wa, sa = q["attn0"]

@@ -14,7 +14,9 @@ eval mode.  A single-channel input is repeated to 3 channels.  With
 ``int8_ops={}`` this is the fp engine, numerically the port's TransUNet.
 
 Takes normalised NCHW images (channels_last) of ``img_dim`` x ``img_dim``
-and returns NCHW logits in the compute dtype, as the module does.
+and returns NCHW logits in the compute dtype, as the module does.  Under a
+band of rows (row sharding, parallel/rows.py) the module's embeddings gather
+the tokens and its decoder takes the band's rows, so the engine follows.
 """
 
 from typing import Any, Iterable, Mapping, Optional
@@ -73,6 +75,7 @@ class Int8TransUNetEngine(Calibrated):
         module = module.to(self.device, memory_format=torch.channels_last).eval()
         self.embeddings, self.decoder = module.transformer.embeddings, module.decoder
         self.segmentation_head = module.segmentation_head
+        self.band_stride = module.band_stride
 
         # the encoder blocks, q / k / v packed into one [3E, E] product
         sd = {k: v.detach().to(self.device, torch.float32) for k, v in weights.items()

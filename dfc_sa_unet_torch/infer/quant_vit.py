@@ -14,6 +14,10 @@ engine, numerically the port's ViT-seg module.
 
 Takes normalised NCHW images (channels_last) of ``img_dim`` x ``img_dim``,
 as the module does, and returns f32 NCHW logits, as the JAX engine does.
+Under a band of rows (row sharding, parallel/rows.py) it takes the band's
+rows, as the module does: the band's patches, the token map gathered over the
+spatial group, the encoder whole, the band's token rows into the head (whose
+transposed convs read one halo row each side).
 """
 
 from typing import Any, Iterable, Mapping, Optional
@@ -27,6 +31,7 @@ from dfc_sa_unet_torch.models.vit_seg import gelu, map_from_tokens, tokens_from_
 from dfc_sa_unet_torch.ops.conv_s8 import s8_matmul
 from dfc_sa_unet_torch.ops.mha import fused_mha
 from dfc_sa_unet_torch.ops.resize import resize_bilinear
+from dfc_sa_unet_torch.parallel import rows
 from dfc_sa_unet_torch.utils.device import resolve_device
 
 VIT_OPS = frozenset({"qkv", "out", "fc1", "fc2"})
@@ -132,6 +137,11 @@ class Int8ViTEngine(Calibrated):
                              [f"{i}.{need[o]}" for i, ops in self.int8_ops.items() for o in sorted(ops)],
                              "Int8ViTEngine")
 
+    @property
+    def band_stride(self) -> int:
+        """The image rows of one token row: the family's band rule (parallel/rows.py)."""
+        return self.patch_dim
+
     def _tap(self, ranges, key, t):
         range_tap(ranges, key, t, self.calib_percentile)
 
@@ -171,17 +181,22 @@ class Int8ViTEngine(Calibrated):
         dt = self.dtype
         x = x.to(self.device, dt, memory_format=torch.channels_last)
         h, w = x.shape[2:]
-        if (h, w) != (self.img_dim, self.img_dim):
-            raise ValueError(f"input image size ({h}x{w}) doesn't match the model's ({self.img_dim}x{self.img_dim})")
+        band = rows.current()
+        height = h if band is None else band.level(h)[0]
+        if (height, w) != (self.img_dim, self.img_dim):
+            raise ValueError(f"input image size ({height}x{w}) doesn't match the model's "
+                             f"({self.img_dim}x{self.img_dim})")
         y = (F.conv2d(x, self.patch_w, stride=self.patch_dim) + self.patch_b.view(-1, 1, 1)).to(dt)
         # + pos promotes to f32, as in the module: the residual stream stays f32
-        y = tokens_from_map(y) + self.pos
+        y = tokens_from_map(y if band is None else rows.all_gather_rows(y)) + self.pos
         for i in range(self.num_layers):
             y = self._layer(i, y, ranges)
         feat = self.img_dim // self.patch_dim
         y = map_from_tokens(y.to(dt), feat, feat)
+        if band is not None:
+            y = rows.band_rows(y)
         for k, b in self.head:
-            z = F.conv_transpose2d(y, k, None, stride=2, padding=1)
+            z = rows.conv_transpose(y, k, 2, 1)
             y = torch.relu(z.float() + b.view(-1, 1, 1)).to(dt)
         logits = F.conv2d(y, self.final_w).float() + self.final_b.view(-1, 1, 1)
         return resize_bilinear(logits, (h, w), align_corners=False)

@@ -50,18 +50,20 @@ rows into the global file order and writes the CSV and the summary.  In
 JAX ``--data_parallel`` splits a batch over one process's devices; either
 way each image gets the same probabilities.
 
-``--spatial_parallel S`` under torchrun (row sharding of the DFC family,
-``--engine`` included): the N processes form N / S data groups of S ranks
+``--spatial_parallel S`` under torchrun (row sharding of every model and
+engine, ``--engine`` and ``--int8`` included): the N processes form N / S
+data groups of S ranks
 (rank d * S + s); data group d serves ``files[d::N/S]``, and each of its
 ranks holds a band of every image's rows (parallel/rows.py): halo exchanges
 between neighbouring bands, the pooled attention's pool over the bands, the
 probabilities gathered over the group, so one large image is served exactly
 across cards, without tile seams (``--no_slide_window``, on images whose
-activations exceed one card's memory).  The height must be a multiple of 16
-S; another height runs whole on every rank of the group.  The group is NCCL
-on the cards; the spatial index 0 of each data group writes the artifacts
-and the metrics' part.  ``--int8``, ViT-seg, TransUNet and
-UNet_FullResAttention under a band raise (ROADMAP.md, Queue A 4.2).
+activations exceed one card's memory); the transformers' token stage and the
+full-resolution attention's keys are gathered, and int8 calibration runs on
+whole images on every rank.  The height must be a multiple of S times the
+family's stride (16; ViT-seg: its patch); another height runs whole on every
+rank of the group.  The group is NCCL on the cards; the spatial index 0 of
+each data group writes the artifacts and the metrics' part.
 """
 
 import argparse
@@ -80,7 +82,6 @@ from dfc_sa_unet_torch.metrics import confusion_counts, metrics_from_counts
 from dfc_sa_unet_torch.models.factory import create_model
 from dfc_sa_unet_torch.ops import _build
 from dfc_sa_unet_torch.parallel import multihost as mh
-from dfc_sa_unet_torch.parallel import rows
 from dfc_sa_unet_torch.parallel.mesh import add_parallel_flags, mesh_from_flags
 from dfc_sa_unet_torch.utils.device import resolve_device
 from dfc_sa_unet_torch.utils.visualization import create_combined_visualization
@@ -176,9 +177,10 @@ def _calibration_batches(config, image_files, args, dtype, dev):
     return to_input(calib), to_input(held) if held else None, len(calib)
 
 
-def build_int8_predictor(config, weights, image_files, args, device=None) -> Predictor:
+def build_int8_predictor(config, weights, image_files, args, device=None, mesh=None) -> Predictor:
     """The model's int8 engine, calibrated on the input images, self-checked unless
-    ``--no_int8_check``, in a Predictor on ``device`` (default ``args.device``)."""
+    ``--no_int8_check``, in a Predictor on ``device`` (default ``args.device``) with ``mesh`` (row
+    sharding: calibration runs on whole images, the same on every rank)."""
     from dfc_sa_unet_torch.infer.quant import int8_self_check
 
     dev = resolve_device(args.device if device is None else device)
@@ -211,7 +213,7 @@ def build_int8_predictor(config, weights, image_files, args, device=None) -> Pre
             extra = (f"; held-out flip rate {chk['holdout_flip_rate']:.3%}" if "holdout_flip_rate" in chk else "")
             print(f"int8 self-check: mask flip rate {chk['flip_rate']:.3%}, mean |dprob| "
                   f"{chk['mean_abs_dprob']:.5f}{extra}")
-    return Predictor(engine, compute_dtype=dtype, device=dev)
+    return Predictor(engine, compute_dtype=dtype, device=dev, mesh=mesh)
 
 
 def main(args):
@@ -276,10 +278,8 @@ def serve(args, config, mesh):
     if args.int8 and not int8:
         print("(--int8 supports DFC-SA-Res-Block, VisionTransformerSegmentation, and TransformerUNet; "
               "using standard path)")
-    if int8 and mesh.spatial > 1:
-        raise rows.unported("the int8 engines (--int8)")
     if int8:
-        predictor = build_int8_predictor(config, weights, global_files, args, device=mesh.device)
+        predictor = build_int8_predictor(config, weights, global_files, args, device=mesh.device, mesh=mesh)
     else:
         predictor = build_predictor(config, weights, bf16=args.bf16, engine=args.engine and not args.int8,
                                     device=mesh.device, exe_cache_dir=args.exe_cache, mesh=mesh)

@@ -46,7 +46,11 @@ class LightSelfAttention(nn.Module):
     models/unet_dfc_sa_ablation_attention.py:7-26): the same arithmetic over
     all H*W tokens, no pooling and no upsample.  The 1x1 convs then read x
     itself, and their channels_last outputs are the contiguous NHWC tensors
-    the kernel takes, with no copy in between.
+    the kernel takes, with no copy in between.  Under a band of rows the
+    queries are the band's and the keys and values the whole image's,
+    gathered over the spatial group (``rows.all_gather_rows``), as JAX's
+    GSPMD partitions the einsum: the kernel then takes fewer queries than
+    keys.
 
     The attention core always goes through ops/pooled_attention.py: the
     CUDA kernels on the card (which raise for what they do not take, such
@@ -64,11 +68,11 @@ class LightSelfAttention(nn.Module):
     def forward(self, x):
         h, w = x.shape[2:]
         p = self.pool_size
-        if p is None and rows.current() is not None:
-            raise rows.unported("UNet_FullResAttention (its attention reads every pixel of the image)")
         pooled = x if p is None else adaptive_avg_pool(x, (p, p))
-        q, k, v = (nhwc(conv(pooled)) for conv in (self.query_conv, self.key_conv, self.value_conv))
-        out = nchw(pooled_attention(q, k, v))
+        q, k, v = (conv(pooled) for conv in (self.query_conv, self.key_conv, self.value_conv))
+        if p is None and rows.current() is not None:  # the band's queries against every key of the image
+            k, v = rows.all_gather_rows(k), rows.all_gather_rows(v)
+        out = nchw(pooled_attention(nhwc(q), nhwc(k), nhwc(v)))
         if p is not None:
             out = upsample_pooled(out, (h, w))
         return (self.gamma * out.float() + x.float()).to(x.dtype)

@@ -14,6 +14,14 @@ training with dropout on the attention weights (0 in the R50-ViT-B/16
 config) it takes the plain path, as the JAX model does (transunet.py:174-206).
 ``remat`` recomputes every ResNet unit, encoder block and decoder block in
 the backward pass.
+
+Under a band of rows (row sharding, parallel/rows.py) the R50 stem runs on
+the band (its 7x7/2 root, 3x3/2 pool and strided 3x3 convs read their halo
+rows, GroupNorm takes the whole image's statistics), the hybrid tokens are
+gathered over the spatial group at 1/16, the encoder runs whole on every rank
+of the group, and the decoder cup takes the band's token rows and the band's
+skips.  The image must then be a multiple of 16 S patches high
+(``band_stride``).
 """
 
 from typing import Any, Dict
@@ -28,6 +36,7 @@ from dfc_sa_unet_torch.ops.dropout import call_block, dropout, dropout_generator
 from dfc_sa_unet_torch.ops.mha import fused_mha_sep, fused_mha_sep_plain
 from dfc_sa_unet_torch.ops.pooling import max_pool
 from dfc_sa_unet_torch.ops.resize import resize_bilinear
+from dfc_sa_unet_torch.parallel import rows
 
 HEAD_CHANNELS = 512  # conv_more's width
 
@@ -218,7 +227,8 @@ class _Embeddings(nn.Module):
 
     def forward(self, x):
         y, features = self.hybrid_model(x)
-        y = tokens_from_map(self.patch_embeddings(y))
+        y = self.patch_embeddings(y)
+        y = tokens_from_map(y if rows.current() is None else rows.all_gather_rows(y))
         if y.shape[1] != self.n_patches:
             raise ValueError(f"an input of {tuple(x.shape[2:])} gives {y.shape[1]} tokens; the model's "
                              f"position embeddings hold {self.n_patches}")
@@ -271,7 +281,8 @@ class _DecoderCup(nn.Module):
     def forward(self, hidden_states, features):
         n_patch = hidden_states.shape[1]
         side = int(n_patch ** 0.5)
-        x = self.conv_more(map_from_tokens(hidden_states, side, side))
+        x = map_from_tokens(hidden_states, side, side)
+        x = self.conv_more(x if rows.current() is None else rows.band_rows(x))
         for i, block in enumerate(self.blocks):
             x = call_block(self, self.remat, block, x, features[i] if i < min(self.n_skip, len(features)) else None)
         return x
@@ -287,6 +298,11 @@ class TransUNet(nn.Module):
         self.decoder = _DecoderCup(config, self.transformer.embeddings.hybrid_model.width, compute_dtype, remat)
         self.segmentation_head = nn.Sequential(
             Conv(config["decoder_channels"][-1], config["n_classes"], 3, padding=1, compute_dtype=compute_dtype))
+
+    @property
+    def band_stride(self) -> int:
+        """The image rows of one token row (the backbone's 16 times the patch): the band rule."""
+        return 16 * self.transformer.embeddings.patch_embeddings.stride[0]
 
     def forward(self, x):
         if x.shape[1] == 1:

@@ -14,6 +14,14 @@ pooled attention.  In training with dropout on the attention weights the
 core takes the plain path instead, as the JAX model does (vit_seg.py:84-105):
 the kernel never materialises the weights.  Dropout masks come from the
 generator set by ``ops.dropout.set_dropout_generator``.
+
+Under a band of rows (row sharding, parallel/rows.py) the patch embedding
+runs on the band's rows and the token map is gathered over the spatial group
+(``rows.all_gather_rows``): the position embedding, the dropout and the
+encoder run whole on every rank of the group, as JAX's GSPMD replicates the
+token stage around its Pallas MHA; the band's token rows go on into the head,
+whose transposed convs read one halo row each side.  The image must then be
+a multiple of S patches high (``band_stride``).
 """
 
 import torch
@@ -24,6 +32,7 @@ from dfc_sa_unet_torch.nn.layers import BatchNorm, Conv, ConvTranspose, Dense, L
 from dfc_sa_unet_torch.ops.dropout import call_block, dropout, dropout_generator
 from dfc_sa_unet_torch.ops.mha import fused_mha, fused_mha_plain
 from dfc_sa_unet_torch.ops.resize import resize_bilinear
+from dfc_sa_unet_torch.parallel import rows
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -49,7 +58,9 @@ class PatchEmbedding(nn.Module):
         self.proj = Conv(in_channels, embed_dim, patch_dim, stride=patch_dim, compute_dtype=compute_dtype)
 
     def forward(self, x):
-        return tokens_from_map(self.proj(x))
+        """[B,E,h,w] patches -> [B,N,E] tokens; under a band of rows the whole image's, gathered."""
+        y = self.proj(x)
+        return tokens_from_map(y if rows.current() is None else rows.all_gather_rows(y))
 
 
 class TorchMultiheadAttention(nn.Module):
@@ -139,13 +150,22 @@ class VisionTransformerForSegmentation(nn.Module):
         head.append(Conv(current, num_classes, 1, compute_dtype=compute_dtype))
         self.segmentation_head = nn.Sequential(*head)
 
+    @property
+    def band_stride(self) -> int:
+        """The image rows of one token row: the family's band rule (parallel/rows.py)."""
+        return self.patch_dim
+
     def forward(self, x):
         b, _, h, w = x.shape
-        if (h, w) != (self.img_dim, self.img_dim):
-            raise ValueError(f"input image size ({h}x{w}) doesn't match the model's ({self.img_dim}x{self.img_dim})")
+        band = rows.current()
+        height = h if band is None else band.level(h)[0]
+        if (height, w) != (self.img_dim, self.img_dim):
+            raise ValueError(f"input image size ({height}x{w}) doesn't match the model's "
+                             f"({self.img_dim}x{self.img_dim})")
         feat = self.img_dim // self.patch_dim
         y = self.patch_embed(x)
         y = dropout(y + self.pos_embed, self.dropout, self.training, dropout_generator(self))
         y = self.transformer_encoder(y)
-        logits = self.segmentation_head(map_from_tokens(y, feat, feat))
+        y = map_from_tokens(y, feat, feat)
+        logits = self.segmentation_head(y if band is None else rows.band_rows(y))
         return resize_bilinear(logits, (h, w), align_corners=False)

@@ -106,16 +106,11 @@ def add_bias_(y, bias):
     return y.add_(bias)
 
 
-def _band_check(layer):
-    """Under a band of rows (parallel/rows.py) a layer whose window reaches past a row raises."""
-    if rows.current() is not None:
-        raise rows.unported(f"{type(layer).__name__}(kernel {layer.kernel_size}, stride {layer.stride})")
-
-
 class Conv(nn.Conv2d):
     """nn.Conv2d computing in ``compute_dtype`` (default: the input's).  Under a band of rows
-    (parallel/rows.py) a 3x3 conv at padding 1 reads its neighbours' halo rows; a 1x1 conv is
-    local; any other raises."""
+    (parallel/rows.py) a conv reads the halo rows its window reaches (a 3x3 conv at padding 1 one
+    each side, TransUNet's 7x7/2 root 3 above and 2 below, a patch conv none) and gives the band's
+    output rows."""
 
     def __init__(self, cin, cout, kernel_size, stride=1, padding=0, bias=True, compute_dtype=None):
         super().__init__(cin, cout, kernel_size, stride=stride, padding=padding, bias=bias)
@@ -123,30 +118,25 @@ class Conv(nn.Conv2d):
 
     def forward(self, x):
         dtype = self.compute_dtype or x.dtype
-        if self.kernel_size == (3, 3) and self.padding == (1, 1) and self.stride == (1, 1):
-            y = rows.conv3x3(x.to(dtype), self.weight.to(dtype))
-            return add_bias_(y, None if self.bias is None else self.bias.view(-1, 1, 1))
-        if self.kernel_size != (1, 1):
-            _band_check(self)
-        y = F.conv2d(x.to(dtype), self.weight.to(dtype), None, self.stride, self.padding)
+        y = rows.conv2d(x.to(dtype), self.weight.to(dtype), self.stride, self.padding)
         return add_bias_(y, None if self.bias is None else self.bias.view(-1, 1, 1))
 
 
 class WSConv(nn.Conv2d):
     """Weight-standardised conv (TransUNet's StdConv2d): the kernel is
     standardised per output channel with the biased variance and eps 1e-5,
-    in f32, before the cast to the compute dtype.  No bias by default."""
+    in f32, before the cast to the compute dtype.  No bias by default.  Under a
+    band of rows it reads the halo rows its window reaches, as ``Conv``."""
 
     def __init__(self, cin, cout, kernel_size, stride=1, padding=0, bias=False, compute_dtype=None):
         super().__init__(cin, cout, kernel_size, stride=stride, padding=padding, bias=bias)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        _band_check(self)
         dtype = self.compute_dtype or x.dtype
         var, mean = torch.var_mean(self.weight, dim=(1, 2, 3), keepdim=True, unbiased=False)
         w = (self.weight - mean) / torch.sqrt(var + 1e-5)
-        y = F.conv2d(x.to(dtype), w.to(dtype), None, self.stride, self.padding)
+        y = rows.conv2d(x.to(dtype), w.to(dtype), self.stride, self.padding)
         return add_bias_(y, None if self.bias is None else self.bias.view(-1, 1, 1))
 
 
@@ -205,13 +195,18 @@ class GroupNorm(nn.GroupNorm):
     Computed on the NHWC view ``[B, H*W, G, C/G]`` (free for a channels_last
     tensor), as the JAX layer does: mean and biased variance over the pixels
     and the group's channels, then one fused multiply-add.  ``F.group_norm``
-    would copy a channels_last tensor to NCHW and back."""
+    would copy a channels_last tensor to NCHW and back.  Under a band of
+    rows the statistics are the whole image's (``rows.group_stats``: two
+    all-reduces over the spatial group)."""
 
     def forward(self, x):
         b, c, h, w = x.shape
         g = self.num_groups
         xf = x.float().permute(0, 2, 3, 1).reshape(b, h * w, g, c // g)
-        var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, unbiased=False)
+        if rows.current() is None:
+            var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, unbiased=False)
+        else:
+            var, mean = rows.group_stats(xf, (1, 3))
         scale = torch.rsqrt(var + self.eps) * self.weight.view(g, c // g)
         shift = self.bias.view(g, c // g) - mean * scale
         y = torch.addcmul(shift, xf, scale).to(x.dtype)
@@ -251,14 +246,16 @@ class ConvTranspose2x2(nn.ConvTranspose2d):
 
 class ConvTranspose(nn.ConvTranspose2d):
     """nn.ConvTranspose2d(cin, cout, k, s, p) in ``compute_dtype`` (the
-    ViT-seg head uses k=4, s=2, p=1)."""
+    ViT-seg head uses k=4, s=2, p=1).  Under a band of rows it reads one halo
+    row each side (``rows.conv_transpose``)."""
 
     def __init__(self, cin, cout, kernel_size=2, stride=2, padding=0, bias=True, compute_dtype=None):
         super().__init__(cin, cout, kernel_size, stride=stride, padding=padding, bias=bias)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        _band_check(self)
         dtype = self.compute_dtype or x.dtype
-        y = F.conv_transpose2d(x.to(dtype), self.weight.to(dtype), None, self.stride, self.padding)
+        if self.stride[0] != self.stride[1] or self.padding[0] != self.padding[1]:
+            raise ValueError(f"ConvTranspose takes a square stride and padding, not {self.stride}, {self.padding}")
+        y = rows.conv_transpose(x.to(dtype), self.weight.to(dtype), self.stride[0], self.padding[0])
         return add_bias_(y, None if self.bias is None else self.bias.view(-1, 1, 1))

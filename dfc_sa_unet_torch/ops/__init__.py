@@ -12,14 +12,16 @@ from dfc_sa_unet_torch.ops.conv_s8 import LAUNCHES as _S8_LAUNCHES
 from dfc_sa_unet_torch.ops.dfc_tail import LAUNCHES as _TAIL_LAUNCHES
 from dfc_sa_unet_torch.ops.mha import LAUNCHES as _MHA_LAUNCHES
 from dfc_sa_unet_torch.ops.mxu_probes import LAUNCHES as _PROBE_LAUNCHES
+from dfc_sa_unet_torch.ops.pooled_attention import FEWER_QUERIES as _ATTN_FEWER_QUERIES
 from dfc_sa_unet_torch.ops.pooled_attention import LAUNCHES as _ATTN_LAUNCHES
 
 _COUNTS = (_ATTN_LAUNCHES, _TAIL_LAUNCHES, _MHA_LAUNCHES, _STATS_LAUNCHES, _PROBE_LAUNCHES, _S8_LAUNCHES)
 
 
 def reset_launches():
-    """Set every kernel's launch count to 0."""
-    for counts in _COUNTS:
+    """Set every kernel's launch count to 0 (and the pooled attention's count of launches with fewer
+    queries than keys, a part of its own)."""
+    for counts in (*_COUNTS, _ATTN_FEWER_QUERIES):
         for key in counts:
             counts[key] = 0
 

@@ -31,9 +31,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # exported C functions: name -> (source stem, argtypes); every one returns
 # cudaGetLastError() as an int
 SIGNATURES = {
-    "pooled_attention_f32": ("pooled_attention", [_P] * 4 + [_I] * 4 + [_P]),
-    "pooled_attention_long_f32": ("pooled_attention", [_P] * 4 + [_I] * 4 + [_P]),
-    "pooled_attention_mma_bf16": ("pooled_attention", [_P] * 4 + [_I] * 4 + [_P]),
+    "pooled_attention_f32": ("pooled_attention", [_P] * 4 + [_I] * 5 + [_P]),
+    "pooled_attention_long_f32": ("pooled_attention", [_P] * 4 + [_I] * 5 + [_P]),
+    "pooled_attention_mma_bf16": ("pooled_attention", [_P] * 4 + [_I] * 5 + [_P]),
     "conv3x3_bn_relu_f32": ("dfc_tail", [_P] * 4 + [_I] * 5 + [_P]),
     "conv3x3_bn_relu_bf16": ("dfc_tail", [_P] * 4 + [_I] * 7 + [_P]),
     "dfc_tail_f32": ("dfc_tail", [_P] * 10 + [_I] * 5 + [_P]),
@@ -53,6 +53,8 @@ SIGNATURES = {
     "probe_conv_9dot_bf16": ("mxu_probes", [_P] * 3 + [_I] * 5 + [_P]),
     "conv3x3_s8_bf16": ("conv3x3_s8", [_P] * 5 + [_I] * 6 + [_P]),
     "conv3x3_s8_f32": ("conv3x3_s8", [_P] * 5 + [_I] * 6 + [_P]),
+    "conv3x3_s8_halo_bf16": ("conv3x3_s8", [_P] * 7 + [_I] * 6 + [_P]),
+    "conv3x3_s8_halo_f32": ("conv3x3_s8", [_P] * 7 + [_I] * 6 + [_P]),
 }
 
 _functions = None

@@ -17,6 +17,13 @@ and Cout a multiple of 8.  Kernel and plain version agree bit for bit: the s32
 sums are exact and the epilogue is the same f32 multiply, add and ReLU in the
 same order.
 
+Under a band of rows (row sharding, parallel/rows.py) ``top`` and ``bottom``
+are the s8 rows just above and below the band, [B,W,Cin] each (None at the
+image's edge), which the kernel's taps in rows -1 and H read instead of zeros
+(its halo instantiation, ``conv3x3_s8_halo_*``); the wrapper zero-pads their
+Cin as it pads x's, so the kernel reads them in x's 2-byte units.  Bands
+stitched equal the whole image's conv bit for bit: the s32 sums are exact.
+
 ``s8_matmul`` is the s8 product of the 1x1 convs and the linears:
 ``torch._int_mm`` (s8 x s8 -> s32, the s8 counterpart of ``torch.matmul``,
 as JAX left these products to XLA) and the f32 epilogue in torch.  Its
@@ -85,29 +92,38 @@ def s8_matmul(x8: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, bias=None
     return y if bias is None else y + bias
 
 
-def im2col_s8(x8: torch.Tensor) -> torch.Tensor:
-    """[B,H,W,Cin] s8 -> [B*H*W, 9 * Cin]: the nine shifted views (zero padding 1), tap-major."""
+def im2col_s8(x8: torch.Tensor, top=None, bottom=None) -> torch.Tensor:
+    """[B,H,W,Cin] s8 -> [B*H*W, 9 * Cin]: the nine shifted views (zero padding 1, or the halo rows
+    ``top`` and ``bottom`` [B,W,Cin] above and below), tap-major."""
     b, h, w, cin = x8.shape
-    xp = F.pad(x8, (0, 0, 1, 1, 1, 1))
+    edge = x8.new_zeros((b, 1, w, cin))
+    xp = torch.cat([edge if top is None else top[:, None], x8, edge if bottom is None else bottom[:, None]], 1)
+    xp = F.pad(xp, (0, 0, 1, 1))
     taps = [xp[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)]
     return torch.cat(taps, dim=-1).reshape(b * h * w, 9 * cin)
 
 
-def conv3x3_s8_s32(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
-    """The s32 3x3 conv (zero padding 1) of x8 [B,H,W,Cin] with w8 [Cout, 9 * Cin]: _int_mm on the
-    [P, 9 * Cin] taps -> [B,H,W,Cout] s32, exact."""
+def _pad_rows(rows, cin):
+    """The halo rows {label: [B,W,c]} with their channels zero-padded to x's ``cin``."""
+    return {k: F.pad(t, (0, cin - t.shape[-1])) if t.shape[-1] != cin else t for k, t in rows.items()}
+
+
+def conv3x3_s8_s32(x8: torch.Tensor, w8: torch.Tensor, top=None, bottom=None) -> torch.Tensor:
+    """The s32 3x3 conv (zero padding 1, or the halo rows ``top`` / ``bottom``) of x8 [B,H,W,Cin] with
+    w8 [Cout, 9 * Cin]: _int_mm on the [P, 9 * Cin] taps -> [B,H,W,Cout] s32, exact."""
     bsz, h, w, _ = x8.shape
     x8, w8 = _pad_cin(x8, w8, CIN_MULTIPLE)
-    return _int_mm(im2col_s8(x8), w8).reshape(bsz, h, w, w8.shape[0])
+    rows = _pad_rows({k: t for k, t in (("top", top), ("bottom", bottom)) if t is not None}, x8.shape[-1])
+    return _int_mm(im2col_s8(x8, rows.get("top"), rows.get("bottom")), w8).reshape(bsz, h, w, w8.shape[0])
 
 
-def conv3x3_s8_plain(x8, w8, scale, b, out_dtype=torch.bfloat16):
+def conv3x3_s8_plain(x8, w8, scale, b, out_dtype=torch.bfloat16, top=None, bottom=None):
     """The kernel's function in torch ops: the s32 product, then ReLU(acc.float() * scale + b) and
     one cast."""
-    return torch.relu(conv3x3_s8_s32(x8, w8).float() * scale + b).to(out_dtype)
+    return torch.relu(conv3x3_s8_s32(x8, w8, top, bottom).float() * scale + b).to(out_dtype)
 
 
-def _check(x8, w8, scale, b, out_dtype):
+def _check(x8, w8, scale, b, out_dtype, rows):
     dev = x8.device
     if x8.dim() != 4 or w8.dim() != 2:
         raise ValueError(f"conv3x3_s8: x8 {tuple(x8.shape)} must be NHWC, w8 {tuple(w8.shape)} [Cout, 9 * Cin]")
@@ -117,8 +133,11 @@ def _check(x8, w8, scale, b, out_dtype):
                          f"{tuple(scale.shape)}, b {tuple(b.shape)}")
     if dev.type != "cuda":
         raise ValueError(f"conv3x3_s8: x8 is on {dev}; the kernel takes CUDA tensors")
+    for label, t in rows.items():
+        if tuple(t.shape) != (x8.shape[0], x8.shape[2], cin):
+            raise ValueError(f"conv3x3_s8: {label} has shape {tuple(t.shape)}, expected {(x8.shape[0], *x8.shape[2:])}")
     for label, t, want in (("x8", x8, torch.int8), ("w8", w8, torch.int8), ("scale", scale, torch.float32),
-                           ("b", b, torch.float32)):
+                           ("b", b, torch.float32), *((k, t, torch.int8) for k, t in rows.items())):
         if t.device != dev:
             raise ValueError(f"conv3x3_s8: {label} is on {t.device}, x8 on {dev}")
         if t.dtype != want:
@@ -134,19 +153,23 @@ def _check(x8, w8, scale, b, out_dtype):
 
 
 def conv3x3_s8(x8: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, b: torch.Tensor,
-               out_dtype=torch.bfloat16) -> torch.Tensor:
-    """x8 [B,H,W,Cin] s8; w8 [Cout, 9*Cin] s8; scale, b [Cout] f32 -> [B,H,W,Cout] ``out_dtype``."""
-    if all(t.device.type == "cpu" for t in (x8, w8, scale, b)):
-        return conv3x3_s8_plain(x8, w8, scale, b, out_dtype)
-    _check(x8, w8, scale, b, out_dtype)
+               out_dtype=torch.bfloat16, top=None, bottom=None) -> torch.Tensor:
+    """x8 [B,H,W,Cin] s8; w8 [Cout, 9*Cin] s8; scale, b [Cout] f32 -> [B,H,W,Cout] ``out_dtype``;
+    ``top``, ``bottom``: the halo rows (see the module docstring)."""
+    rows = {k: t for k, t in (("top", top), ("bottom", bottom)) if t is not None}
+    if all(t.device.type == "cpu" for t in (x8, w8, scale, b, *rows.values())):
+        return conv3x3_s8_plain(x8, w8, scale, b, out_dtype, top, bottom)
+    _check(x8, w8, scale, b, out_dtype, rows)
     bsz, h, width, _ = x8.shape
     cout = w8.shape[0]
     out = torch.empty((bsz, h, width, cout), dtype=out_dtype, device=x8.device)
     if out.numel():
         x8, w8 = _pad_cin(x8, w8, CIN_MULTIPLE)
-        name = f"conv3x3_s8_{_OUT[out_dtype]}"
-        err = _build.kernel(name)(x8.data_ptr(), w8.data_ptr(), scale.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                  bsz * h * width, h, width, x8.shape[-1], cout, s8_tiling(cout),
+        rows = _pad_rows(rows, x8.shape[-1])  # [B][W][Cin] as x8's rows, read in the same 2-byte units
+        name = f"conv3x3_s8{'_halo' if rows else ''}_{_OUT[out_dtype]}"
+        halo = tuple(None if rows.get(k) is None else rows[k].data_ptr() for k in ("top", "bottom")) if rows else ()
+        err = _build.kernel(name)(x8.data_ptr(), w8.data_ptr(), scale.data_ptr(), b.data_ptr(), *halo,
+                                  out.data_ptr(), bsz * h * width, h, width, x8.shape[-1], cout, s8_tiling(cout),
                                   _build.stream_handle(x8.device))
         _build.check(err, name)
         LAUNCHES["conv3x3_s8"] += 1

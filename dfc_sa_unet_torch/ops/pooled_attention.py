@@ -20,6 +20,13 @@ full-resolution attention of a 64x64 image, the TPU kernel's own limit,
 blocks.py:58) the wrapper raises: the plain version would hold B*N*N f32
 energies in device memory.
 
+Queries and keys may differ in number: under a band of rows the
+full-resolution attention (parallel/rows.py) takes the band's queries
+against the whole image's keys and values.  The grid walks the ``nq``
+queries, the key loops the ``nk`` keys; ``entry_point`` and ``MAX_TOKENS``
+go by ``nk``.  Every launch counts under ``LAUNCHES``; one with fewer
+queries than keys also under ``FEWER_QUERIES``.
+
 Under autograd the forward still launches the kernel; the backward
 recomputes through the plain version and returns its gradients, which is
 what the JAX custom VJP does (pallas_attention.py:98-106): the TPU package
@@ -37,17 +44,19 @@ MAX_QK_CHANNELS = 256
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 LAUNCHES = {"pooled_attention": 0}
+FEWER_QUERIES = {"pooled_attention": 0}  # the launches above with nq < nk (a band's queries)
 
 pooled_attention_plain = pooled_self_attention
 
 
 def pooled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """q, k: [B,p,p,C']; v: [B,p,p,C] -> [B,p,p,C]; softmax(q k^T) v, unscaled."""
+    """q: [B,h,w,C'] (nq queries); k: [B,p,q,C'], v: [B,p,q,C] (nk keys) -> [B,h,w,C]; softmax(q k^T)
+    v, unscaled."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return pooled_attention_plain(q, k, v)
     b, ph, pw, cq = q.shape
     c = v.shape[-1]
-    n = ph * pw
+    n = k.shape[1] * k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"pooled_attention: {name} is on {t.device}, q on {q.device}")
@@ -55,7 +64,7 @@ def pooled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
             raise TypeError(f"pooled_attention: {name} is {t.dtype}; takes q, k, v all f32 or all bf16")
         if not t.is_contiguous():
             raise ValueError(f"pooled_attention: {name} must be a contiguous NHWC tensor")
-    if k.shape != q.shape or v.shape[:3] != q.shape[:3]:
+    if k.shape[0] != b or k.shape[3] != cq or v.shape[:3] != k.shape[:3] or ph * pw > n:
         raise ValueError(f"pooled_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if n > MAX_TOKENS or cq > MAX_QK_CHANNELS or b > 65535:
         raise ValueError(f"pooled_attention: N={n} (max {MAX_TOKENS}), C'={cq} (max "
@@ -66,7 +75,7 @@ def pooled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
 
 
 def entry_point(dtype: torch.dtype, n: int) -> str:
-    """The C function of csrc/pooled_attention.cu that computes a call of N tokens."""
+    """The C function of csrc/pooled_attention.cu that computes a call of N keys."""
     if dtype == torch.bfloat16:
         return "pooled_attention_mma_bf16"
     return f"pooled_attention_{'long_' if n > SHORT_TOKENS else ''}{_DTYPES[dtype]}"
@@ -75,14 +84,15 @@ def entry_point(dtype: torch.dtype, n: int) -> str:
 def _launch(q, k, v):
     """One launch on checked, contiguous CUDA tensors."""
     b, ph, pw, cq = q.shape
-    c, n = v.shape[-1], ph * pw
-    out = torch.empty_like(v)
+    c, nq, nk = v.shape[-1], ph * pw, k.shape[1] * k.shape[2]
+    out = torch.empty((b, ph, pw, c), dtype=v.dtype, device=v.device)
     if out.numel():
-        name = entry_point(v.dtype, n)
+        name = entry_point(v.dtype, nk)
         err = _build.kernel(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                  b, n, cq, c, _build.stream_handle(q.device))
+                                  b, nq, nk, cq, c, _build.stream_handle(q.device))
         _build.check(err, name)
         LAUNCHES["pooled_attention"] += 1
+        FEWER_QUERIES["pooled_attention"] += nq < nk
     return out
 
 

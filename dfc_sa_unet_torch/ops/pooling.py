@@ -10,8 +10,9 @@ stride 2 / padding 1 after the TransUNet backbone's root.
 
 Under a band of rows (parallel/rows.py) the adaptive pool is the whole
 image's, from every band's window sums (the same p x p map on every rank of
-the spatial group), and a 2x2 / stride-2 max pool is the band's own, since
-every band's height is even; any other max pool raises.
+the spatial group); a max pool reads the halo rows its window reaches, -inf
+past the image's edge (TransUNet's 3x3/2 at padding 1: one row above), and a
+2x2 / stride-2 one is the band's own, since every band's height is even.
 """
 
 import torch
@@ -38,7 +39,10 @@ def max_pool(x: torch.Tensor, window: int = 2, stride: int | None = None, paddin
     In floor mode partial windows at the edge are dropped; with ``ceil_mode``
     a partial window that starts inside the input is kept (the right and
     bottom edges read as -inf)."""
-    if rows.current() is not None and (window, stride or window, padding, x.shape[2] % 2) != (2, 2, 0, 0):
-        raise rows.unported(f"a max pool of window {window}, stride {stride}, padding {padding} on "
-                            f"{x.shape[2]} rows")
-    return F.max_pool2d(x, window, stride if stride is not None else window, padding, ceil_mode=ceil_mode)
+    stride = stride if stride is not None else window
+    if rows.current() is not None and (window, stride, padding, x.shape[2] % 2) != (2, 2, 0, 0):
+        if ceil_mode and (x.shape[2] + 2 * padding - window) % stride:
+            raise rows.unported(f"a ceil-mode max pool of window {window}, stride {stride} on {x.shape[2]} rows")
+        xe = rows.window_rows(x, window, stride, padding, fill=float("-inf"))
+        return F.max_pool2d(xe, window, stride, (0, padding), ceil_mode=ceil_mode)
+    return F.max_pool2d(x, window, stride, padding, ceil_mode=ceil_mode)

@@ -5,11 +5,12 @@ gathers are slow on a TPU; here torch's own kernel computes the same
 function: align_corners=False, source index (i + 0.5) * in/out - 0.5
 clamped at 0, upper tap clamped to in - 1.
 
-Under a band of rows (parallel/rows.py) a resize reads across the band's
-edges: it raises unless the size already matches (the decoder's shape fix
-must not fire there, and the vanilla UNet's ``bilinear: true`` is not
-ported under a band).  The pooled attention's upsample has its band version,
-``parallel.rows.upsample_band``.
+Under a band of rows (parallel/rows.py) ``size`` is the band's and the
+resize gives the band's rows of the whole image's, from global source
+coordinates and one halo row each side (``parallel.rows.resize_band``: the
+vanilla UNet's and TransUNet's align-corners 2x, ViT-seg's safety resize).
+The pooled attention's upsample, whose p x p map is whole on every rank, has
+its own band version, ``parallel.rows.upsample_band``.
 """
 
 import torch
@@ -24,5 +25,5 @@ def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False) -> torch
     if tuple(x.shape[2:]) == (h_out, w_out):
         return x
     if rows.current() is not None:
-        raise rows.unported(f"a bilinear resize of {tuple(x.shape[2:])} to {(h_out, w_out)}")
+        return rows.resize_band(x, (h_out, w_out), align_corners)
     return F.interpolate(x, size=(h_out, w_out), mode="bilinear", align_corners=align_corners)

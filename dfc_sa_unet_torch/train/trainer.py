@@ -36,19 +36,23 @@ Kept from the JAX trainer (reference utils/trainer.py:105-461):
     not) runs whole on every process with every collective off; a padded
     eval batch masks its padding (``sample_mask``).  Only the primary
     process writes files;
-  * row (spatial) sharding of the DFC family (a mesh with ``spatial`` S > 1,
-    ``parallel.mesh.serving_mesh``): each of the S ranks of a data index takes
-    that index's chunk of every batch and its band of the images' rows, cut
-    on the host before the copy to the card, and runs the step in the band's
-    context (parallel/rows.py: halo exchanges, the pooled attention's pool
-    over the bands).  The loss sums, the hard counts and BatchNorm's
-    statistics reduce over every process, whose pixels are all different,
-    and the gradient average stays over every process: the step equals one
-    process's on the whole batch, with ``grad_accum``, ``grad_accum_exact``
-    and ``remat`` too.  A height that is not a multiple of 16 S shards the
-    batch on the data axis only, with JAX's warning, the spatial ranks of a
-    data index computing the same thing (the collectives then over the data
-    axis);
+  * row (spatial) sharding of every model of the factory (a mesh with
+    ``spatial`` S > 1, ``parallel.mesh.serving_mesh``): each of the S ranks of
+    a data index takes that index's chunk of every batch and its band of the
+    images' rows, cut on the host before the copy to the card, and runs the
+    step in the band's context (parallel/rows.py: halo exchanges, the pooled
+    attention's pool over the bands, GroupNorm's statistics over the group,
+    the transformers' tokens and the full-resolution attention's keys
+    gathered).  The loss sums, the hard counts and BatchNorm's statistics
+    reduce over every process, whose pixels are all different, and the
+    gradient average stays over every process: the step equals one process's
+    on the whole batch, with ``grad_accum``, ``grad_accum_exact`` and
+    ``remat`` too.  The ranks of a data index seed their dropout alike (the
+    token stage runs whole on each).  A height that is not a multiple of S
+    times the family's stride (``rows.family_stride``: 16, or ViT-seg's
+    patch) shards the batch on the data axis only, with JAX's warning, the
+    spatial ranks of a data index computing the same thing (the collectives
+    then over the data axis);
   * ``exe_cache_dir`` is where the hand-written CUDA kernels are built and
     loaded from (``ops/_build.py::set_build_dir``): eager PyTorch compiles
     nothing per shape, so the nvcc libraries are the only compiled
@@ -59,12 +63,9 @@ the JAX trainer threads a TrainState through pure functions.  Optional bf16
 compute keeps f32 parameters and an f32 loss.  Dropout masks depend on
 (seed, step) alone, like the JAX trainer's ``fold_in(base_key, step)``
 (the numbers differ), so a resumed run repeats them; under data
-parallelism the rank is folded in as well, so processes drop different
-units (as JAX's explicit SPMD step does).
-
-Row sharding of the transformer families, of UNet_FullResAttention and of
-the vanilla UNet with ``bilinear: true`` raises with a pointer to ROADMAP.md
-(Queue A 4.2).
+parallelism the data index is folded in as well, so the processes of two
+data indices drop different units (as JAX's explicit SPMD step does) and
+the bands of one image the same.
 """
 
 import contextlib
@@ -137,6 +138,10 @@ class Trainer:
         self.data_axis = self.world // self.spatial
         if self.spatial > 1:
             rows.check_model(model)
+        self.stride = rows.family_stride(model)
+        # the dropout seed of a step: the data index's, shared by the ranks of a spatial group, whose token
+        # stages (ViT-seg, TransUNet) compute the same tokens whole and must draw the same masks
+        self.data_index = mesh.data_index if self.data_parallel else 0
         tr = config["training"]
         self.grad_accum = int(tr.get("grad_accum", 1))
         self.grad_accum_exact = bool(tr.get("grad_accum_exact", False))
@@ -210,12 +215,12 @@ class Trainer:
         where the data axis is one process)."""
         if not sharded or self.spatial == 1:
             return None, None, sharded
-        if rows.divides(height, self.spatial):
+        if rows.divides(height, self.spatial, self.stride):
             return self.mesh.band(height), None, True
         if not self._warned_spatial and self.is_primary:
             print(f"Warning: image height {height} is not divisible by the mesh's spatial axis ({self.spatial}) "
-                  f"into bands of an even height at every pooling level (a multiple of "
-                  f"{self.spatial << rows.LEVELS}); sharding the batch dimension only.")
+                  f"into bands of whole rows of the model's coarsest grid (a multiple of "
+                  f"{self.spatial * self.stride}); sharding the batch dimension only.")
         self._warned_spatial = True
         if self.data_axis == 1:
             return None, None, False
@@ -240,7 +245,7 @@ class Trainer:
         x, t = self._inputs(images_u8, masks_u8)
         collective = self.data_parallel and not replicated
         seed = _step_seed(self.seed, self.step)
-        self.generator.manual_seed(_step_seed(seed, self.rank) if collective else seed)
+        self.generator.manual_seed(_step_seed(seed, self.data_index) if collective else seed)
         stats_before = [b.clone() for b in self._bn_buffers]
         self.optimizer.zero_grad()
         bsz = x.shape[0]

@@ -69,6 +69,15 @@ CASES = {
     "rows_grid_flagship": (ROW_FLAGSHIP, *BCE_DICE, 8, 8, 32),  # data 2 x spatial 2: tests/test_torch_rows_grid.py
     **{f"rows_zoo_{name}": ({"name": "UNet", "bilinear": False} if name == "UNet" else {**ROW_FLAGSHIP, "name": name},
                             *BCE_DICE, 4, 4, 32) for name in ROW_ZOO},
+    # the families banded since (tests/test_torch_rows_families_training.py): ViT-seg (the tokens gathered), the
+    # small TransUNet (its stem banded, GroupNorm over the group), the full-resolution attention (the keys
+    # gathered), the bilinear UNet, one step each; ViT-seg at dropout 0.1 (the bands draw the same masks)
+    "bands_vit": ({**VIT, "dropout": 0.0, "num_layers": 2, "num_heads": 4, "segmentation_head_upsample_layers": 3},
+                 *BCE_DICE, 4, 4, 32),
+    "bands_transunet": ("transunet", *BCE_DICE, 4, 4, 64),
+    "bands_fullres": ({**ROW_FLAGSHIP, "name": "UNet_FullResAttention"}, *BCE_DICE, 4, 4, 32),
+    "bands_bilinear": ({"name": "UNet", "bilinear": True}, *BCE_DICE, 4, 4, 32),
+    "bands_vit_dropout": ({**VIT, "dropout": 0.1}, *BCE_DICE, 4, 4, 32),
 }
 ACCUM_WARNING = "does not divide the data axis"
 SPATIAL_WARNING = "sharding the batch dimension only"
@@ -113,12 +122,19 @@ def config(log_dir, model, loss, params, batch, side, training=None):
 
 
 def build_model(model, seed=0):
+    """``model``: "mini", "transunet" (the rows worker's small TransUNet) or a factory model section."""
     import torch
 
     from dfc_sa_unet_torch.models.factory import create_model
     from dfc_sa_unet_torch.utils.weights import init_random_
 
-    net = mini_net() if model == "mini" else create_model({"model": model}, device="cpu")
+    if model == "transunet":
+        import _torch_rows_worker as rows_worker
+        from dfc_sa_unet_torch.models.transunet import TransUNet
+
+        net = TransUNet(rows_worker.TRANSUNET, img_size=rows_worker.TRANSUNET_SIDE, num_classes=1)
+    else:
+        net = mini_net() if model == "mini" else create_model({"model": model}, device="cpu")
     return init_random_(net, torch.Generator().manual_seed(seed))
 
 
@@ -138,7 +154,8 @@ def run_case(name, mesh, log_dir, state_dict=None, items=None):
     from dfc_sa_unet_torch.train.trainer import Trainer
 
     model, loss, params, n_train, batch, side, *training = CASES[name]
-    cfg = config(log_dir, model, loss, params, batch, side, *training)
+    cfg = config(log_dir, model if model != "transunet" else {"name": "TransUNet"}, loss, params, batch, side,
+                 *training)
     net = build_model(model)
     if state_dict is not None:
         net.load_state_dict(state_dict, strict=True)
@@ -160,6 +177,11 @@ def run_case(name, mesh, log_dir, state_dict=None, items=None):
         return out
 
     trainer.train_step = logged
+    encoder = getattr(trainer.model, "transformer_encoder", None)
+    encoded = []
+    if encoder is not None:  # the token stage's output of every training forward
+        encoder.register_forward_hook(lambda mod, args, out: encoded.append(out.detach().numpy().copy())
+                                      if mod.training else None)
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         tr_loss, tr_iou, tr_dice = trainer.train_epoch(0)
@@ -172,6 +194,8 @@ def run_case(name, mesh, log_dir, state_dict=None, items=None):
                val_names=np.array([r[2] for r in records]), seed=np.array(seeds[-1], np.uint64),
                accum_warnings=np.array(printed.getvalue().count(ACCUM_WARNING)),
                spatial_warnings=np.array(printed.getvalue().count(SPATIAL_WARNING)))
+    if encoded:
+        out["encoded"] = np.stack(encoded)
     return out
 
 

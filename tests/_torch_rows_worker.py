@@ -31,6 +31,21 @@ ZOO = ["DFC-SA-Res-Block", "UNet", "UNet_Baseline", "UNet_BothStandardConv", "UN
        "UNet_AdditionFusion", "UNet_ConcatFusion", "UNet_EncoderOnlyDFC", "UNet_DecoderOnlyDFC"]
 SIDE = 32
 IMAGES = 3
+# the families banded since the DFC family: tests/test_parallel_fast.py:548's ViT-seg (32x32, patch 8: one token row
+# a band in 4 bands), the transformer tests' small TransUNet (tests/_torch_port.py's TRANSUNET_SMALL, 64x64: its 1/16
+# tokens are 4 rows, 2 a band), the full-resolution ablation and the vanilla UNet with bilinear: true at the
+# flagship's 32x32
+VIT = {"name": "VisionTransformerSegmentation", "img_dim": 32, "patch_dim": 8, "in_channels": 3, "out_channels": 1,
+       "embed_dim": 32, "num_layers": 2, "num_heads": 4, "mlp_dim": 64, "dropout": 0.0,
+       "segmentation_head_upsample_layers": 3}
+TRANSUNET = {"patches_grid": (4, 4), "resnet_num_layers": (1, 1, 1), "resnet_width_factor": 1, "hidden_size": 64,
+             "mlp_dim": 128, "num_heads": 2, "num_layers": 1, "attention_dropout_rate": 0.0, "dropout_rate": 0.0,
+             "decoder_channels": (32, 16, 8, 8), "skip_channels": [512, 256, 64, 16], "n_classes": 1, "n_skip": 3}
+TRANSUNET_SIDE = 64
+FULLRES = {**FLAGSHIP, "name": "UNet_FullResAttention"}
+BILINEAR = {"name": "UNet", "bilinear": True}
+FAMILIES = {"vit": (VIT, SIDE), "transunet": ("transunet", TRANSUNET_SIDE), "fullres": (FULLRES, SIDE),
+            "bilinear": (BILINEAR, SIDE)}
 
 
 def zoo_model(name):
@@ -54,7 +69,8 @@ def normalised(u8):
 
 
 def _seeded(model_cfg, seed=0):
-    """The model with seeded weights, BatchNorm statistics jittered so that the folding counts."""
+    """The model with seeded weights, BatchNorm statistics jittered so that the folding counts
+    (``"transunet"``: the small TransUNet)."""
     import torch
 
     net = dp.build_model(model_cfg, seed)
@@ -75,6 +91,10 @@ def run_case(name, mesh, side=SIDE):
     None).  Cases: "module" (the flagship, f32), "engine" (its f32 DFCEngine, tail and conv kernels'
     levels "auto"), "zoo" (each of the DFC family's nine models), "fallback" (the flagship at a
     height that breaks the band rule), "logits" (the flagship's logits, without the Predictor).
+    "family" (each of FAMILIES through the Predictor), "family_logits" (their logits, without it),
+    "vit" (ViT-seg alone through the Predictor: the case of 4 bands, one token row each),
+    "int8" (the flagship's f32 Int8DFCEngine, "auto" levels, calibrated on whole images in every
+    process), "int8_vit" and "int8_transunet" (the f32 int8 engines of VIT and TRANSUNET).
     Returns numpy arrays, and the printed lines' count of the fallback note."""
     import contextlib
     import io
@@ -106,6 +126,17 @@ def run_case(name, mesh, side=SIDE):
             with torch.no_grad(), rows.band_context(band):
                 logits = net(x.contiguous(memory_format=torch.channels_last))[:, 0]
             out["logits"] = (logits if band is None else Predictor._gather_bands(logits, band)).numpy()
+        elif name in ("family", "family_logits", "vit"):
+            for family, (cfg, side) in FAMILIES.items() if name != "vit" else [("vit", FAMILIES["vit"])]:
+                net = _seeded(cfg)
+                u8 = images(side, 2)
+                if name == "family":
+                    out[family] = Predictor(net, device="cpu", mesh=mesh).predict_probs(u8)
+                else:
+                    out[family] = banded_logits(net, u8, mesh)
+        elif name in ("int8", "int8_vit", "int8_transunet"):
+            out["probs"] = Predictor(int8_engine(name), device="cpu", mesh=mesh).predict_probs(
+                images(TRANSUNET_SIDE if name == "int8_transunet" else side, 2, seed=11))
         elif name == "zoo":
             for model_name in ZOO:
                 pred = Predictor(_seeded(zoo_model(model_name)), device="cpu", mesh=mesh)
@@ -117,17 +148,53 @@ def run_case(name, mesh, side=SIDE):
     return out
 
 
-# what row sharding does not reach yet (ROADMAP.md, Queue A 4.2): Trainers and Predictors of these
-# models under a 2-band mesh raise
-UNPORTED = {"VisionTransformerSegmentation": dp.VIT,
-            "UNet_FullResAttention": {**FLAGSHIP, "name": "UNet_FullResAttention"},
-            "UNet bilinear": {"name": "UNet", "bilinear": True}}
+def banded_logits(net, u8, mesh):
+    """The module's f32 logits [B, C, H, W] of the images ``u8``: the band's, gathered over the group
+    (the whole images' in one process when ``mesh`` is None)."""
+    import torch
+
+    from dfc_sa_unet_torch.infer.predictor import Predictor
+    from dfc_sa_unet_torch.parallel import rows
+
+    x = torch.from_numpy(normalised(u8)).permute(0, 3, 1, 2)
+    band = None if mesh is None else mesh.band(u8.shape[1])
+    if band is not None:
+        x = x[:, :, band.row0:band.row0 + band.rows]
+    with torch.no_grad(), rows.band_context(band):
+        logits = net(x.contiguous(memory_format=torch.channels_last)).float()
+    if band is None:
+        return logits.numpy()
+    return Predictor._gather_bands(logits.permute(0, 2, 1, 3).contiguous(), band).permute(0, 2, 1, 3).numpy()
+
+
+def int8_engine(name):
+    """The f32 int8 engine of case ``name``, calibrated on 4 whole images and held out on 2 more."""
+    import torch
+
+    from dfc_sa_unet_torch.infer.quant import Int8DFCEngine
+    from dfc_sa_unet_torch.infer.quant_transunet import Int8TransUNetEngine
+    from dfc_sa_unet_torch.infer.quant_vit import Int8ViTEngine
+
+    side = TRANSUNET_SIDE if name == "int8_transunet" else SIDE
+    calib = torch.from_numpy(normalised(images(side, 4, seed=12))).permute(0, 3, 1, 2)
+    kw = dict(dtype=torch.float32, device="cpu", calib_batches=[calib])
+    if name == "int8":
+        return Int8DFCEngine({"model": FLAGSHIP}, _seeded(FLAGSHIP), tail_kernel_levels="auto",
+                             conv_kernel_levels="auto", **kw)
+    if name == "int8_vit":
+        return Int8ViTEngine({"model": VIT}, _seeded(VIT), **kw)
+    return Int8TransUNetEngine({"model": {"name": "TransUNet"}, "dataset": {"img_size": [side, side]}},
+                               _seeded("transunet"), vit_config=TRANSUNET, **kw)
+
+
+# the models row sharding once refused: their Trainers and Predictors construct over a 2-band mesh
+BANDED_SINCE = {"VisionTransformerSegmentation": dp.VIT, "UNet_FullResAttention": FULLRES, "UNet bilinear": BILINEAR}
 
 
 def mesh_fields(mesh, log_dir):
     """What a test reads of this process's place in the 2-D mesh, whether a Trainer of the flagship
-    with ``training.spatial_parallel: 2`` constructs over it, and the messages the unported models'
-    Trainers and Predictors raise."""
+    with ``training.spatial_parallel: 2`` constructs over it, whether the Trainers and Predictors of
+    the models once refused do, and the message a Predictor of a foreign callable raises."""
     from dfc_sa_unet_torch.infer.predictor import Predictor
     from dfc_sa_unet_torch.train.trainer import Trainer
 
@@ -136,7 +203,7 @@ def mesh_fields(mesh, log_dir):
     out = {"fields": np.array([mesh.world_size, mesh.rank, mesh.spatial, mesh.data_size, mesh.data_index,
                                mesh.spatial_index, mesh.spatial_group is not None, mesh.data_group is not None,
                                trainer.spatial, trainer.data_axis])}
-    for label, model in UNPORTED.items():
+    for label, model in BANDED_SINCE.items():
         for kind in ("Trainer", "Predictor"):
             try:
                 if kind == "Trainer":
@@ -146,6 +213,11 @@ def mesh_fields(mesh, log_dir):
                 out[f"{label} {kind}"] = np.array("constructed")
             except NotImplementedError as e:
                 out[f"{label} {kind}"] = np.array(str(e))
+    try:
+        Predictor(lambda x: x, device="cpu", mesh=mesh)
+        out["foreign callable"] = np.array("constructed")
+    except NotImplementedError as e:
+        out["foreign callable"] = np.array(str(e))
     return out
 
 

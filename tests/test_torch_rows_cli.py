@@ -8,7 +8,8 @@ one data group of 2 bands, Gloo, each run under a hard time limit).
 * Training: one epoch of the tiny flagship over 8 synthetic 32x32 images in batches of 4 (every
   rank on the whole batch's band of 16 rows); the checkpoint's history equals one process's within
   rtol 1e-4.
-* ``--int8`` under a band raises (ROADMAP.md, Queue A 4.2), before serving.
+* ``--int8`` under a band serves: every rank calibrates on the same whole images, the flagship's
+  int8 engine runs its s8 3x3 convs on the neighbours' s8 rows, and the CSV equals one process's.
 """
 
 import glob
@@ -81,13 +82,18 @@ def test_two_bands_train_one_epoch_as_one_process(tmp_path):
 
 
 def test_int8_under_a_band_raises(tmp_path):
-    """One process asked for 2 bands falls back to one card, so the refusal is read from the
-    Predictor-free path the CLI takes under a group: ``serve`` with a 2-band mesh."""
-    from dfc_sa_unet_torch.parallel.mesh import ProcessMesh
-
+    """It raised until the int8 engines were banded; now two bands serve ``--int8`` as one process
+    does (every rank calibrates on the first whole images of the global file list)."""
     cfg_path, cfg, data = _config(tmp_path)
-    args = inference.parse_args(["--config", cfg_path, "--model", _weights(tmp_path, cfg), "--input", data,
-                                 "--int8", "--output", str(tmp_path / "out"), "--device", "cpu"])
-    mesh = ProcessMesh(2, 0, 0, torch.device("cpu"), "gloo", False, spatial=2)
-    with pytest.raises(NotImplementedError, match="Queue A 4.2"):
-        inference.serve(args, cfg, mesh)
+    common = ["--config", cfg_path, "--model", _weights(tmp_path, cfg), "--input", data, "--no_slide_window",
+              "--int8", "--no_bf16"]
+    inference.main(inference.parse_args([*common, "--output", str(tmp_path / "one"), "--device", "cpu"]))
+    outs = _two_processes("dfc_sa_unet_torch.inference", [*common, "--output", str(tmp_path / "two"), *ROWS],
+                          tmp_path / "torchrun")
+    want, got = (_read_csv(tmp_path / run / "evaluation_metrics.csv") for run in ("one", "two"))
+    assert [r["file"] for r in got] == [r["file"] for r in want] == [f"sample_{i:03d}" for i in range(8)]
+    for g, w in zip(got, want):
+        for key in w:
+            if key != "file":
+                assert abs(float(g[key]) - float(w[key])) <= 1e-6, (g["file"], key, g[key], w[key])
+    assert "data=1 x spatial=2" in outs[0] and "int8 quantized serving engine" in outs[0]

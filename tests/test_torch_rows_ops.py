@@ -3,9 +3,9 @@ into bands, each band is handed its neighbours' rows, and the stitched band outp
 against the op on the whole tensor (parallel/rows.py; the collectives are the 2- and 4-process
 tests' part: tests/test_torch_rows_training.py, _serving.py, _grid.py, _cli.py).
 
-The 3x3 conv at padding (0, 1) with the halo rows, the adaptive average pool's window sums at sizes
-the windows straddle the bands (28 rows to 8, 7 to 2, and p > H), the attention upsample's band
-rows, the Laplacian contour of ``joint``, and the plain versions of the two kernels that take halo
+The 3x3 conv (``rows.conv3x3``: the halo rows, then row padding 0), the adaptive average pool's
+window sums at sizes the windows straddle the bands (28 rows to 8, 7 to 2, and p > H), the
+attention upsample's band rows, the Laplacian contour of ``joint``, and the plain versions of the two kernels that take halo
 rows (``conv3x3_bn_relu_plain``, ``dfc_tail_plain`` with ``top`` and ``bottom``), which also match
 the JAX Pallas kernels (interpret mode) on the whole image at tests/test_torch_dfc_tail.py's limits.
 f32 within 1e-6 of max|reference|.
@@ -45,20 +45,32 @@ def halo_nchw(x, r0, r1):
     return (x[:, :, r0 - 1:r0] if r0 > 0 else zero), (x[:, :, r1:r1 + 1] if r1 < x.shape[2] else zero)
 
 
+def banded_conv3x3(monkeypatch, x, w, cuts):
+    """``rows.conv3x3`` on each band of NCHW x in its band's context, its halo rows (one each side,
+    zeros at the image's edges) handed in from x, stitched along the rows."""
+    outs = []
+    for i, (r0, r1) in enumerate(bands(x.shape[2], cuts)):
+        def exchange(t, band=None, above=1, below=1, fill=0.0, r0=r0, r1=r1):
+            assert (above, below, fill) == (1, 1, 0.0) and t.shape[2] == r1 - r0
+            return halo_nchw(x, r0, r1)
+
+        monkeypatch.setattr(rows, "exchange_rows", exchange)
+        with rows.band_context(rows.Band(i, len(cuts), x.shape[2], r0, None, None)):
+            outs.append(rows.conv3x3(x[:, :, r0:r1], w))
+    return torch.cat(outs, 2)
+
+
 @pytest.mark.parametrize("cut", CUTS)
-def test_band_conv_with_halo_rows_is_the_whole_conv(cut):
+def test_band_conv_with_halo_rows_is_the_whole_conv(monkeypatch, cut):
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal((2, 5, 16, 11)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((7, 5, 3, 3)).astype(np.float32))
     want = F.conv2d(x, w, padding=1)
-    got = torch.cat([rows.conv3x3_band(x[:, :, r0:r1], w, *halo_nchw(x, r0, r1)) for r0, r1 in bands(16, CUTS[cut])],
-                    2)
-    close(got, want)
+    close(banded_conv3x3(monkeypatch, x, w, CUTS[cut]), want)
     # the contour of the joint loss is this conv with the Laplacian kernel
     lap = torch.tensor(_LAPLACIAN).reshape(1, 1, 3, 3)
     p = x[:, :1].sigmoid()
-    close(torch.cat([rows.conv3x3_band(p[:, :, r0:r1], lap, *halo_nchw(p, r0, r1)) for r0, r1 in bands(16, CUTS[cut])],
-                    2), F.conv2d(p, lap, padding=1))
+    close(banded_conv3x3(monkeypatch, p, lap, CUTS[cut]), F.conv2d(p, lap, padding=1))
     assert rows.current() is None
     close(rows.conv3x3(x, w), want)  # no band: the whole conv
 

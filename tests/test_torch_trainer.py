@@ -235,10 +235,11 @@ def test_unknown_remat_and_unported_options_raise(tmp_path):
     model = create_model({"model": SMALL}, device="cpu", remat="some")
     with pytest.raises(ValueError, match="remat"):
         model(torch.zeros(1, 3, 32, 32))
-    # row sharding of the DFC family constructs: training.spatial_parallel is the CLI's to act on (the
-    # Trainer takes its mesh), and serving_mesh(spatial=2) needs two processes (one raises JAX's
-    # ValueError); over two, the 2-D layout forms and the flagship's Trainer constructs, and what is
-    # still to port (ROADMAP.md, Queue A 4.2) raises with its text
+    # row sharding constructs: training.spatial_parallel is the CLI's to act on (the Trainer takes its
+    # mesh), and serving_mesh(spatial=2) needs two processes (one raises JAX's ValueError); over two, the
+    # 2-D layout forms, the flagship's Trainer constructs, and so do the Trainers and Predictors of the
+    # models row sharding once refused; a Predictor of a callable that is neither a module nor an engine
+    # of the port still raises
     Trainer(port_model(SMALL), None, None, train_config(tmp_path, spatial_parallel=2), device="cpu")
     with pytest.raises(ValueError, match="must divide the device count 1"):
         serving_mesh(spatial=2, device="cpu")
@@ -247,9 +248,10 @@ def test_unknown_remat_and_unported_options_raise(tmp_path):
     # and the flagship Trainer's spatial and data axes
     assert [list(r["fields"]) for r in pair] == [[2, 0, 2, 1, 0, 0, 1, 1, 2, 1], [2, 1, 2, 1, 0, 1, 1, 1, 2, 1]]
     for got in pair:
-        for label in rows_worker.UNPORTED:
+        for label in rows_worker.BANDED_SINCE:
             for kind in ("Trainer", "Predictor"):
-                assert "(ROADMAP.md, Queue A 4.2)" in str(got[f"{label} {kind}"]), (label, kind)
+                assert str(got[f"{label} {kind}"]) == "constructed", (label, kind, str(got[f"{label} {kind}"]))
+        assert "is not supported" in str(got["foreign callable"]), str(got["foreign callable"])
     # ported since: exact accumulation and the kernels' build directory construct
     from dfc_sa_unet_torch.ops import _build
 
