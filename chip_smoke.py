@@ -11,11 +11,15 @@ any failure exits non-zero:
 2. build the CUDA kernels from dfc_sa_unet_torch/csrc; ptxas must neither
    serialize the products (C7515) nor spill in the wgmma kernels of
    conv3x3_bn_relu (its halo instantiations too), conv3x3_bias_stats,
-   probe_matmul and conv3x3_s8 (its halo instantiation too);
+   probe_matmul, conv3x3_s8 (its halo instantiation too) and the bf16 pooled
+   attention;
 3. hold every kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and at awkward ones, in f32 and bf16
-   (pooled attention: in bf16 the tensor-core kernel at every N from 1 to
-   4096, in f32 the 16-row and the two-pass SIMT kernels; conv3x3_bn_relu
+   (pooled attention, after a launch on NaN inputs: in bf16 the wgmma kernel
+   at every N from 1 to 4096, at every main-path shape and at ragged N, C'
+   and C, and every instantiation at three or more tiles a block,
+   ATTN_WGMMA_SHAPES; in f32 the 16-row and the two-pass SIMT
+   kernels; conv3x3_bn_relu
    at every flagship level and at the bf16 kernels' tilings, Cin 3 to 520,
    Cout 8 to 1024, ragged pixel counts and one pixel, after a launch on NaN
    inputs; conv3x3_bias_stats (y, mean and mean2) at its probe's levels and
@@ -49,7 +53,9 @@ any failure exits non-zero:
    three); the tail, the conv and conv3x3_bias_stats are held to their
    plain versions at each level's B=128 inputs (after a launch on NaN
    inputs) before they are timed, and the kernels line keeps the three
-   level by level (``levels``);
+   level by level (``levels``); the flagship's nine attention launches
+   again at B=1024 beside SDPA and their bound (``flagship_large_batch``:
+   at B=128 the launches read the host);
 8. train at full width through the port's Trainer (train_epoch and
    validate_epoch) on synthetic ellipses made in memory, bce_dice 0.5/0.5
    and SGD as configs/config_dfc-sa-res-block.yaml: the flagship for 16
@@ -76,7 +82,7 @@ any failure exits non-zero:
    weights on the CPU.  Pooled-attention launches per forward: 9 for the
    attention-only, addition, concat and full-resolution models, 5 for
    encoder-only, 4 for decoder-only, none for UNet, baseline and
-   both-standard (in bf16 all on the tensor-core attention kernel; in f32
+   both-standard (in bf16 all on the wgmma attention kernel; in f32
    six of the full-resolution model's on the two-pass SIMT kernel);
 11. train three bf16 steps each of UNet_AttentionOnly (9 launches a step),
    UNet_FullResAttention at 64x64 (9 a step; the backward goes through the
@@ -160,9 +166,10 @@ any failure exits non-zero:
    bands and a band of one row, after a launch on rows of +127: stitched,
    equal bit for bit to the whole image's kernel and to the plain version;
    the pooled attention with a band's queries against every key (nq < nk)
-   at the full-resolution model's key counts, bf16 and f32, after a launch on
-   NaN queries: within phase 3's limits of the plain version and equal bit
-   for bit to the band's rows of the whole map's launch; (b) ViT-B/16 and
+   at the full-resolution model's key counts and on an 8x16 map, bf16 and
+   f32, after a launch on NaN queries: within phase 3's limits of the plain
+   version and equal bit for bit to the band's rows of the whole map's
+   launch; (b) ViT-B/16 and
    R50-ViT-B/16 at 224x224 (tokens gathered, the transformer whole on each
    rank), UNet_FullResAttention at 64x64 (the band's queries against the
    gathered keys), the bilinear UNet at 224x224, and the three int8 engines
@@ -231,6 +238,24 @@ TOKENS, EMBED, HEADS, LAYERS = 196, 768, 12, 12  # ViT-B/16 at 224x224: what bot
 MHA_SHAPES = ([(BATCH, TOKENS, EMBED, HEADS)]
               + [(2, n, 4 * hd, 4) for n in (196, 197, 256, 257, 1024) for hd in (32, 64, 128)]
               + [(2, 16, 32, 2), (3, 1, EMBED, HEADS), (1, TOKENS, EMBED, HEADS)])
+ATTN_BIG_BATCH = 1024          # phase 7: the flagship's nine attention launches timed again at this batch
+# phase 3's extra bf16 attention checks (B, H, W, Cq, C), each after a launch on NaN inputs: the
+# full-resolution model's five shapes at 64x64 (N = 4096 to 16, C' = C / 8), the pool-4 bottleneck at
+# B=128, an odd B on the two-images-a-block path, and the ragged: N = 100 (no 64-row tile divides),
+# 289 (no chunk divides), C' 16, 25 (zero-padded to 32 by the wrapper), 48, 128 and 256 at several N,
+# C 96, 200 and 100 (padded to 104).  Then every instantiation of the persistent kernel at a batch that
+# gives each of the 132 blocks three tiles or more, so that q slots and ring stages are reused across
+# tiles: the full-resolution model's two large levels at the main path's B, the flagship's five N = 64
+# levels at ATTN_BIG_BATCH, and C' 32, 64, 128 and 256 over more than 64 keys
+ATTN_WGMMA_SHAPES = ([(8, 64, 64, 8, 64), (8, 32, 32, 16, 128), (8, 16, 16, 32, 256), (8, 8, 8, 64, 512),
+                      (8, 4, 4, 128, 1024), (BATCH, 4, 4, 128, 1024), (3, 8, 8, 16, 128), (3, 10, 10, 8, 64),
+                      (4, 17, 17, 8, 64), (2, 32, 32, 128, 1024), (2, 16, 16, 256, 64), (2, 16, 16, 256, 256),
+                      (2, 8, 8, 256, 512), (5, 12, 12, 48, 96), (4, 17, 17, 25, 200), (2, 40, 40, 16, 100),
+                      (1, 64, 64, 8, 64)]
+                     + [(BATCH, 64, 64, 8, 64), (BATCH, 32, 32, 16, 128)]
+                     + [(ATTN_BIG_BATCH, 8, 8, c // 8, c) for c in (64, 128, 256, 512, 1024)]
+                     + [(BATCH, 16, 16, 32, 256), (BATCH, 32, 32, 64, 512), (16, 32, 32, 128, 1024),
+                        (BATCH, 16, 16, 256, 256)])
 # phase 3's extra tail checks (B, H, W, Cin, C): odd H and W and ragged pixel counts at C = 512 and
 # C <= 256, the channel counts below the flagship's (C = 32 is padded to 64 columns), and down1's
 # Cin = 3 (zero-padded to 8 by the wrapper)
@@ -397,6 +422,7 @@ ROWS17_IMAGES = 8       # a bf16 request of each model at 224 or 64 (the int8 fl
 ROWS17_F32_IMAGES = 2   # the f32 logits
 ROWS17_TRAIN_BATCH = 2  # (c): one f32 step of each model on the pair
 # (a) the pooled attention's band of queries against every key, at the full-resolution model's key counts
+# and on an 8x16 map
 ROWS17_ATTN_BATCH = 4
 
 
@@ -1199,8 +1225,9 @@ def rows17_kernels(dev, gen, max_err, card):
                 del x8, w8, whole
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[-1]
-            for name, h, c in FULLRES_SHAPES[:4]:
-                shape = (ROWS17_ATTN_BATCH, h, h)
+            # and an 8x16 map, whose bands of 64 queries sit in another warpgroup's rows than in the whole map
+            for name, h, w, c in [(name, h, h, c) for name, h, c in FULLRES_SHAPES[:4]] + [("8x16", 8, 16, 128)]:
+                shape = (ROWS17_ATTN_BATCH, h, w)
                 q, k = (torch.randn(*shape, c // 8, generator=gen, device=dev).to(dtype) for _ in range(2))
                 v = torch.randn(*shape, c, generator=gen, device=dev).to(dtype)
                 whole = attn_ops.pooled_attention(q, k, v)
@@ -1214,8 +1241,8 @@ def rows17_kernels(dev, gen, max_err, card):
                     lim = TOL[dn] * max(1.0, want.float().abs().max().item())
                     equal = torch.equal(got, whole[:, s * h // 2:(s + 1) * h // 2])
                     max_err["pooled_attention"] = max(max_err["pooled_attention"], err)
-                    print(f"    pooled_attention {dn} {name:6s} B={ROWS17_ATTN_BATCH} {h * h // 2} queries of {h * h} keys, "
-                          f"C' {c // 8}, C {c}, band {s} of 2 ({attn_ops.entry_point(dtype, h * h)}): max_abs_err vs plain "
+                    print(f"    pooled_attention {dn} {name:6s} B={ROWS17_ATTN_BATCH} {h * w // 2} queries of {h * w} keys, "
+                          f"C' {c // 8}, C {c}, band {s} of 2 ({attn_ops.entry_point(dtype, h * w)}): max_abs_err vs plain "
                           f"{err:.3e} (tol {lim:.2e}); {'equal to' if equal else 'DIFFERENT from'} the band's rows of "
                           f"the whole map's launch", flush=True)
                     if not (equal and np.isfinite(err) and err <= lim):
@@ -1590,14 +1617,15 @@ def main():
         spills = sum("0 bytes spill stores" not in ln for ln in log.read_text().splitlines() if "spill stores" in ln)
         print(f"    {log.stem}: registers per kernel instance {regs}; instances with spills: {spills}")
     # the wgmma kernels of conv3x3_bn_relu (and their halo instantiations, row sharding) and
-    # conv3x3_bias_stats (the ring's and the persistent one) and probe_matmul: ptxas must neither
-    # serialize their products (C7515) nor spill
+    # conv3x3_bias_stats (the ring's and the persistent one), probe_matmul, conv3x3_s8 and the bf16
+    # pooled attention: ptxas must neither serialize their products (C7515) nor spill
     for stem, kernel in (("dfc_tail", "conv3x3_bn_relu_wgmma_kernel"), ("dfc_tail", "conv3x3_bn_relu_narrow_kernel"),
                          ("dfc_tail", "conv3x3_bn_relu_wgmma_halo_kernel"),
                          ("dfc_tail", "conv3x3_bn_relu_narrow_halo_kernel"),
                          ("conv_bn_stats", "conv3x3_bias_stats_wgmma_kernel"),
                          ("conv_bn_stats", "conv3x3_bias_stats_narrow_kernel"), ("mxu_probes", "probe_matmul_kernel"),
-                         ("conv3x3_s8", "conv3x3_s8_kernel"), ("conv3x3_s8", "conv3x3_s8_halo_kernel")):
+                         ("conv3x3_s8", "conv3x3_s8_kernel"), ("conv3x3_s8", "conv3x3_s8_halo_kernel"),
+                         ("pooled_attention", "pooled_attention_wgmma_kernel")):
         text = (_build.BUILD_DIR / f"{stem}.log").read_text()
         entry, found = "", []
         for ln in text.splitlines():
@@ -1711,17 +1739,23 @@ def main():
         dn = str(dtype).split(".")[-1]
         for c in (64, 128, 256, 512, 1024):
             check("pooled_attention", attn_ops.pooled_attention, attn_ops.pooled_attention_plain,
-                  attn_inputs(BATCH, 64, c, dtype), f"{dn} B={BATCH} N=64 C={c}")
+                  attn_inputs(BATCH, 64, c, dtype), f"{dn} B={BATCH} N=64 C={c}", poison=(0, 1, 2))
         for n in (16, 256, 1024):
             check("pooled_attention", attn_ops.pooled_attention, attn_ops.pooled_attention_plain,
-                  attn_inputs(16, n, 256, dtype), f"{dn} B=16 N={n} C=256")
+                  attn_inputs(16, n, 256, dtype), f"{dn} B=16 N={n} C=256", poison=(0, 1, 2))
         # the full-resolution model's first level (64x64, Cq=8, C=64), N=1600, N=1025 (a non-square grid, one
         # key in the last chunk), a Cq and a C that no tile divides (Cq 4 and 25, C 100 and 200; rows that are
         # not 16-byte aligned), either side of the f32 threshold (N=128: the 16-row kernel; N=144), one token
         for b, h, w, cq, c in ((8, 64, 64, 8, 64), (4, 40, 40, 8, 64), (4, 25, 41, 8, 64), (2, 40, 40, 4, 100),
                                (4, 8, 16, 8, 64), (4, 12, 12, 8, 64), (4, 1, 1, 8, 64), (4, 8, 8, 25, 200)):
             check("pooled_attention", attn_ops.pooled_attention, attn_ops.pooled_attention_plain,
-                  grid_attn_inputs(b, h, w, cq, c, dtype), f"{dn} B={b} N={h * w} ({h}x{w}) Cq={cq} C={c}")
+                  grid_attn_inputs(b, h, w, cq, c, dtype), f"{dn} B={b} N={h * w} ({h}x{w}) Cq={cq} C={c}",
+                  poison=(0, 1, 2))
+        if dtype == torch.bfloat16:  # the wgmma kernel at every main-path shape and at ragged ones
+            for b, h, w, cq, c in ATTN_WGMMA_SHAPES:
+                check("pooled_attention", attn_ops.pooled_attention, attn_ops.pooled_attention_plain,
+                      grid_attn_inputs(b, h, w, cq, c, dtype), f"{dn} B={b} N={h * w} ({h}x{w}) Cq={cq} C={c}",
+                      poison=(0, 1, 2))
         for name, h, cin, c in BLOCK_SHAPES:
             label = f"{dn} {name} B=4 {h}x{h} {cin}->{c}"
             if name in AUTO_TAIL_LEVELS:
@@ -1956,6 +1990,19 @@ def main():
                 timed(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0), 20),
                 2 * (2 * q.numel() + 2 * v.numel()),
                 2 * BATCH * 64 * 64 * (c // 8 + c), BATCH * 64 * 64)
+        # the flagship's nine launches again at B=ATTN_BIG_BATCH, where the kernel and not the launch weighs
+        # (at B=128 both the kernel and SDPA read the host); kept beside row 1 in the kernels line
+        attn_big = {"batch": ATTN_BIG_BATCH, "ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        for name, h, cin, c in BLOCK_SHAPES:
+            q, k, v = attn_inputs(ATTN_BIG_BATCH, 64, c, bf)
+            qs, ks, vs = (t.reshape(ATTN_BIG_BATCH, 1, 64, -1) for t in (q, k, v))
+            attn_big["ms"] += timed(lambda: attn_ops.pooled_attention(q, k, v), 20)
+            attn_big["library_ms"] += timed(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0), 20)
+            attn_big["bound_ms"] += max(2 * (2 * q.numel() + 2 * v.numel()) / HBM_BYTES_PER_S,
+                                        2 * ATTN_BIG_BATCH * 64 * 64 * (c // 8 + c) / PEAK_OPS["bf16"],
+                                        ATTN_BIG_BATCH * 64 * 64 / exps_per_s) * 1e3
+        print(f"    pooled_attention, the flagship's 9 launches at B={ATTN_BIG_BATCH}: kernel {attn_big['ms']:.4f} ms  "
+              f"SDPA {attn_big['library_ms']:.4f} ms  bound {attn_big['bound_ms']:.4f} ms ({card})", flush=True)
         for name, h, cin, c in BLOCK_SHAPES:
             npix = BATCH * h * h
             if name in AUTO_TAIL_LEVELS:
@@ -2604,7 +2651,8 @@ def main():
                if name in ("dfc_tail", "conv3x3_bn_relu", "conv3x3_s8") else {}),
             # phase 17: the attention's launches with a band's queries against every key, and the MHA's on
             # the token maps gathered over the bands, among "launches"
-            **({"fewer_query_launches": fewer_queries} if name == "pooled_attention" else {}),
+            **({"fewer_query_launches": fewer_queries, "flagship_large_batch": attn_big}
+               if name == "pooled_attention" else {}),
             **({"gathered_token_launches": families[name]} if name in ("fused_mha", "fused_mha_sep") else {}),
         })
     print(f"card: {card}")

@@ -6,7 +6,7 @@
 //     out = softmax(q k^T) v        q: [Nq, Cq], k: [Nk, Cq], v: [Nk, C], Nk = p*p <= 4096
 //
 // Nq = Nk but under row sharding, where the full-resolution attention takes a
-// band's queries against the whole image's keys (parallel/rows.py): the grid
+// band's queries against the whole image's keys (parallel/rows.py): the tiles
 // and the row masks walk the Nq queries, the key loops the Nk keys.
 //
 // with no 1/sqrt(Cq) scale (the reference model has none), energies and the
@@ -14,42 +14,53 @@
 // TPU kernel's point is that the N x N energies never reach device memory;
 // none of the kernels here writes them either.
 //
-// bf16: pooled_attention_mma_kernel, one kernel for every N, on the tensor
-// cores (mma.sync with ldmatrix, f32 accumulators).  A block owns one image x a
-// tile of query rows x a tile of 64 or 128 channels of v; each warp owns one or
-// two tiles of 16 query rows (the launch configurations are at the end of the
-// file).  K and V go through shared memory as bf16 in chunks of 64 or 128 keys,
-// copied by cp.async into a ring of three stages, so the copies of the next
-// chunks overlap the math of this one; Cq is zero-padded to a multiple of 16 and
-// rows are padded by 16 bytes, so ldmatrix (.trans for V) reads without bank
-// conflicts.  The query-row tiles are the fast grid index: the blocks of one
-// image run together and re-read its K and V from L2 (576 KB at N = 4096,
-// C = 64).  Two passes over the keys:
-//   1. q k^T and the row maximum m, with no exponential; a step of this pass
-//      fills a whole ring buffer with keys (only K is needed), several chunks;
-//   2. q k^T again, p = 2^(e log2(e) - m log2(e)) (one ex2.approx each), the
-//      unrounded p summed into the f32 row sum l, p rounded to bf16 and used as
-//      the A fragment of the p v product straight from the q k^T accumulator
-//      registers (P never goes to shared memory); out = acc / l at the end.
-// At N <= 64 the one chunk is loaded once and q k^T computed once.  The extra
-// q k^T costs Cq / (Cq + C) = 1/9 more products at the port's Cq = C/8, and
-// buys one exponential per energy with no rescaled accumulator.  For Cq <= 32
-// the q fragments stay in registers, and for Cq <= 8 q k^T runs on m16n8k8
-// (the padding to 16 channels would double it).  A warp loads the fragments of
-// several 16-key groups before their products, and a group's value fragments
-// before its exponentials, so the loads' latency is paid once per round.
-//
-// Rounding point: the reference rounds the normalised p / l to bf16 before
-// the p v product (pallas_attention.py:42); this kernel rounds p and divides
-// the f32 sum by l once.  The two differ by bf16 roundings of p only
-// (tests/test_torch_attention_emulation.py holds an emulation of this order
-// to the JAX kernel far inside the 2e-2 that chip_smoke.py allows).
-//
-// What bounds it on the H100: at the full-resolution model's first level (N =
-// 4096, Cq = 8, C = 64) the exponentials, not the products or the bytes: B*N^2
-// of them at 16 a clock per SM (132 SMs, about 0.5 ms a launch at B = 128),
-// against 2*B*N^2*(Cq + C) operations (0.31 ms at the tensor-core peak).  At
-// the flagship's N = 64 the bytes of q, k, v and out bound it.
+// bf16: pooled_attention_wgmma_kernel.  What bounds it on the H100: at the
+// full-resolution model's first level (N = 4096, Cq = 8, C = 64, B = 128) the
+// exponentials, B*N^2 = 2.1e9 of them at 16 a clock per SM (0.51 ms), against
+// 2*B*N^2*(16 + C) tensor-core operations with Cq padded to 16 (0.35 ms at the
+// peak) and 19 MB of q, k, v and out; at its N = 1024 level (Cq 16, C 128) the
+// exponentials and products alike; at the flagship's N = 64 (nine levels, Cq =
+// C/8, C 64..1024) and the pool-4 bottleneck (N = 16) the bytes of q, k, v and
+// out.  The design, for the exponentials to run while the products do:
+//   * one persistent block an SM, three warpgroups or four: a producer (one
+//     thread, 40 or 24 registers after setmaxnreg) keeps a ring of chunks of
+//     keys and values and two q slots full by TMA (tensor maps encoded on the
+//     host, 64-channel boxes in the 128-byte swizzle that the wgmma
+//     descriptors name; zero fill past nk, Cq, C, nq and the last image), each
+//     behind a `full` mbarrier and freed on an `empty` one;
+//   * two or three consumer warpgroups of 64 query rows each.  q's fragments
+//     go to registers once a tile.  Per chunk of keys one issue puts on the
+//     tensor cores e = q k^T (wgmma, q the register A operand, k K-major) and
+//     o += p v of the chunk before (p the register A operand, straight from
+//     the accumulators of e rounded to bf16; v MN-major, the transpose flag):
+//     the chunk's maxima and exponentials run while that p v does, and while
+//     the other warpgroups' products do;
+//   * up to 64 keys (the flagship, the pool-4 bottleneck; so nq <= 64) each
+//     consumer takes an image of its own, the two in turns on the tensor cores
+//     (named barriers 1 and 2, FA3's ping-pong).  Over more keys the consumers
+//     share one image's rows (two warpgroups of 128 channels of v, or three of
+//     64 where C <= 64 and Cq <= 16: a tile of 192 rows, so each image's k and
+//     v come from L2 a third as often as with 64) and run free: the turns made
+//     the small products wait on each other's exponentials, and the timings of
+//     scripts/bench_torch_pooled_attention.py --configs chose both (PERF.md
+//     §6).  Chunks of 128 keys where the registers hold them (Cq <= 64), else
+//     64.
+// Order of arithmetic (tests/test_torch_attention_emulation.py emulates it and
+// holds it to the JAX kernel and the plain version): one pass over the keys
+// in chunks, in key order, per row a reference d (starting at -inf); per chunk
+// e in f32 (Cq zero-padded to 16), keys past nk at -inf, dc = (chunk row max)
+// * log2(e) in f32; where dc - d > 8 (the first chunk always) alpha = 2^(d -
+// dc) and d = dc, else alpha = 1 and d stays, so that p = 2^(fma(e, log2(e),
+// -d)) (ex2.approx) stays below 2^8 and o is rescaled a few times a row, not
+// every chunk; l = l alpha + (sum of the unrounded p); o = o alpha + bf16(p) v
+// (f32 accumulation); out = bf16(o * (1 / l)).  The reference rounds the
+// normalised p / l to bf16 instead (pallas_attention.py:42): the two differ by
+// bf16 roundings of p, far inside the 2e-2 chip_smoke.py allows.  The chunk
+// goes by Nk, Cq and C alone, so a query row's result is the same bits
+// whatever Nq and tile it falls in (phase 17(a) holds a band to the whole map).
+// TMA reads rows of 16-byte multiples: the wrapper zero-pads Cq and C to
+// multiples of 8 (ops/pooled_attention.py::tma_rows) rather than keeping a
+// cp.async path here; no main-path shape needs it.
 //
 // f32 (the parity path, exact to 1e-5; TF32 would break it): two SIMT kernels,
 // picked by the wrapper (ops/pooled_attention.py) by N.
@@ -66,7 +77,11 @@
 
 #include <math.h>
 
+#include <atomic>
+
 #include "common.cuh"
+#include "conv3x3_wgmma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -346,332 +361,375 @@ int launch_long(const void* q, const void* k, const void* v, void* out, int b, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------------- bf16: tensor cores
 using bf16 = __nv_bfloat16;
 
-constexpr int kMPad = 8;       // row padding (elements): 16 bytes, conflict-free ldmatrix
-constexpr int kMStages = 3;    // ring of chunk buffers in shared memory
 constexpr float kLog2e = 1.4426950408889634f;
 
-// s[r][0..cols) <- g[row0 + r][0..cols) (row stride ldg) for r < rows; zero past row
-// nrows and column ncols.  vec: 16-byte cp.async copies (cols, ldg and g 16-byte
-// multiples), VPR = cols / 8 when known at compile time (the value tiles), else 0;
-// else element loads and stores, for rows that are not 16-byte aligned.
-template <int THREADS, int VPR>
-__device__ __forceinline__ void load_rows(bf16* s, int lds, const bf16* __restrict__ g, int ldg,
-                                          int row0, int rows, int nrows, int cols, int ncols,
-                                          bool vec) {
-  if (vec) {
-    const int vpr = VPR ? VPR : cols / 8;
-    const int shift = vpr == 1 ? 0 : vpr == 2 ? 1 : -1;  // the key and query rows: Cq = 8 or 16
-    for (int e = threadIdx.x; e < rows * vpr; e += THREADS) {
-      const int r = VPR ? e / (VPR ? VPR : 1) : shift >= 0 ? e >> shift : e / vpr;
-      const int cc = (e - r * vpr) * 8;
-      const bool ok = row0 + r < nrows && cc < ncols;
-      dfc::cp_async16(dfc::smem_u32(s + r * lds + cc), ok ? g + (size_t)(row0 + r) * ldg + cc : g, ok);
-    }
+// ------------------------------------------- bf16: wgmma, TMA, consumer warpgroups
+namespace wg {
+
+using wgconv::mbar_arrive;
+using wgconv::mbar_expect_tx;
+using wgconv::mbar_init;
+using wgconv::mbar_wait;
+using wgconv::named_sync;
+using wgconv::tma_load;
+
+constexpr int kQSlots = 2;          // q tiles in flight: the next tile's lands during this one
+constexpr int kMaxStages = 8;
+constexpr int kSmemLimit = 232448;  // dynamic shared memory of one block
+constexpr int kTile = 64 * 128;     // a box of 64 rows x 128 bytes, one 1 KB-aligned swizzle tile (of q)
+// a row's reference maximum moves only when a chunk's maximum passes it by more than 2^kSlack in p
+// (log2 units): p stays below 256, and o and l are rescaled a few times a row instead of every chunk
+constexpr float kSlack = 8.f;
+
+// CQP: q's and k's channels padded to a power of two >= 16 (the depth of a bf16 wgmma); CT: channels of v
+// a tile; NC: consumer warpgroups, each owning 64 query rows; SPLIT: the consumers take an image each
+// (nq <= 64), in turns on the tensor cores (named barriers), instead of sharing one image's keys and
+// running free; CH: keys a chunk (64 or 128), the N of the energies' wgmma and one stage of the ring.
+// A q slot holds every consumer's row tile, a stage one chunk of keys and values (of each
+// consumer's image when SPLIT), each as [blocks of 64 channels][rows][128 bytes] in the 128-byte swizzle.
+template <int CQP, int CT, int NC, bool SPLIT, int CH>
+struct Shape {
+  static constexpr int KB = (CQP + 63) / 64, VB = CT / 64, SUB = SPLIT ? NC : 1, KS = CQP / 16;
+  static constexpr int kThreads = 128 * (NC + 1);  // and the producer warpgroup
+  // registers a thread after setmaxnreg, the producer's and the consumers': within what the block was
+  // given at launch (kThreads x 65536 / kThreads, rounded down to 8)
+  static constexpr int kProducerRegs = NC == 2 ? 40 : 24, kConsumerRegs = NC == 2 ? 232 : 160;
+  static constexpr int kQBytes = NC * KB * kTile;
+  static constexpr int kBlock = CH * 128;  // a chunk's 64 channels of k or v
+  static constexpr int kKBytes = SUB * KB * kBlock;
+  static constexpr int kStageBytes = kKBytes + SUB * VB * kBlock;
+  static constexpr int kBarBytes = 8 * 2 * (kMaxStages + kQSlots);
+  static constexpr int kFit = (kSmemLimit - 1024 - kQSlots * kQBytes - kBarBytes) / kStageBytes;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static constexpr int kSmem = 1024 + kQSlots * kQBytes + kStages * kStageBytes + kBarBytes;
+  static constexpr int kRows = SPLIT ? 64 : NC * 64;  // query rows of a tile (of each image, SPLIT)
+  static_assert(kStages >= 2 && kSmem <= kSmemLimit, "a chunk's keys are read while the last one's values are");
+  static_assert((CT == 64 || CT == 128) && (CH == 64 || CH == 128), "the wgmma widths");
+  static_assert((NC == 2 || NC == 3) && NC * kConsumerRegs + kProducerRegs <= 65536 / kThreads / 8 * 8 * (NC + 1),
+                "registers");
+};
+
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// d = A . B (accumulate = 0) or d += A . B for a 64 x N x 16 product, N = 2 R keys: A, 16 channels of q,
+// in registers (the m16n8k16 fragment layout, wgmma.cuh's wgmma_rs), B the keys K-major in shared memory
+template <int R>
+__device__ __forceinline__ void energies_wgmma(float (&d)[R], const uint32_t (&a)[4], uint64_t desc_b,
+                                               int accumulate) {
+  static_assert(R == 32 || R == 64, "64 or 128 keys");
+  if constexpr (R == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
   } else {
-    for (int e = threadIdx.x; e < rows * cols; e += THREADS) {
-      const int r = e / cols, cc = e - r * cols;
-      s[r * lds + cc] = row0 + r < nrows && cc < ncols ? g[(size_t)(row0 + r) * ldg + cc]
-                                                       : __float2bfloat16(0.f);
-    }
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
   }
 }
 
-// c += a b for one m16n8k8 tile: a0, a1 = A[g][2t..], A[g+8][2t..]; b0 = B[2t..][g]
-__device__ __forceinline__ void mma1688(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
+// 2^(x - y): ex2.approx of one subtraction (both operands already scaled by log2(e)); 0 for x = -inf
+__device__ __forceinline__ float exp2_diff(float x, float y) { return dfc::exp2_scaled(x, 1.f, y); }
 
-// e[gi][i] = q k^T of the warp's row tile i (16 query rows) and the 16 keys of group gi,
-// whose rows start at k_addr + gi * group_bytes (two n-tiles); keys from valid - 16 * gi on
-// read -inf.  For cqp <= 32 the q fragments are qa (registers) and every key fragment of
-// the G groups is loaded before the first product, so the loads' latency is paid once;
-// else q is read from shared memory at q_addr + i * tile_bytes.
-template <int RT, int G>
-__device__ __forceinline__ void energies(float (&e)[G][RT][2][4], const uint32_t (&qa)[RT][2][4],
-                                         uint32_t q_addr, int tile_bytes, uint32_t k_addr,
-                                         int group_bytes, int cq, int cqp, int valid, int t) {
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) e[gi][i][h][0] = e[gi][i][h][1] = e[gi][i][h][2] = e[gi][i][h][3] = 0.f;
-  if (cq > 0 && cq <= 8) {  // one k-step of 8: the channels 8..15 of the padded q and k are zero
-    uint32_t bk[G][4];
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) dfc::ldmatrix_x4(bk[gi], k_addr + gi * group_bytes);
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        mma1688(e[gi][i][0], qa[i][0][0], qa[i][0][1], bk[gi][0]);
-        mma1688(e[gi][i][1], qa[i][0][0], qa[i][0][1], bk[gi][2]);
-      }
-  } else if (cqp <= 32) {
-    const int ks_n = cqp / 16;
-    uint32_t bk[G][2][4];
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks)
-        if (ks < ks_n) dfc::ldmatrix_x4(bk[gi][ks], k_addr + gi * group_bytes + ks * 32);
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks)
-        if (ks < ks_n) {
-#pragma unroll
-          for (int i = 0; i < RT; ++i) {
-            dfc::mma16816(e[gi][i][0], qa[i][ks], bk[gi][ks][0], bk[gi][ks][1]);
-            dfc::mma16816(e[gi][i][1], qa[i][ks], bk[gi][ks][2], bk[gi][ks][3]);
+// One persistent block an SM walks tiles (column tile fastest, then row tile, then image or image group).
+// The last warpgroup, the producer (one thread), keeps the q slots and a ring of kStages chunks full by
+// TMA, each behind a `full` mbarrier, and reuses one when every consumer warp has arrived on its `empty`
+// one.  The NC consumer warpgroups each own 64 query rows: q's fragments come from the slot into
+// registers once a tile, then per chunk j
+//   * e = q k_j^T by wgmma and, issued with it, o += p_{j-1} v_{j-1} (SPLIT: in the warpgroup's turn,
+//     named barriers 1..NC taken round-robin);
+//   * while those products run, and the other warpgroups': the chunk's masked row maxima times log2(e),
+//     dc, where dc passes the row's reference d by more than kSlack alpha = 2^(d - dc) and d = dc (else
+//     alpha = 1), p = 2^(e log2(e) - d) (one ex2.approx each), l = l alpha + sum p;
+//   * once their p v is done: the chunk j - 1 stage freed, o *= alpha (skipped where a warp's alphas are
+//     all 1), p rounded to bf16 into the A fragments of the next p v (the accumulator layout of e is that
+//     fragment's layout).
+// After the last chunk one more issue adds p v; out = o / l, rounded to bf16, stored from registers.
+template <int CQP, int CT, int NC, bool SPLIT, int CH>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+pooled_attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out, int b, int nq, int nk,
+                              int c) {
+  using S = Shape<CQP, CT, NC, SPLIT, CH>;
+  constexpr int ST = S::kStages, OR = CT / 2, ER = CH / 2, KK = CH / 16;  // registers of o and e; k-steps of p v
+  extern __shared__ __align__(16) unsigned char smem_wg[];
+  const uint32_t base = (dfc::smem_u32(smem_wg) + 1023u) & ~1023u;
+  const uint32_t ring = base + kQSlots * S::kQBytes;
+  const uint32_t bars = ring + ST * S::kStageBytes;
+  auto q_slot = [&](int i) { return base + (i % kQSlots) * S::kQBytes; };
+  auto stage = [&](int g) { return ring + (g % ST) * S::kStageBytes; };
+  auto full = [&](int g) { return bars + 8 * (g % ST); };
+  auto empty = [&](int g) { return bars + 8 * (kMaxStages + g % ST); };
+  auto q_full = [&](int i) { return bars + 8 * (2 * kMaxStages + i % kQSlots); };
+  auto q_empty = [&](int i) { return bars + 8 * (2 * kMaxStages + kQSlots + i % kQSlots); };
+
+  const int chunks = (nk + CH - 1) / CH, ctiles = (c + CT - 1) / CT;
+  const int rtiles = SPLIT ? 1 : (nq + S::kRows - 1) / S::kRows;
+  const int tiles = (SPLIT ? (b + NC - 1) / NC : b) * rtiles * ctiles;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * NC);  // one arrival a consumer warp
+    }
+    for (int i = 0; i < kQSlots; ++i) {
+      mbar_init(q_full(i), 1);
+      mbar_init(q_empty(i), 4 * NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NC) {  // the producer: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(S::kProducerRegs));
+    if (threadIdx.x % 128 == 0) {
+      int g = 0;  // chunks issued, over all of this block's tiles
+      for (int t = blockIdx.x, i = 0; t < tiles; t += gridDim.x, ++i) {
+        const int col0 = (t % ctiles) * CT, row0 = (t / ctiles % rtiles) * S::kRows, img = t / (ctiles * rtiles);
+        if (i >= kQSlots) mbar_wait(q_empty(i), ((i / kQSlots) & 1) ^ 1);  // tile i - 2 has read its q
+        mbar_expect_tx(q_full(i), S::kQBytes);
+        for (int w = 0; w < NC; ++w)
+          for (int kb = 0; kb < S::KB; ++kb)  // rows past nq, and images past b, read zero
+            tma_load(q_slot(i) + (w * S::KB + kb) * kTile, &maps.q, q_full(i), 64 * kb, SPLIT ? 0 : row0 + w * 64,
+                     SPLIT ? NC * img + w : img);
+        for (int j = 0; j < chunks; ++j, ++g) {
+          if (g >= ST) mbar_wait(empty(g), ((g / ST) & 1) ^ 1);  // chunk g - ST has freed the stage
+          mbar_expect_tx(full(g), S::kStageBytes);
+          for (int s = 0; s < S::SUB; ++s) {  // keys past nk and channels past cq or c read zero
+            const int z = SPLIT ? NC * img + s : img;
+            for (int kb = 0; kb < S::KB; ++kb)
+              tma_load(stage(g) + (s * S::KB + kb) * S::kBlock, &maps.k, full(g), 64 * kb, j * CH, z);
+            for (int vb = 0; vb < S::VB; ++vb)
+              tma_load(stage(g) + S::kKBytes + (s * S::VB + vb) * S::kBlock, &maps.v, full(g), col0 + 64 * vb,
+                       j * CH, z);
           }
         }
-  } else {
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi)
-      for (int ks = 0; ks < cqp; ks += 16) {
-        uint32_t bk[4];
-        dfc::ldmatrix_x4(bk, k_addr + gi * group_bytes + ks * 2);
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          uint32_t a[4];
-          dfc::ldmatrix_x4(a, q_addr + i * tile_bytes + ks * 2);
-          dfc::mma16816(e[gi][i][0], a, bk[0], bk[1]);
-          dfc::mma16816(e[gi][i][1], a, bk[2], bk[3]);
-        }
       }
-  }
-  if (valid < 16 * G) {
+    }
+  } else {  // the consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::kConsumerRegs));
+    const int cw = wg, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, t4 = lane % 4;
+    const int mine = 1 + cw, next = 1 + (cw + 1) % NC;  // the named barriers of this turn and the next
+    const int lm = lane / 8, lr = warp * 16 + 8 * (lm & 1) + lane % 8;  // ldmatrix: this lane's row of q
+    if (SPLIT && cw == NC - 1) named_arrive(1, 256);  // warpgroup 0 takes the first turn
+    float e[ER], o[OR], d[2] = {}, l[2] = {}, alpha[2];
+    uint32_t qa[S::KS][4], pa[KK][4];
 #pragma unroll
-    for (int gi = 0; gi < G; ++gi)
+    for (int x = 0; x < ER; ++x) e[x] = 0.f;
+
+    // q k^T of chunk gg into e, issued and committed
+    auto energies = [&](int gg) {
+      const uint32_t ks0 = stage(gg) + (SPLIT ? cw * S::KB * S::kBlock : 0);
 #pragma unroll
-      for (int i = 0; i < RT; ++i)
+      for (int ks = 0; ks < S::KS; ++ks)
+        energies_wgmma(e, qa[ks], dfc::kmajor_desc(ks0 + (ks / 4) * S::kBlock + (ks % 4) * 32), ks > 0);
+      dfc::wgmma_commit();
+    };
+    // o += p v of chunk gg (the p fragments of chunk gg), issued and committed
+    auto pv = [&](int gg) {
+      const uint32_t vs0 = stage(gg) + S::kKBytes + (SPLIT ? cw * S::VB * S::kBlock : 0);
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) dfc::wgmma_rs<1>(o, pa[kk], dfc::smem_desc(vs0 + kk * 2048, S::kBlock, 1024));
+      dfc::wgmma_commit();
+    };
+    // after the wait for chunk gg's p v: this warp's part has finished, o and p are free, and the stage too
+    // once every consumer warp has arrived
+    auto pv_done = [&](int gg) {
+      dfc::fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) dfc::fence_regs(pa[kk]);
+      if (lane == 0) mbar_arrive(empty(gg));
+    };
+    // chunk j's energies in e -> its p (f32, in place), the reference and l updated; whether a reference moved.
+    // e[4x + y]: row 16 warp + lane/4 (+8 for y >= 2), key CH j + 8x + 2 t4 + (y & 1)
+    auto softmax = [&](int j) {
+      if (j == chunks - 1 && nk % CH) {
+#pragma unroll
+        for (int x = 0; x < ER; ++x)
+          if (j * CH + 8 * (x / 4) + 2 * t4 + (x & 1) >= nk) e[x] = -INFINITY;
+      }
+      float c0 = -INFINITY, c1 = -INFINITY;
+#pragma unroll
+      for (int x = 0; x < ER / 4; ++x) {
+        c0 = fmaxf(c0, fmaxf(e[4 * x], e[4 * x + 1]));
+        c1 = fmaxf(c1, fmaxf(e[4 * x + 2], e[4 * x + 3]));
+      }
+      // the chunk's row maxima times log2(e), finite (every chunk holds a key below nk); the first chunk
+      // always moves the reference (-inf), which sets alpha to 0
+      const float dc0 = dfc::quad_max(c0) * kLog2e, dc1 = dfc::quad_max(c1) * kLog2e;
+      const bool up0 = dc0 - d[0] > kSlack, up1 = dc1 - d[1] > kSlack;
+      alpha[0] = up0 ? exp2_diff(d[0], dc0) : 1.f;
+      alpha[1] = up1 ? exp2_diff(d[1], dc1) : 1.f;
+      d[0] = up0 ? dc0 : d[0];
+      d[1] = up1 ? dc1 : d[1];
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int x = 0; x < ER / 4; ++x) {
+        e[4 * x] = dfc::exp2_scaled(e[4 * x], kLog2e, d[0]);
+        e[4 * x + 1] = dfc::exp2_scaled(e[4 * x + 1], kLog2e, d[0]);
+        e[4 * x + 2] = dfc::exp2_scaled(e[4 * x + 2], kLog2e, d[1]);
+        e[4 * x + 3] = dfc::exp2_scaled(e[4 * x + 3], kLog2e, d[1]);
+        s0 += e[4 * x] + e[4 * x + 1];
+        s1 += e[4 * x + 2] + e[4 * x + 3];
+      }
+      l[0] = l[0] * alpha[0] + s0;
+      l[1] = l[1] * alpha[1] + s1;
+      return up0 || up1;
+    };
+    auto rescale = [&](bool moved) {  // o *= alpha; a factor of 1 leaves o as it is
+      if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+        for (int x = 0; x < OR; ++x) o[x] *= alpha[(x >> 1) & 1];
+      }
+    };
+    auto pack = [&]() {  // p rounded to bf16: the A fragments of the k-steps of p v
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        pa[kk][0] = dfc::pack2(e[8 * kk], e[8 * kk + 1]);
+        pa[kk][1] = dfc::pack2(e[8 * kk + 2], e[8 * kk + 3]);
+        pa[kk][2] = dfc::pack2(e[8 * kk + 4], e[8 * kk + 5]);
+        pa[kk][3] = dfc::pack2(e[8 * kk + 6], e[8 * kk + 7]);
+      }
+    };
+
+    int g = 0;  // chunks consumed
+    for (int t = blockIdx.x, i = 0; t < tiles; t += gridDim.x, ++i) {
+      const int col0 = (t % ctiles) * CT, row0 = (t / ctiles % rtiles) * S::kRows, img = t / (ctiles * rtiles);
+      mbar_wait(q_full(i), (i / kQSlots) & 1);
+#pragma unroll
+      for (int ks = 0; ks < S::KS; ++ks)
+        dfc::ldmatrix_x4(qa[ks], q_slot(i) + (cw * S::KB + ks / 4) * kTile +
+                                     dfc::swizzle128(lr * 128 + (2 * (ks % 4) + (lm >> 1)) * 16));
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_empty(i));
+      d[0] = d[1] = -INFINITY;
+      l[0] = l[1] = 0.f;
+#pragma unroll
+      for (int x = 0; x < OR; ++x) o[x] = 0.f;
+
+      for (int j = 0; j < chunks; ++j, ++g) {
+        mbar_wait(full(g), (g / ST) & 1);
+        if (SPLIT) named_sync(mine, 256);
+        dfc::wgmma_fence();
+        energies(g);
+        if (j > 0) pv(g - 1);
+        if (SPLIT) named_arrive(next, 256);
+        if (j > 0)
+          dfc::wgmma_wait<1>();  // the energies are done, p v may still run
+        else
+          dfc::wgmma_wait<0>();
+        dfc::fence_regs(e);
+        const bool moved = softmax(j);
+        if (j > 0) {
+          dfc::wgmma_wait<0>();
+          pv_done(g - 1);
+          rescale(moved);
+        }
+        pack();
+      }
+      // the last chunk's p v
+      if (SPLIT) named_sync(mine, 256);
+      dfc::wgmma_fence();
+      pv(g - 1);
+      if (SPLIT) named_arrive(next, 256);
+      dfc::wgmma_wait<0>();
+      pv_done(g - 1);
+
+      // o[4x + y]: row 16 warp + lane/4 (+8 for y >= 2), column 8x + 2 t4 + (y & 1) of the tile
+      const int image = SPLIT ? NC * img + cw : img;
+      if (image < b) {
+        const float rl[2] = {1.f / dfc::quad_sum(l[0]), 1.f / dfc::quad_sum(l[1])};
+        const int ra = (SPLIT ? 0 : row0 + cw * 64) + warp * 16 + lane / 4;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int key = gi * 16 + h * 8 + 2 * t;
-          if (key >= valid) e[gi][i][h][0] = e[gi][i][h][2] = -INFINITY;
-          if (key + 1 >= valid) e[gi][i][h][1] = e[gi][i][h][3] = -INFINITY;
+          if (ra + 8 * h >= nq) continue;
+          bf16* dst = out + ((size_t)image * nq + ra + 8 * h) * c + col0 + 2 * t4;
+#pragma unroll
+          for (int x = 0; x < OR / 4; ++x)  // c is a multiple of 8: a pair is inside or past c whole
+            if (col0 + 8 * x < c)
+              *reinterpret_cast<__nv_bfloat162*>(dst + 8 * x) =
+                  __floats2bfloat162_rn(o[4 * x + 2 * h] * rl[h], o[4 * x + 2 * h + 1] * rl[h]);
         }
+      }
+    }
+    if (SPLIT && cw == 0) named_sync(1, 256);  // the last warpgroup's arrival after its last turn
   }
 }
 
-// Shared memory of a launch: q [16 * WARPS * RT][cqp + kMPad], then one ring buffer (N <= KEYS,
-// one chunk) or kMStages of [KEYS][cqp + kMPad] keys and [KEYS][CT + kMPad] values.
-template <int WARPS, int RT, int CT, int KEYS>
-size_t mma_smem_bytes(int n, int cqp) {
-  const size_t stage = (size_t)KEYS * (cqp + kMPad + CT + kMPad);
-  return sizeof(bf16) * ((size_t)16 * WARPS * RT * (cqp + kMPad) + (n <= KEYS ? 1 : kMStages) * stage);
-}
+}  // namespace wg
 
-// WARPS warps of RT tiles of 16 query rows; CT channels of v per block; MINB blocks an SM
-// (caps the registers); G groups of 16 keys per round of products and exponentials, for
-// instruction-level parallelism; KEYS keys per chunk.  cqp = Cq rounded up to 16.
-template <int WARPS, int RT, int CT, int MINB, int G, int KEYS>
-__global__ void __launch_bounds__(WARPS * 32, MINB)
-pooled_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, bf16* __restrict__ out, int nq, int n, int cq,
-                            int c, int cqp, int vec) {
-  constexpr int THREADS = WARPS * 32, ROWS = 16 * WARPS * RT, LDV = CT + kMPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldk = cqp + kMPad;
-  // a ring buffer holds, in pass two, one chunk of keys [KEYS][ldk] and its values
-  // [KEYS][LDV]; in pass one, kpb chunks of keys back to back
-  const int stage = KEYS * (ldk + LDV), kpb = stage / (KEYS * ldk);
-  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);  // [ROWS][ldk]
-  bf16* s_ring = s_q + ROWS * ldk;
+constexpr int kMaxDevices = 64;
 
-  const int b = blockIdx.z, row0 = blockIdx.x * ROWS, col0 = blockIdx.y * CT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const bf16* qb = q + (size_t)b * nq * cq;
-  const bf16* kb = k + (size_t)b * n * cq;
-  const bf16* vb = v + (size_t)b * n * c + col0;
-  const int chunks = (n + KEYS - 1) / KEYS;
-  const bool single = chunks == 1;  // one step and one buffer: the chunk's keys and values, both passes
-  const int p1 = single ? 1 : (chunks + kpb - 1) / kpb;  // steps of pass one
-  const int steps = single ? 1 : p1 + chunks;
-  const int nbuf = single ? 1 : kMStages;
-
-  // columns [cq, cqp) of q and of every key row a buffer can hold are zero, and no copy of
-  // keys writes there; the barrier orders these stores before the copies of values that
-  // land in the same buffers
-  if (cqp > cq) {
-    const int pad = cqp - cq, krows = stage / ldk;
-    for (int e = threadIdx.x; e < (ROWS + nbuf * krows) * pad; e += THREADS) {
-      const int r = e / pad, cc = cq + e - r * pad, rr = r - ROWS;
-      (r < ROWS ? s_q + r * ldk : s_ring + (rr / krows) * stage + (rr % krows) * ldk)[cc] = __float2bfloat16(0.f);
-    }
-    __syncthreads();
-  }
-
-  auto issue = [&](int step) {  // the copies of one step into its ring buffer, one commit group
-    if (step < steps) {
-      bf16* sk = s_ring + (step % kMStages) * stage;
-      if (step < p1) {
-        const int j0 = step * kpb * KEYS;
-        load_rows<THREADS, 0>(sk, ldk, kb, cq, j0, min(kpb * KEYS, n - j0), n, cq, cq, vec);
-      }
-      if (single || step >= p1) {
-        const int j0 = (step - (single ? 0 : p1)) * KEYS;
-        if (!single) load_rows<THREADS, 0>(sk, ldk, kb, cq, j0, KEYS, n, cq, cq, vec);
-        load_rows<THREADS, CT / 8>(sk + KEYS * ldk, LDV, vb, c, j0, KEYS, n, CT, c - col0, vec);
-      }
-    }
-    dfc::cp_async_commit();
-  };
-  load_rows<THREADS, 0>(s_q, ldk, qb, cq, row0, ROWS, nq, cq, cq, vec);  // joins step 0's group
-  for (int s = 0; s < kMStages - 1; ++s) issue(s);
-
-  // ldmatrix row addresses of this lane: q as A (rows r, r+8 x channels c, c+8), k as B
-  // (keys j, j+8 of an n-tile pair x channels c, c+8), v as B through .trans (keys
-  // j, j+8 x channels c, c+8 of an n-tile pair)
-  const int mi = lane / 8, mr = lane % 8;
-  const int tile_bytes = 16 * ldk * 2;
-  const uint32_t q_addr = dfc::smem_u32(s_q + (warp * 16 * RT + mr + (mi % 2) * 8) * ldk + (mi / 2) * 8);
-  const int k_off = (mr + (mi / 2) * 8) * ldk + (mi % 2) * 8;
-  const int v_off = (mr + (mi % 2) * 8) * LDV + (mi / 2) * 8;
-
-  uint32_t qa[RT][2][4];                  // q fragments when cqp <= 32
-  float m[RT][2], l[RT][2];               // rows g and g + 8 of each row tile
-  float o[RT][CT / 8][4];
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    m[i][0] = m[i][1] = -INFINITY;
-    l[i][0] = l[i][1] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < CT / 8; ++nt) o[i][nt][0] = o[i][nt][1] = o[i][nt][2] = o[i][nt][3] = 0.f;
-  }
-
-  for (int s = 0; s < steps; ++s) {
-    dfc::cp_async_wait<kMStages - 2>();  // this thread's copies of step s have landed
-    __syncthreads();                     // everyone's have, and step s - 1's buffer is free
-    issue(s + kMStages - 1);
-    if (s == 0 && cqp <= 32) {
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int ks = 0; ks < 2; ++ks)
-          if (ks * 16 < cqp) dfc::ldmatrix_x4(qa[i][ks], q_addr + i * tile_bytes + ks * 32);
-    }
-    const bf16* sk = s_ring + (s % kMStages) * stage;
-    const uint32_t k_addr = dfc::smem_u32(sk + k_off);
-    if (s < p1) {  // pass one: the row maximum over up to kpb chunks of keys
-      const int j0 = s * kpb * KEYS, keys = min(kpb * KEYS, n - j0);
-      for (int j = 0; j < keys; j += 16 * G) {
-        float e[G][RT][2][4];
-        energies<RT, G>(e, qa, q_addr, tile_bytes, k_addr + j * ldk * 2, 16 * ldk * 2, cq, cqp, keys - j, t);
-#pragma unroll
-        for (int gi = 0; gi < G; ++gi)
-#pragma unroll
-          for (int i = 0; i < RT; ++i) {
-            m[i][0] = fmaxf(m[i][0], fmaxf(fmaxf(e[gi][i][0][0], e[gi][i][0][1]), fmaxf(e[gi][i][1][0], e[gi][i][1][1])));
-            m[i][1] = fmaxf(m[i][1], fmaxf(fmaxf(e[gi][i][0][2], e[gi][i][0][3]), fmaxf(e[gi][i][1][2], e[gi][i][1][3])));
-          }
-      }
-      if (s == p1 - 1) {  // finite: key 0 is a real key
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          m[i][0] = dfc::quad_max(m[i][0]);
-          m[i][1] = dfc::quad_max(m[i][1]);
-        }
-      }
-    }
-    if (single || s >= p1) {  // pass two: p = exp(e - m), l += p, out += bf16(p) v
-      const int j0 = (s - (single ? 0 : p1)) * KEYS;
-      const uint32_t v_addr = dfc::smem_u32(sk + KEYS * ldk + v_off);
-#pragma unroll
-      for (int kg = 0; kg < KEYS / 16; kg += G) {  // G groups of 16 keys
-        if (j0 + kg * 16 >= n) break;
-        float e[G][RT][2][4];
-        energies<RT, G>(e, qa, q_addr, tile_bytes, k_addr + kg * 16 * ldk * 2, 16 * ldk * 2, cq, cqp,
-                        n - j0 - kg * 16, t);
-#pragma unroll
-        for (int gi = 0; gi < G; ++gi) {
-          uint32_t bv[CT / 16][4];  // the group's value fragments, loaded before its exponentials
-#pragma unroll
-          for (int np = 0; np < CT / 16; ++np)
-            dfc::ldmatrix_x4_trans(bv[np], v_addr + ((kg + gi) * 16 * LDV + np * 16) * 2);
-          uint32_t a[RT][4];
-#pragma unroll
-          for (int i = 0; i < RT; ++i) {
-            const float d0 = m[i][0] * kLog2e, d1 = m[i][1] * kLog2e;
-            float (&x)[2][4] = e[gi][i];
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              x[h][0] = dfc::exp2_scaled(x[h][0], kLog2e, d0);
-              x[h][1] = dfc::exp2_scaled(x[h][1], kLog2e, d0);
-              x[h][2] = dfc::exp2_scaled(x[h][2], kLog2e, d1);
-              x[h][3] = dfc::exp2_scaled(x[h][3], kLog2e, d1);
-              l[i][0] += x[h][0] + x[h][1];
-              l[i][1] += x[h][2] + x[h][3];
-            }
-            a[i][0] = dfc::pack2(x[0][0], x[0][1]);
-            a[i][1] = dfc::pack2(x[0][2], x[0][3]);
-            a[i][2] = dfc::pack2(x[1][0], x[1][1]);
-            a[i][3] = dfc::pack2(x[1][2], x[1][3]);
-          }
-#pragma unroll
-          for (int np = 0; np < CT / 16; ++np)
-#pragma unroll
-            for (int i = 0; i < RT; ++i) {
-              dfc::mma16816(o[i][2 * np], a[i], bv[np][0], bv[np][1]);
-              dfc::mma16816(o[i][2 * np + 1], a[i], bv[np][2], bv[np][3]);
-            }
-        }
-      }
-    }
-  }
-  dfc::cp_async_wait<0>();
-
-  bf16* ob = out + (size_t)b * nq * c;
-  const bool pairs = c % 2 == 0;  // bf16x2 stores stay 4-byte aligned
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const float rl[2] = {1.f / dfc::quad_sum(l[i][0]), 1.f / dfc::quad_sum(l[i][1])};
-    const int ra = row0 + (warp * RT + i) * 16 + g;
-#pragma unroll
-    for (int nt = 0; nt < CT / 8; ++nt) {
-      const int ch = col0 + nt * 8 + 2 * t;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = ra + 8 * h;
-        if (r >= nq || ch >= c) continue;
-        bf16* dst = ob + (size_t)r * c + ch;
-        if (pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(dst) =
-              __floats2bfloat162_rn(o[i][nt][2 * h] * rl[h], o[i][nt][2 * h + 1] * rl[h]);
-        } else {
-          dst[0] = __float2bfloat16(o[i][nt][2 * h] * rl[h]);
-          if (ch + 1 < c) dst[1] = __float2bfloat16(o[i][nt][2 * h + 1] * rl[h]);
-        }
-      }
-    }
-  }
-}
-
-template <int WARPS, int RT, int CT, int MINB, int G, int KEYS>
-int launch_mma_t(const void* q, const void* k, const void* v, void* out, int b, int nq, int n, int cq,
-                 int c, void* stream) {
-  const int cqp = (cq + 15) / 16 * 16;
-  const bool vec = cq % 8 == 0 && c % 8 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                     reinterpret_cast<uintptr_t>(v)) % 16) == 0;
-  const size_t smem = mma_smem_bytes<WARPS, RT, CT, KEYS>(n, cqp);
-  const cudaError_t err = cudaFuncSetAttribute(pooled_attention_mma_kernel<WARPS, RT, CT, MINB, G, KEYS>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int CQP, int CT, int NC, bool SPLIT, int CH>
+int launch_wg(const void* q, const void* k, const void* v, void* out, int b, int nq, int nk, int cq, int c,
+              void* stream) {
+  using S = wg::Shape<CQP, CT, NC, SPLIT, CH>;
+  wg::Maps maps;  // [b][rows][channels], boxes of 64 channels x 64 rows
+  if (!wgconv::tile_map(&maps.q, q, cq, nq, b, 64) || !wgconv::tile_map(&maps.k, k, cq, nk, b, CH) ||
+      !wgconv::tile_map(&maps.v, v, c, nk, b, CH))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (long long)(SPLIT ? (b + NC - 1) / NC : b) * (SPLIT ? 1 : dfc::ceil_div(nq, S::kRows)) *
+                          dfc::ceil_div(c, CT);
+  // the SM count and the shared-memory attribute, once a device for this instantiation (0: not yet)
+  static std::atomic<int> sms_of[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(dfc::ceil_div(nq, 16 * WARPS * RT), dfc::ceil_div(c, CT), b);
-  pooled_attention_mma_kernel<WARPS, RT, CT, MINB, G, KEYS><<<grid, WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), nq, n, cq, c, cqp, vec ? 1 : 0);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  int sms = sms_of[dev].load(std::memory_order_acquire);
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(wg::pooled_attention_wgmma_kernel<CQP, CT, NC, SPLIT, CH>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sms_of[dev].store(sms, std::memory_order_release);
+  }
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  wg::pooled_attention_wgmma_kernel<CQP, CT, NC, SPLIT, CH><<<grid, S::kThreads, S::kSmem,
+                                                              static_cast<cudaStream_t>(stream)>>>(
+      maps, static_cast<bf16*>(out), b, nq, nk, c);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instantiation for cqp among CQ..., or cudaErrorInvalidValue
+template <int CT, int NC, bool SPLIT, int CH, int... CQ>
+int launch_wg_cq(int cqp, const void* q, const void* k, const void* v, void* out, int b, int nq, int nk, int cq,
+                 int c, void* stream) {
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  ((cqp == CQ ? (err = launch_wg<CQ, CT, NC, SPLIT, CH>(q, k, v, out, b, nq, nk, cq, c, stream)) : 0), ...);
+  return err;
 }
 
 }  // namespace
@@ -687,19 +745,26 @@ extern "C" int pooled_attention_f32(const void* q, const void* k, const void* v,
   return launch<float>(q, k, v, out, b, nq, n, cq, c, stream);
 }
 
-// bf16, any N = nk <= 4096 and Cq <= 256 (the configuration goes by the keys).  A block of 4 warps owns a whole image of N <= 64 (64
-// query rows, one chunk).  For larger N and Cq <= 32 (the full-resolution model's N >= 256),
-// 128-key chunks and 256 query rows a block (8 warps of two row tiles) at C <= 64, 128 rows at
-// larger C (whose 128 channels of accumulators fill the registers): each image's K and V are
-// read from L2 by fewer blocks.  Wider q and k take 64-key chunks and 128 rows, which keep the
-// ring inside an SM's shared memory up to Cq = 256.
-extern "C" int pooled_attention_mma_bf16(const void* q, const void* k, const void* v, void* out,
-                                         int b, int nq, int n, int cq, int c, void* stream) {
-  if (n <= 64) {
-    return c <= 64 ? launch_mma_t<4, 1, 64, 4, 2, 64>(q, k, v, out, b, nq, n, cq, c, stream)
-                   : launch_mma_t<4, 1, 128, 2, 2, 64>(q, k, v, out, b, nq, n, cq, c, stream);
-  }
-  if (cq > 32) return launch_mma_t<8, 1, 128, 1, 2, 64>(q, k, v, out, b, nq, n, cq, c, stream);
-  return c <= 64 ? launch_mma_t<8, 2, 64, 1, 4, 128>(q, k, v, out, b, nq, n, cq, c, stream)
-                 : launch_mma_t<8, 1, 128, 1, 4, 128>(q, k, v, out, b, nq, n, cq, c, stream);
+// bf16 on wgmma with TMA-fed q, keys and values: any nq <= n = nk <= 4096, cq <= 256 and c, both multiples
+// of 8 (TMA's 16-byte row strides: the wrapper zero-pads other widths), every pointer 16-byte aligned.
+extern "C" int pooled_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* out, int b, int nq,
+                                           int n, int cq, int c, void* stream) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if (b < 1 || nq < 1 || nq > n || cq < 1 || cq > 256 || cq % 8 || c < 1 || c % 8 || ptrs % 16 ||
+      !wgconv::encode_tiled())
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cqp = cq <= 16 ? 16 : cq <= 32 ? 32 : cq <= 64 ? 64 : cq <= 128 ? 128 : 256;
+  // 64 channels of v a tile where c <= 64 and cq <= 16, else 128.  Up to 64 keys (so nq <= 64): two
+  // warpgroups take an image each, in turns on the tensor cores.  Else one image's rows are shared by free-
+  // running warpgroups, in chunks of 128 keys where their registers hold them (cq <= 64), else 64: three
+  // warpgroups at 64 channels, two at 128.  The chunk goes by nk, cq and c alone, never by nq.
+  const bool narrow = c <= 64 && cqp == 16;
+  if (n <= 64 && cqp <= 128)
+    return narrow ? launch_wg_cq<64, 2, true, 64, 16>(cqp, q, k, v, out, b, nq, n, cq, c, stream)
+                  : launch_wg_cq<128, 2, true, 64, 16, 32, 64, 128>(cqp, q, k, v, out, b, nq, n, cq, c, stream);
+  if (cqp <= 64)
+    return narrow ? launch_wg_cq<64, 3, false, 128, 16>(cqp, q, k, v, out, b, nq, n, cq, c, stream)
+                  : launch_wg_cq<128, 2, false, 128, 16, 32, 64>(cqp, q, k, v, out, b, nq, n, cq, c, stream);
+  return launch_wg_cq<128, 2, false, 64, 128, 256>(cqp, q, k, v, out, b, nq, n, cq, c, stream);
 }

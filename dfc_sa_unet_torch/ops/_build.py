@@ -33,7 +33,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "pooled_attention_f32": ("pooled_attention", [_P] * 4 + [_I] * 5 + [_P]),
     "pooled_attention_long_f32": ("pooled_attention", [_P] * 4 + [_I] * 5 + [_P]),
-    "pooled_attention_mma_bf16": ("pooled_attention", [_P] * 4 + [_I] * 5 + [_P]),
+    "pooled_attention_wgmma_bf16": ("pooled_attention", [_P] * 4 + [_I] * 5 + [_P]),
     "conv3x3_bn_relu_f32": ("dfc_tail", [_P] * 4 + [_I] * 5 + [_P]),
     "conv3x3_bn_relu_bf16": ("dfc_tail", [_P] * 4 + [_I] * 7 + [_P]),
     "dfc_tail_f32": ("dfc_tail", [_P] * 10 + [_I] * 5 + [_P]),

@@ -6,13 +6,19 @@ runs the plain version (ops/attention.py::pooled_self_attention); on a CUDA
 tensor it launches a kernel or raises.  Layout NHWC, as in JAX.
 
 ``entry_point`` names the kernel of a call.  bf16, every N = p*p up to
-``MAX_TOKENS``: one tensor-core kernel (mma.sync, K and V streamed through a
-cp.async ring, two passes over the keys: the row maximum, then one
-exponential per energy).  It rounds the unnormalised probabilities to bf16
+``MAX_TOKENS``: one Hopper kernel (``wgmma`` for both products; q, K and V
+fed by TMA from a producer warpgroup; consumer warpgroups whose exponentials
+run while the tensor cores take their products and the other warpgroups';
+an online softmax over chunks of 128 keys, 64 where C' > 64).  It rounds the
+probabilities, unnormalised and relative to a reference row maximum, to bf16
 and divides the f32 sum by the row sum once at the end, where the reference
-rounds the normalised ones: the two differ by bf16 roundings only.  At the
-full-resolution model's first level (N = 4096, Cq = 8) the exponentials bound
-it, at the flagship's N = 64 the bytes.  f32, the parity path: two SIMT
+rounds the normalised ones: the two differ by bf16 roundings only.  TMA reads
+rows whose stride is a multiple of 16 bytes, so the wrapper zero-pads q and k
+(and v, whose extra output columns it drops) to a multiple of 8 channels
+where a call has another width, and copies a tensor that does not start
+16-byte aligned (``tma_rows``).  At the full-resolution model's first level
+(N = 4096, C' = 8) the exponentials bound it, at the flagship's N = 64 the
+bytes.  f32, the parity path: two SIMT
 kernels, the 16-row kernel that keeps its energies in shared memory up to
 ``SHORT_TOKENS`` and the two-pass kernel above.  All count under
 ``LAUNCHES["pooled_attention"]``, one per call.  Above ``MAX_TOKENS`` (the
@@ -22,9 +28,10 @@ energies in device memory.
 
 Queries and keys may differ in number: under a band of rows the
 full-resolution attention (parallel/rows.py) takes the band's queries
-against the whole image's keys and values.  The grid walks the ``nq``
-queries, the key loops the ``nk`` keys; ``entry_point`` and ``MAX_TOKENS``
-go by ``nk``.  Every launch counts under ``LAUNCHES``; one with fewer
+against the whole image's keys and values.  The tiles walk the ``nq``
+queries, the key loops the ``nk`` keys; ``entry_point``, ``MAX_TOKENS`` and
+the bf16 kernel's chunks go by ``nk``, so a query's row is the same bits in a
+band as in the whole map.  Every launch counts under ``LAUNCHES``; one with fewer
 queries than keys also under ``FEWER_QUERIES``.
 
 Under autograd the forward still launches the kernel; the backward
@@ -34,6 +41,7 @@ has no backward kernel either.
 """
 
 import torch
+import torch.nn.functional as F
 
 from dfc_sa_unet_torch.ops import _build
 from dfc_sa_unet_torch.ops.attention import pooled_self_attention
@@ -77,23 +85,35 @@ def pooled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
 def entry_point(dtype: torch.dtype, n: int) -> str:
     """The C function of csrc/pooled_attention.cu that computes a call of N keys."""
     if dtype == torch.bfloat16:
-        return "pooled_attention_mma_bf16"
+        return "pooled_attention_wgmma_bf16"
     return f"pooled_attention_{'long_' if n > SHORT_TOKENS else ''}{_DTYPES[dtype]}"
+
+
+def tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where TMA can read its rows (channels a multiple of 8, the start 16-byte aligned), else
+    a copy with its channels zero-padded to a multiple of 8."""
+    pad = -t.shape[-1] % 8
+    if pad == 0 and t.data_ptr() % 16 == 0:
+        return t
+    return F.pad(t, (0, pad)) if pad else t.clone()
 
 
 def _launch(q, k, v):
     """One launch on checked, contiguous CUDA tensors."""
-    b, ph, pw, cq = q.shape
+    b, ph, pw, _ = q.shape
     c, nq, nk = v.shape[-1], ph * pw, k.shape[1] * k.shape[2]
-    out = torch.empty((b, ph, pw, c), dtype=v.dtype, device=v.device)
+    if v.dtype == torch.bfloat16:  # zero channels add nothing to q k^T; v's extra columns are dropped
+        q, k, v = tma_rows(q), tma_rows(k), tma_rows(v)
+    cq, cv = q.shape[-1], v.shape[-1]
+    out = torch.empty((b, ph, pw, cv), dtype=v.dtype, device=v.device)
     if out.numel():
         name = entry_point(v.dtype, nk)
         err = _build.kernel(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                  b, nq, nk, cq, c, _build.stream_handle(q.device))
+                                  b, nq, nk, cq, cv, _build.stream_handle(q.device))
         _build.check(err, name)
         LAUNCHES["pooled_attention"] += 1
         FEWER_QUERIES["pooled_attention"] += nq < nk
-    return out
+    return out if cv == c else out[..., :c].contiguous()
 
 
 def plain_vjp(plain, inputs, grad_out):

@@ -10,9 +10,9 @@ instructions are the same in both builds (addresses stripped; the unnamed-namesp
 mangled name, which differs from build to build, removed).  It answers whether a change to a
 shared header left a kernel's code as it was.  Needs nvcc and cuobjdump, not a card.  The default
 kernels are every kernel of the libraries that share the conv headers (conv3x3_bn_relu and the DFC
-tail in bf16 and f32, conv3x3_bias_stats, the matrix-unit probes, conv3x3_s8) and of the two that
-share only common.cuh (the attention kernels).  The halo instantiations of row sharding
-(``*_halo_kernel``) match none of these names.
+tail in bf16 and f32, conv3x3_bias_stats, the matrix-unit probes, conv3x3_s8, the pooled attention,
+whose bf16 kernel takes the TMA and wgmma helpers) and of MHA's (wgmma.cuh).  The halo instantiations
+of row sharding (``*_halo_kernel``) match none of these names.
 """
 
 import argparse
@@ -26,7 +26,7 @@ import sys
 KERNELS = ("conv3x3_bn_relu_kernel", "conv3x3_bn_relu_narrow_kernel", "conv3x3_bn_relu_wgmma_kernel",
            "dfc_tail_kernel", "dfc_tail_wgmma_kernel", "conv3x3_bias_stats_kernel", "conv3x3_bias_stats_wgmma_kernel",
            "conv3x3_bias_stats_narrow_kernel", "probe_conv_kernel", "probe_matmul_kernel", "conv3x3_s8_kernel",
-           "pooled_attention_kernel", "pooled_attention_long_kernel", "pooled_attention_mma_kernel",
+           "pooled_attention_kernel", "pooled_attention_long_kernel", "pooled_attention_wgmma_kernel",
            "mha_simt_kernel", "mha_mma_kernel", "mha_wgmma_kernel")
 
 

@@ -99,15 +99,32 @@ def test_non_cpu_tensor_never_falls_back():
 
 
 def test_entry_point_per_dtype_and_token_count():
-    """bf16: the tensor-core kernel for every N the wrapper takes; f32: the 16-row SIMT kernel
+    """bf16: the wgmma kernel for every N the wrapper takes; f32: the 16-row SIMT kernel
     up to SHORT_TOKENS and the two-pass one above.  Every export of the source is reached."""
     from dfc_sa_unet_torch.ops import _build
     from dfc_sa_unet_torch.ops import pooled_attention as ops
 
     bf16 = {ops.entry_point(torch.bfloat16, n) for n in range(1, ops.MAX_TOKENS + 1)}
-    assert bf16 == {"pooled_attention_mma_bf16"}
+    assert bf16 == {"pooled_attention_wgmma_bf16"}
     f32 = [ops.entry_point(torch.float32, n) for n in range(1, ops.MAX_TOKENS + 1)]
     assert set(f32[:ops.SHORT_TOKENS]) == {"pooled_attention_f32"}
     assert set(f32[ops.SHORT_TOKENS:]) == {"pooled_attention_long_f32"}
     exports = {name for name, (stem, _) in _build.SIGNATURES.items() if stem == "pooled_attention"}
     assert exports == bf16 | set(f32)
+
+
+@pytest.mark.parametrize("channels,offset,padded", [(8, 0, False), (64, 0, False), (25, 0, True), (4, 0, True),
+                                                    (8, 3, True), (200, 0, False)])
+def test_tma_rows_pads_channels_to_eight_and_realigns(channels, offset, padded):
+    """The bf16 kernel reads q, k and v by TMA: rows a multiple of 16 bytes, starts 16-byte aligned.
+    ``tma_rows`` leaves such a tensor as it is and otherwise copies it, zero-padded to a multiple of 8
+    channels (q k^T is unchanged; the wrapper drops v's extra output columns)."""
+    from dfc_sa_unet_torch.ops.pooled_attention import tma_rows
+
+    flat = torch.randn(offset + 2 * 3 * 5 * channels).to(torch.bfloat16)
+    t = flat[offset:].view(2, 3, 5, channels)
+    got = tma_rows(t)
+    assert (got is t) != padded
+    assert got.shape[:3] == t.shape[:3] and got.shape[-1] == -(-channels // 8) * 8 and got.is_contiguous()
+    assert got.data_ptr() % 16 == 0
+    assert torch.equal(got[..., :channels], t) and not got[..., channels:].any()
