@@ -62,7 +62,10 @@ any failure exits non-zero:
    steps in f32 at B=2 (the first 3 against the same steps on the CPU; a
    checkpoint after epoch 1 restored into a fresh trainer must repeat
    epoch 2's losses; the best_model it writes is served through the
-   Predictor) and for 20 steps in bf16 at the largest of B=128/64/32 that
+   Predictor, and so are the best_model and checkpoint_epoch_1 read back by
+   the factory's facade, ModelFactory.get_model_and_variables with
+   model.pretrained_path: 9 pooled-attention launches a forward, the
+   probabilities within 1e-5 of the served best_model's) and for 20 steps in bf16 at the largest of B=128/64/32 that
    fits without rematerialisation (the loss must fall), every step finite
    and applied, 9 pooled-attention launches per step; the same step with
    ``remat='l12'`` for its time and memory (13 launches: four blocks run
@@ -516,7 +519,7 @@ def cache_child(args):
     import torch
 
     from dfc_sa_unet_torch.infer.predictor import Predictor
-    from dfc_sa_unet_torch.models.factory import create_model
+    from dfc_sa_unet_torch.models.factory import ModelFactory, create_model
     from dfc_sa_unet_torch.ops import _build, launches, reset_launches
 
     model = create_model(CONFIG, dtype=torch.bfloat16, device="cuda")
@@ -757,7 +760,7 @@ def accumulation_and_cache(seed, card, dev, fits, fits_ms, run_epochs):
     from dfc_sa_unet_torch.data.synthetic import samples
     from dfc_sa_unet_torch.infer.engine import DFCEngine
     from dfc_sa_unet_torch.infer.predictor import Predictor
-    from dfc_sa_unet_torch.models.factory import create_model
+    from dfc_sa_unet_torch.models.factory import ModelFactory, create_model
     from dfc_sa_unet_torch.ops import _build, launches, reset_launches
     from dfc_sa_unet_torch.parallel.mesh import data_parallel_mesh, local_coordinator
     from dfc_sa_unet_torch.utils.weights import calibrate_batch_stats_, init_random_
@@ -1576,7 +1579,7 @@ def main():
     from dfc_sa_unet_torch.infer.quant import Int8DFCEngine, int8_self_check
     from dfc_sa_unet_torch.infer.quant_transunet import Int8TransUNetEngine
     from dfc_sa_unet_torch.infer.quant_vit import Int8ViTEngine
-    from dfc_sa_unet_torch.models.factory import create_model
+    from dfc_sa_unet_torch.models.factory import ModelFactory, create_model
     from dfc_sa_unet_torch.ops import _build, launches, reset_launches
     from dfc_sa_unet_torch.ops import conv_bn_stats as stats_ops
     from dfc_sa_unet_torch.ops import conv_s8 as s8_ops
@@ -2193,6 +2196,24 @@ def main():
           f"checkpoint's weights in the trainer's model {d_served:.2e}", flush=True)
     if best_probs.shape != (4, IMG, IMG) or not np.isfinite(best_probs).all() or d_served > 1e-5:
         fail("the served best_model disagrees with the trained weights")
+    # the same files read back by the factory's facade from model.pretrained_path, served on the module path
+    for path in (t32.best_model_path, ckpt):
+        cfg = {**CONFIG, "model": {**CONFIG["model"], "pretrained_path": path}}
+        facade_model, facade_sd = ModelFactory.get_model_and_variables(cfg, device=dev)
+        before = launches()
+        with torch.inference_mode():
+            facade_probs = Predictor(facade_model, device=dev).predict_probs(request)
+        delta = {k: v - before[k] for k, v in launches().items() if v != before[k]}
+        d_facade = float(np.abs(facade_probs - best_probs).max())
+        print(f"    {os.path.basename(path)} through ModelFactory.get_model_and_variables, served through the "
+              f"Predictor: launches {delta}, max |dprob| against the served best_model {d_facade:.2e} (tol 1e-5)",
+              flush=True)
+        if facade_sd is None or delta != {"pooled_attention": 9}:
+            fail(f"the facade's model of {path} loaded {facade_sd is not None} and launched {delta}, expected 9 "
+                 f"pooled_attention")
+        if facade_probs.shape != best_probs.shape or not np.isfinite(facade_probs).all() or d_facade > 1e-5:
+            fail(f"the facade's model of {path} disagrees with the served best_model")
+        del facade_model, facade_sd
     del t32, resumed, served_model, want
     torch.cuda.empty_cache()
     close_run()

@@ -14,7 +14,9 @@
 WEIGHTS is a reference-layout PyTorch ``.pth`` (raw state dict or trainer
 checkpoint), or the ``best_model`` or a checkpoint that
 ``python -m dfc_sa_unet_torch.train`` wrote; ``model.pretrained_path`` in the
-config is the fallback.  The
+config is the fallback.  Both are read by the factory's facade
+(``models/factory.py``): an Orbax directory stops the CLI with the command that
+converts it.  The
 config names any of the factory's twelve models: ``DFC-SA-Res-Block``,
 ``UNet``, the eight ``UNet_*`` ablations, ``VisionTransformerSegmentation``
 or ``TransformerUNet``.  The transformer families take tiles of their own
@@ -74,18 +76,18 @@ import os
 
 import numpy as np
 import torch
+from torch import nn
 
 from dfc_sa_unet_torch.config import load_config, merge_parallel_flags
 from dfc_sa_unet_torch.data.normalize import normalize
 from dfc_sa_unet_torch.infer.predictor import Predictor, load_image, prefetch
 from dfc_sa_unet_torch.metrics import confusion_counts, metrics_from_counts
-from dfc_sa_unet_torch.models.factory import create_model
+from dfc_sa_unet_torch.models.factory import create_model, load_variables, read_variables
 from dfc_sa_unet_torch.ops import _build
 from dfc_sa_unet_torch.parallel import multihost as mh
 from dfc_sa_unet_torch.parallel.mesh import add_parallel_flags, mesh_from_flags
 from dfc_sa_unet_torch.utils.device import resolve_device
 from dfc_sa_unet_torch.utils.visualization import create_combined_visualization
-from dfc_sa_unet_torch.utils.weights import load_state_dict_file
 
 
 def _norm(p):
@@ -129,7 +131,8 @@ def save_prediction(original, pred_prob, pred_binary, output_dir, filename, gt_m
 def build_predictor(config, weights, bf16=False, engine=False, device=None, exe_cache_dir=None,
                     mesh=None) -> Predictor:
     """Model (or folded engine) + weights -> Predictor on ``device``; ``exe_cache_dir`` and ``mesh`` (row
-    sharding) as the Predictor's."""
+    sharding) as the Predictor's.  ``weights`` is a state dict, or a module of ``config`` that holds
+    them (``models.factory.load_variables``), which the module path serves as it is."""
     dev = resolve_device(device)
     dtype = torch.bfloat16 if bf16 else torch.float32
     if engine:
@@ -140,6 +143,8 @@ def build_predictor(config, weights, bf16=False, engine=False, device=None, exe_
 
         model = DFCEngine(config, weights, dtype=dtype, device=dev, tail_kernel_levels="auto",
                           conv_kernel_levels="auto")
+    elif isinstance(weights, nn.Module):
+        model = weights
     else:
         model = create_model(config, dtype=torch.bfloat16 if bf16 else None, device=dev)
         model.load_state_dict(weights, strict=True)
@@ -238,12 +243,17 @@ def serve(args, config, mesh):
     if not model_path:
         raise SystemExit("no weights: pass --model or set model.pretrained_path in the config")
     model_path = _norm(model_path)
-    if os.path.isdir(model_path):
-        raise SystemExit(f"{model_path}: the port loads torch.save files only (a reference .pth, or the "
-                         f"best_model or a checkpoint of dfc_sa_unet_torch.train), not an Orbax directory: "
-                         f"convert it first, on a machine with JAX, with python scripts/convert_checkpoint.py "
-                         f"--config CFG --ckpt DIR --out W.pth --to_torch")
-    weights = load_state_dict_file(model_path)
+    name = config["model"]["name"]
+    int8 = args.int8 and name in INT8_MODELS
+    engine = args.engine and not args.int8
+    try:
+        if int8 or engine:  # the engines fold or quantize the file's state dict themselves
+            weights = read_variables(model_path)
+        else:  # the module path serves the factory's model, which holds the weights
+            weights = create_model(config, dtype=torch.bfloat16 if args.bf16 else None, device=mesh.device)
+            load_variables(weights, model_path)
+    except IsADirectoryError as e:  # an Orbax directory: the message names the converter
+        raise SystemExit(str(e)) from None
 
     output_dir = _norm(args.output)
     os.makedirs(output_dir, exist_ok=True)
@@ -273,17 +283,15 @@ def serve(args, config, mesh):
 
     if args.exe_cache:  # before anything launches a kernel: int8 calibration does, before the Predictor exists
         _build.set_build_dir(args.exe_cache)
-    name = config["model"]["name"]
-    int8 = args.int8 and name in INT8_MODELS
     if args.int8 and not int8:
         print("(--int8 supports DFC-SA-Res-Block, VisionTransformerSegmentation, and TransformerUNet; "
               "using standard path)")
     if int8:
         predictor = build_int8_predictor(config, weights, global_files, args, device=mesh.device, mesh=mesh)
     else:
-        predictor = build_predictor(config, weights, bf16=args.bf16, engine=args.engine and not args.int8,
+        predictor = build_predictor(config, weights, bf16=args.bf16, engine=engine,
                                     device=mesh.device, exe_cache_dir=args.exe_cache, mesh=mesh)
-    kind = " (int8 engine)" if int8 else " (folded engine)" if args.engine and not args.int8 else ""
+    kind = " (int8 engine)" if int8 else " (folded engine)" if engine else ""
     print(f"Loaded {model_path}; model {name} on {predictor.device} in "
           f"{str(predictor.compute_dtype).split('.')[-1]}{kind}")
     print("Mode: " + ("direct prediction" if args.no_slide_window else "sliding window")

@@ -1,4 +1,7 @@
-"""create_model (counterpart of dfc_sa_unet_tpu/models/factory.py:24).
+"""create_model and the weight-loading facade (counterpart of
+dfc_sa_unet_tpu/models/factory.py: ``create_model``, ``load_variables``,
+``load_pretrained_variables``, ``get_model_and_variables`` and
+``ModelFactory``; ``read_variables`` reads a weights file without a model).
 
 All twelve names of the JAX factory, with its config keys and defaults:
 the flagship ``DFC-SA-Res-Block``, the vanilla ``UNet``, the eight
@@ -8,15 +11,21 @@ ablations (``UNet_Baseline``, ``UNet_AttentionOnly``,
 ``UNet_BothStandardConv``) and the transformer zoo,
 ``VisionTransformerSegmentation`` and ``TransformerUNet`` / ``TransUNet``.
 Any other name raises ValueError.
+
+In JAX a module holds no weights, so the facade returns Flax variables beside
+the model.  A PyTorch module holds its own: here "variables" are the state
+dict already loaded into the model, and returning it keeps JAX's call shapes.
 """
 
 import math
-from typing import Any, Mapping
+import os
+from typing import Any, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
 from dfc_sa_unet_torch.utils.device import resolve_device
+from dfc_sa_unet_torch.utils.weights import load_state_dict_file
 
 
 def _model_cfg(config: Mapping[str, Any]) -> Mapping[str, Any]:
@@ -110,3 +119,72 @@ def create_model(config: Mapping[str, Any], dtype=None, use_pallas: bool = False
     else:
         raise ValueError(f"unsupported model name: {name!r}")
     return model.to(dev, memory_format=torch.channels_last)
+
+
+def read_variables(path) -> Mapping[str, torch.Tensor]:
+    """The state dict in the ``torch.save`` file at ``path``, read without a model (the serving
+    engines fold or quantize it themselves): a reference ``.pth`` (a raw state dict, or a trainer
+    checkpoint holding ``model_state_dict``), or the ``best_model`` or a checkpoint
+    (``checkpoint_epoch_<N>``, ``best_checkpoint``: weights under ``model``) that the port's Trainer
+    wrote.  Backslashes in ``path`` become slashes, as in JAX.  A directory (an Orbax checkpoint of
+    the JAX package) raises IsADirectoryError with the command that converts it."""
+    path = str(path).replace("\\", "/")
+    if os.path.isdir(path):
+        raise IsADirectoryError(
+            f"{path}: the port loads torch.save files only (a reference .pth, or the best_model or a "
+            f"checkpoint of dfc_sa_unet_torch.train), not an Orbax directory: convert it first, on a machine "
+            f"with JAX, with python scripts/convert_checkpoint.py --config CFG --ckpt DIR --out W.pth --to_torch")
+    return load_state_dict_file(path)
+
+
+def load_variables(model: nn.Module, path) -> Mapping[str, torch.Tensor]:
+    """Load the weights of the file at ``path`` (any that ``read_variables`` reads) into ``model``,
+    strictly, and return its state dict.
+
+    Strict loading takes the place of JAX's conversion against a template: a wrong model name or
+    width raises, naming the missing and unexpected keys.  JAX's ``img_size`` and ``in_channels``
+    only shape the Flax template's dummy input; the module here is its own template, so neither is
+    taken."""
+    model.load_state_dict(read_variables(path), strict=True)
+    return model.state_dict()
+
+
+def load_pretrained_variables(model: nn.Module, config: Mapping[str, Any]):
+    """``load_variables(model, config['model']['pretrained_path'])``, or None (the model untouched)
+    when the config sets no path."""
+    path = _model_cfg(config).get("pretrained_path")
+    if not path:
+        return None
+    return load_variables(model, path)
+
+
+def get_model_and_variables(config: Mapping[str, Any], dtype=None, use_pallas: bool = False, remat=False,
+                            device=None) -> Tuple[nn.Module, Optional[Mapping[str, torch.Tensor]]]:
+    """(model on ``device``, its state dict loaded from ``pretrained_path`` or None when the config
+    sets none).  ``device`` defaults to CUDA and raises without it, as ``create_model`` does."""
+    model = create_model(config, dtype=dtype, use_pallas=use_pallas, device=device, remat=remat)
+    return model, load_pretrained_variables(model, config)
+
+
+class ModelFactory:
+    """The JAX package's facade over ``create_model``, in its three call styles:
+    ``ModelFactory(config).create_model()``, ``ModelFactory.get_model(config)`` and
+    ``ModelFactory.get_model_and_variables(config)`` (which also loads
+    ``config['model']['pretrained_path']``).  Each takes ``device`` (default CUDA)."""
+
+    def __init__(self, config: Optional[Mapping[str, Any]] = None):
+        self.config = config
+
+    def create_model(self, config=None, dtype=None, use_pallas=False, remat=False, device=None):
+        cfg = config or self.config
+        if cfg is None:
+            raise ValueError("a config must be provided")
+        return create_model(cfg, dtype=dtype, use_pallas=use_pallas, device=device, remat=remat)
+
+    @staticmethod
+    def get_model(config, dtype=None, use_pallas=False, remat=False, device=None):
+        return create_model(config, dtype=dtype, use_pallas=use_pallas, device=device, remat=remat)
+
+    @staticmethod
+    def get_model_and_variables(config, dtype=None, use_pallas=False, remat=False, device=None):
+        return get_model_and_variables(config, dtype=dtype, use_pallas=use_pallas, remat=remat, device=device)

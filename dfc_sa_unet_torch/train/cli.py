@@ -98,19 +98,19 @@ def build_trainer(config, args, mesh=None):
     process on ``args.device``, raising without CUDA unless it is the CPU); with a group each process
     loads its data index's chunk of every batch (the ranks of a spatial group the same chunk)."""
     from dfc_sa_unet_torch.data.loader import DataLoaderFactory
-    from dfc_sa_unet_torch.models.factory import create_model
+    from dfc_sa_unet_torch.models.factory import get_model_and_variables
     from dfc_sa_unet_torch.train.trainer import Trainer
-    from dfc_sa_unet_torch.utils.weights import load_state_dict_file
 
     mesh = mesh or ProcessMesh(1, 0, 0, resolve_device(args.device))
     device = mesh.device
     dtype = torch.bfloat16 if args.bf16 else None
     torch.manual_seed(args.seed)  # the weights' initialisation follows --seed
-    model = create_model(config, dtype=dtype, device=device, remat=args.remat or False)
-    pretrained = config["model"].get("pretrained_path")
-    if pretrained:
-        print(f"Warm-starting from pretrained weights: {pretrained}")
-        model.load_state_dict(load_state_dict_file(pretrained), strict=True)
+    try:
+        model, pretrained = get_model_and_variables(config, dtype=dtype, device=device, remat=args.remat or False)
+    except IsADirectoryError as e:  # an Orbax directory: the message names the converter
+        raise SystemExit(str(e)) from None
+    if pretrained is not None:
+        print(f"Warm-starting from pretrained weights: {config['model']['pretrained_path']}")
     factory = DataLoaderFactory(config, seed=args.seed)
     if mesh.group is None:
         train_loader, val_loader = factory.get_train_loader(), factory.get_val_loader()

@@ -1,5 +1,11 @@
-"""Step telemetry (counterpart of dfc_sa_unet_tpu/utils/profiling.py::StepTimer)."""
+"""Step telemetry and a profiler context (counterpart of dfc_sa_unet_tpu/utils/profiling.py).
 
+* ``StepTimer`` - mean step duration and throughput, which the Trainer logs per epoch.
+* ``trace`` - ``torch.profiler`` around a block, written as a Chrome trace.
+"""
+
+import contextlib
+import os
 import time
 from typing import Optional
 
@@ -42,3 +48,23 @@ class StepTimer:
 
     def summary(self) -> str:
         return f"{self.ms_per_step:.1f} ms/step, {self.items_per_sec:.1f} img/s"
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]):
+    """``with trace('/tmp/prof'):`` profiles the enclosed block with ``torch.profiler`` (CPU
+    activity, and CUDA activity when a card is present) and writes a Chrome trace into ``log_dir``;
+    a falsy ``log_dir`` profiles nothing.  Where the JAX version prints and goes on when its
+    profiler is unavailable, this one raises."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(log_dir, f"{os.getpid()}.{time.time_ns()}.pt.trace.json")  # TensorBoard's naming
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {path}")

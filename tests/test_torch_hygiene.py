@@ -81,10 +81,14 @@ def test_entry_points_raise_without_cuda(no_cuda):
     from dfc_sa_unet_torch.infer.engine import DFCEngine
     from dfc_sa_unet_torch.infer.predictor import Predictor
     from dfc_sa_unet_torch.inference import build_predictor, parse_args
-    from dfc_sa_unet_torch.models.factory import create_model
+    from dfc_sa_unet_torch.models.factory import ModelFactory, create_model, get_model_and_variables
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         create_model(CFG)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model_and_variables(CFG)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelFactory.get_model(CFG)
     model = create_model(CFG, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DFCEngine(CFG, model)
@@ -171,6 +175,22 @@ def test_zoo_entry_points_raise_without_cuda(no_cuda, tmp_path, name):
               "logging": {"log_dir": log, "images_dir": log + "/images"}}
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.build_trainer(config, cli.parse_args(["--config", "c.yaml"]))
+
+
+def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path, capsys):
+    """``utils.profiling.trace`` profiles the CPU where there is no card; a falsy directory traces nothing."""
+    import json
+
+    from dfc_sa_unet_torch.utils.profiling import trace
+
+    with trace(None):
+        torch.ones(4).sum()
+    with trace(str(tmp_path / "prof")):
+        torch.matmul(torch.ones(64, 64), torch.ones(64, 64))
+    files = list((tmp_path / "prof").glob("*.pt.trace.json"))
+    assert len(files) == 1 and str(files[0]) in capsys.readouterr().out
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any("matmul" in str(e.get("name", "")) for e in events)
 
 
 def test_probe_scripts_raise_without_cuda():

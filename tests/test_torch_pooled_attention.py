@@ -17,10 +17,11 @@ import torch
 
 import jax.numpy as jnp
 
+from dfc_sa_unet_tpu.ops.attention import full_res_self_attention as jax_full_res
 from dfc_sa_unet_tpu.ops.attention import pooled_self_attention as jax_attention
 from dfc_sa_unet_tpu.ops.pallas_attention import fused_pooled_attention
 from dfc_sa_unet_torch.ops import launches, reset_launches
-from dfc_sa_unet_torch.ops.attention import pooled_self_attention
+from dfc_sa_unet_torch.ops.attention import full_res_self_attention, pooled_self_attention
 from dfc_sa_unet_torch.ops.pooled_attention import pooled_attention
 
 torch.set_num_threads(2)
@@ -69,6 +70,17 @@ def test_plain_matches_jax_kernel_at_long_n(grid):
     want = np.asarray(fused_pooled_attention(*(jnp.asarray(t) for t in (q, k, v))))
     assert got.shape == (2, h, w, c)
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("grid", [(8, 8, 2, 16), (12, 10, 4, 32)], ids=["8x8_N64", "12x10_N120"])
+def test_full_res_core_matches_jax_f32(grid):
+    """Ablation 3's core over all H*W tokens, as JAX's (ops/attention.py:41): the pooled core's math."""
+    h, w, cq, c = grid
+    q, k, v = _qkv_grid(h * w + 1, 2, h, w, cq, c)
+    got = full_res_self_attention(*(torch.from_numpy(t) for t in (q, k, v))).numpy()
+    want = np.asarray(jax_full_res(*(jnp.asarray(t) for t in (q, k, v))))
+    assert got.shape == (2, h, w, c)
+    np.testing.assert_allclose(got, want, atol=1e-6)
 
 
 def test_cpu_wrapper_takes_the_largest_n():
