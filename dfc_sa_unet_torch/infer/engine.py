@@ -33,6 +33,12 @@ its neighbours' halo rows: the tail and conv3x3 kernels take them as their
 ``top`` and ``bottom`` rows (None at the image's edge), the cuDNN convs as two
 more rows at padding (0, 1); the attention's pool and upsample are the whole
 image's (``parallel.rows``), the max pools the band's own.
+
+Under a ``torch.profiler`` session each block is two timed spans (``utils/profiling.py``),
+``engine.attn_branch`` (the attention branch) and ``engine.local_tail`` (the tail kernel, or the
+3x3 conv and the tail as torch ops), and what lies between the blocks is ``engine.between`` (each
+max pool, each conv-transpose with its resize and concat, the final conv): nine of each a forward,
+the int8 engine's (``infer/quant.py``) too.
 """
 
 from typing import Any, Mapping
@@ -49,6 +55,7 @@ from dfc_sa_unet_torch.ops.pooling import adaptive_avg_pool, max_pool
 from dfc_sa_unet_torch.ops.resize import resize_bilinear
 from dfc_sa_unet_torch.parallel import rows
 from dfc_sa_unet_torch.utils.device import resolve_device
+from dfc_sa_unet_torch.utils.profiling import span
 
 BLOCKS = ("down1", "down2", "down3", "down4", "bottleneck",
           "up_conv4", "up_conv3", "up_conv2", "up_conv1")
@@ -220,21 +227,22 @@ class DFCEngine:
         the tail runs as torch ops, which materialise the concats the tail kernel keeps on chip."""
         d = self.blocks[name]
         self._tap(ranges, f"{name}.x", x)
-        if ranges is None and name in self.tail_kernel_levels:
+        with span("engine.attn_branch", timed=True):
             a = self._attn_branch(d, x)
-            top, bottom = self._halo(x)
-            out = dfc_tail(nhwc(x), nhwc(a), d["wc"], d["conv"][1], d["wg"], d["kg"][1],
-                           d["wf"], d["kf"][1], d["wr"], top=top, bottom=bottom)
-            return nchw(out)
-        if name in self.conv_kernel_levels:
-            top, bottom = self._halo(x)
-            local = nchw(conv3x3_bn_relu(nhwc(x), d["wc"], d["conv"][1], top=top, bottom=bottom))
-        else:
-            # bias-free 3x3 conv in the compute dtype, then the +bc/ReLU epilogue
-            y3 = rows.conv3x3(x, d["conv"][0]).to(x.dtype)
-            local = torch.relu(y3.float() + d["conv"][1].view(-1, 1, 1)).to(x.dtype)
-        a = self._attn_branch(d, x)
-        return self._tail_lax(d, local, a, x, name, ranges)
+        with span("engine.local_tail", timed=True):
+            if ranges is None and name in self.tail_kernel_levels:
+                top, bottom = self._halo(x)
+                out = dfc_tail(nhwc(x), nhwc(a), d["wc"], d["conv"][1], d["wg"], d["kg"][1],
+                               d["wf"], d["kf"][1], d["wr"], top=top, bottom=bottom)
+                return nchw(out)
+            if name in self.conv_kernel_levels:
+                top, bottom = self._halo(x)
+                local = nchw(conv3x3_bn_relu(nhwc(x), d["wc"], d["conv"][1], top=top, bottom=bottom))
+            else:
+                # bias-free 3x3 conv in the compute dtype, then the +bc/ReLU epilogue
+                y3 = rows.conv3x3(x, d["conv"][0]).to(x.dtype)
+                local = torch.relu(y3.float() + d["conv"][1].view(-1, 1, 1)).to(x.dtype)
+            return self._tail_lax(d, local, a, x, name, ranges)
 
     def _fwd(self, x, ranges=None):
         """The one forward: serving (``ranges`` None) and int8 calibration (``ranges`` a dict that
@@ -245,16 +253,20 @@ class DFCEngine:
         for i in range(1, 5):
             h = self._block(f"down{i}", h, ranges)
             skips.append(h)
-            h = max_pool(h, 2, 2)
+            with span("engine.between", timed=True):
+                h = max_pool(h, 2, 2)
         h = self._block("bottleneck", h, ranges)
         for i in range(4, 0, -1):
             skip = skips[i - 1]
-            h = conv_transpose_2x2(h, *self.ups[f"up{i}"])
-            if h.shape[2:] != skip.shape[2:]:  # never under a band: its height is even at every level
-                assert rows.current() is None, f"the decoder's shape fix under a band of rows: {tuple(h.shape)}"
-                h = resize_bilinear(h, skip.shape[2:])
-            h = self._block(f"up_conv{i}", torch.cat([h, skip], 1), ranges)
-        return _conv(h, *self.final)
+            with span("engine.between", timed=True):
+                h = conv_transpose_2x2(h, *self.ups[f"up{i}"])
+                if h.shape[2:] != skip.shape[2:]:  # never under a band: its height is even at every level
+                    assert rows.current() is None, f"the decoder's shape fix under a band of rows: {tuple(h.shape)}"
+                    h = resize_bilinear(h, skip.shape[2:])
+                h = torch.cat([h, skip], 1)
+            h = self._block(f"up_conv{i}", h, ranges)
+        with span("engine.between", timed=True):
+            return _conv(h, *self.final)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._fwd(x)

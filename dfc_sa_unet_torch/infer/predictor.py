@@ -14,6 +14,11 @@ the host before the copy to the card, runs the forward in the band's context
 (through the host on Gloo): each rank returns one process's result.  A
 height that is not a multiple of 16 S runs whole on every rank, with JAX's
 note once.
+
+Under a ``torch.profiler`` session a request's parts are spans (``utils/profiling.py``):
+``predictor.request`` around ``predictor.stage_in`` (the copy to the card),
+``predictor.forward`` (normalise, model, sigmoid), ``predictor.gather`` (row bands only) and
+``predictor.read_back`` (the copy to the host, which waits for the forward).
 """
 
 import queue
@@ -27,6 +32,7 @@ from dfc_sa_unet_torch.data.normalize import normalize
 from dfc_sa_unet_torch.ops import _build
 from dfc_sa_unet_torch.parallel import rows
 from dfc_sa_unet_torch.utils.device import resolve_device
+from dfc_sa_unet_torch.utils.profiling import span
 
 
 def prefetch(it: Iterable, depth: int = 2) -> Iterator:
@@ -163,16 +169,21 @@ class Predictor:
 
     @torch.inference_mode()
     def _forward_u8(self, images_u8: np.ndarray) -> np.ndarray:
-        band = self._band(images_u8.shape[1])
-        if band is not None:
-            images_u8 = images_u8[:, band.row0:band.row0 + band.rows]
-        x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(self.device, non_blocking=True)
-        x = normalize(x, self.compute_dtype).permute(0, 3, 1, 2)  # NCHW, channels_last
-        with rows.band_context(band):
-            probs = torch.sigmoid(self.model(x).float())[:, 0]
-        if band is not None:
-            probs = self._gather_bands(probs, band)
-        return probs.cpu().numpy()
+        with span("predictor.request"):
+            band = self._band(images_u8.shape[1])
+            if band is not None:
+                images_u8 = images_u8[:, band.row0:band.row0 + band.rows]
+            with span("predictor.stage_in"):
+                x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(self.device, non_blocking=True)
+            with span("predictor.forward"):
+                x = normalize(x, self.compute_dtype).permute(0, 3, 1, 2)  # NCHW, channels_last
+                with rows.band_context(band):
+                    probs = torch.sigmoid(self.model(x).float())[:, 0]
+            if band is not None:
+                with span("predictor.gather"):
+                    probs = self._gather_bands(probs, band)
+            with span("predictor.read_back"):
+                return probs.cpu().numpy()
 
     def predict_probs(self, images_u8: np.ndarray) -> np.ndarray:
         """[B,H,W,3] uint8 -> [B,H,W] probabilities, the batch run as it is.

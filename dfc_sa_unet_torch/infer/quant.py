@@ -44,6 +44,7 @@ from dfc_sa_unet_torch.infer.engine import (AUTO_CONV_LEVELS, AUTO_TAIL_LEVELS, 
 from dfc_sa_unet_torch.models.blocks import nchw, nhwc
 from dfc_sa_unet_torch.ops.conv_s8 import conv3x3_s8, pack_s8_taps, s8_matmul
 from dfc_sa_unet_torch.parallel import rows
+from dfc_sa_unet_torch.utils.profiling import span
 
 _ALL_OPS = frozenset({"conv", "attn0", "gate", "fuse", "res"})
 PROBE_INT8_OPS = {
@@ -287,57 +288,68 @@ class Int8DFCEngine(Calibrated, DFCEngine):
         quantized (None where no op reads it); local the 3x3 conv + BN (folded) + ReLU, on the s8
         kernel with its f32 epilogue or fp; a0 the attention branch's 1x1 conv + BN + ReLU, s8 or fp.
         Given the same x, the s8 ones are the same bits on any device."""
-        d, q, ops, dt = self.blocks[name], self.qblocks[name], self.int8_ops[name], x.dtype
-        x8 = sx = None
-        if ops & {"conv", "attn0", "res"}:
-            sx = self.act_scales[f"{name}.x"]
-            x8 = quantize_act(nhwc(x), sx)
-        if "conv" in ops:
-            w8, s3 = q["conv"]
+        x8 = self._x8(name, x)
+        return x8, self._local(name, x, x8), self._a0(name, x, x8)
+
+    def _x8(self, name, x):
+        if self.int8_ops[name] & {"conv", "attn0", "res"}:
+            return quantize_act(nhwc(x), self.act_scales[f"{name}.x"])
+        return None
+
+    def _local(self, name, x, x8):
+        d, dt = self.blocks[name], x.dtype
+        if "conv" in self.int8_ops[name]:
+            w8, s3 = self.qblocks[name]["conv"]
             # under a band of rows the neighbours' s8 rows: the scale is static and per tensor, so they
             # are the rows the neighbours quantized, in half the bytes of the compute dtype's
             top, bottom = self._halo(nchw(x8))
-            local = nchw(conv3x3_s8(x8, w8, sx * s3, d["conv"][1], out_dtype=dt, top=top, bottom=bottom))
-        else:
-            y3 = rows.conv3x3(x, d["conv"][0]).to(dt)
-            local = torch.relu(y3.float() + d["conv"][1].view(-1, 1, 1)).to(dt)
-        if "attn0" in ops:
-            wa, sa = q["attn0"]
-            a0 = nchw(torch.relu(s8_matmul(x8, wa, sx * sa, d["attn0"][1])).to(dt))
-        else:
-            a0 = torch.relu(_conv(x, *d["attn0"]).float()).to(dt)
-        return x8, local, a0
+            return nchw(conv3x3_s8(x8, w8, self.act_scales[f"{name}.x"] * s3, d["conv"][1], out_dtype=dt,
+                                   top=top, bottom=bottom))
+        y3 = rows.conv3x3(x, d["conv"][0]).to(dt)
+        return torch.relu(y3.float() + d["conv"][1].view(-1, 1, 1)).to(dt)
+
+    def _a0(self, name, x, x8):
+        d, dt = self.blocks[name], x.dtype
+        if "attn0" in self.int8_ops[name]:
+            wa, sa = self.qblocks[name]["attn0"]
+            return nchw(torch.relu(s8_matmul(x8, wa, self.act_scales[f"{name}.x"] * sa, d["attn0"][1])).to(dt))
+        return torch.relu(_conv(x, *d["attn0"]).float()).to(dt)
 
     def _block(self, name, x, ranges=None):
+        """The fp engine's block with the level's int8 ops, under the same two spans: the attention
+        branch's (with x's quantization, which the 3x3 conv and the residual read too) and the
+        local conv's and the tail's."""
         ops = self.int8_ops.get(name)
         if ranges is not None or not ops:  # calibration runs the fp math (and its taps)
             return super()._block(name, x, ranges)
         d, q, dt = self.blocks[name], self.qblocks[name], x.dtype
-        x8, local, a0 = self._x_branches(name, x)
-        a = self._lsa(d["lsa"], a0)
+        with span("engine.attn_branch", timed=True):
+            x8 = self._x8(name, x)
+            a = self._lsa(d["lsa"], self._a0(name, x, x8))
+        with span("engine.local_tail", timed=True):
+            local = self._local(name, x, x8)
+            combined = torch.cat([local, a], 1)
+            if "gate" in ops:
+                sc2 = self.act_scales[f"{name}.c2"]
+                wg, sg = q["kg"]
+                g = nchw(torch.sigmoid(s8_matmul(quantize_act(nhwc(combined), sc2), wg, sc2 * sg, d["kg"][1])))
+            else:
+                g = torch.sigmoid(_conv(combined, *d["kg"]).float())
+            fused = (g * local.float() + (1.0 - g) * a.float()).to(dt)
 
-        combined = torch.cat([local, a], 1)
-        if "gate" in ops:
-            sc2 = self.act_scales[f"{name}.c2"]
-            wg, sg = q["kg"]
-            g = nchw(torch.sigmoid(s8_matmul(quantize_act(nhwc(combined), sc2), wg, sc2 * sg, d["kg"][1])))
-        else:
-            g = torch.sigmoid(_conv(combined, *d["kg"]).float())
-        fused = (g * local.float() + (1.0 - g) * a.float()).to(dt)
+            cat3 = torch.cat([fused, combined], 1)
+            if "fuse" in ops:
+                sc3 = self.act_scales[f"{name}.c3"]
+                wf, sf = q["kf"]
+                o = nchw(torch.relu(s8_matmul(quantize_act(nhwc(cat3), sc3), wf, sc3 * sf, d["kf"][1])))
+            else:
+                o = torch.relu(_conv(cat3, *d["kf"]).float())
 
-        cat3 = torch.cat([fused, combined], 1)
-        if "fuse" in ops:
-            sc3 = self.act_scales[f"{name}.c3"]
-            wf, sf = q["kf"]
-            o = nchw(torch.relu(s8_matmul(quantize_act(nhwc(cat3), sc3), wf, sc3 * sf, d["kf"][1])))
-        else:
-            o = torch.relu(_conv(cat3, *d["kf"]).float())
-
-        if d["kr"] is None:
-            o = o + d["res_scale"] * x.float()
-        elif "res" in ops:
-            wr, sr = q["kr"]
-            o = o + nchw(s8_matmul(x8, wr, self.act_scales[f"{name}.x"] * sr))
-        else:
-            o = o + F.conv2d(x, d["kr"]).float()
-        return o.to(dt)
+            if d["kr"] is None:
+                o = o + d["res_scale"] * x.float()
+            elif "res" in ops:
+                wr, sr = q["kr"]
+                o = o + nchw(s8_matmul(x8, wr, self.act_scales[f"{name}.x"] * sr))
+            else:
+                o = o + F.conv2d(x, d["kr"]).float()
+            return o.to(dt)

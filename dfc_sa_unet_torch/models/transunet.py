@@ -22,6 +22,10 @@ gathered over the spatial group at 1/16, the encoder runs whole on every rank
 of the group, and the decoder cup takes the band's token rows and the band's
 skips.  The image must then be a multiple of 16 S patches high
 (``band_stride``).
+
+Under a ``torch.profiler`` session the forward's three parts are spans (``utils/profiling.py``):
+``transunet.backbone`` (the R50 hybrid and the patch embedding), ``transunet.encoder`` (the 12
+layers and their norm) and ``transunet.decoder`` (the decoder cup and the segmentation head).
 """
 
 from typing import Any, Dict
@@ -37,6 +41,7 @@ from dfc_sa_unet_torch.ops.mha import fused_mha_sep, fused_mha_sep_plain
 from dfc_sa_unet_torch.ops.pooling import max_pool
 from dfc_sa_unet_torch.ops.resize import resize_bilinear
 from dfc_sa_unet_torch.parallel import rows
+from dfc_sa_unet_torch.utils.profiling import span
 
 HEAD_CHANNELS = 512  # conv_more's width
 
@@ -242,8 +247,10 @@ class _Transformer(nn.Module):
         self.encoder = _Encoder(cfg, compute_dtype, remat)
 
     def forward(self, x):
-        y, features = self.embeddings(x)
-        return self.encoder(y), features
+        with span("transunet.backbone"):
+            y, features = self.embeddings(x)
+        with span("transunet.encoder"):
+            return self.encoder(y), features
 
 
 def _conv2d_relu(cin, cout, kernel, padding, compute_dtype):
@@ -308,4 +315,5 @@ class TransUNet(nn.Module):
         if x.shape[1] == 1:
             x = x.repeat(1, 3, 1, 1)
         y, features = self.transformer(x)
-        return self.segmentation_head(self.decoder(y, features))
+        with span("transunet.decoder"):
+            return self.segmentation_head(self.decoder(y, features))

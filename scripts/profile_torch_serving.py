@@ -15,9 +15,14 @@ flagship's module path with the attention kernel and its folded engine
 path with the tail, conv3x3 and attention kernels; the one module path of
 any other model) it times one B-image
 bf16 forward with CUDA events and traces two forwards with torch.profiler:
-device time by kernel, and the device's busy share of the traced wall
-time.  Prints a summary; ``--report`` also writes the profiler's full
-tables to FILE.  Needs a CUDA card.
+device time by kernel, the device's busy share of the traced wall time,
+and device time by the program's spans (``utils/profiling.py::span``: the
+flagship engine's ``engine.*`` parts, TransUNet's ``transunet.*``; a model
+without spans prints none): the kernels' time inside each span's
+device-side range in the trace, the range's length (which counts the
+device's idle inside it too) and, for a timed span, its CUDA events' time.
+Prints a summary; ``--report`` also writes the profiler's full tables to
+FILE, where the spans are the ``dfc.*`` rows.  Needs a CUDA card.
 """
 
 import argparse
@@ -33,6 +38,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from dfc_sa_unet_torch.infer.engine import DFCEngine  # noqa: E402
 from dfc_sa_unet_torch.models.factory import create_model  # noqa: E402
+from dfc_sa_unet_torch.utils import profiling  # noqa: E402
 from dfc_sa_unet_torch.utils.weights import init_random_  # noqa: E402
 
 # the model sections of configs/config_dfc-sa-res-block.yaml, config_vit_seg.yaml and
@@ -58,8 +64,48 @@ def _device_us(evt):
 
 
 def _is_kernel(evt):
-    """A device-side row (a kernel or copy); operator rows repeat their time."""
-    return evt.device_type == torch.autograd.DeviceType.CUDA
+    """A device-side row (a kernel or copy); operator rows repeat their time, and so does the
+    device's annotation of a span."""
+    return evt.device_type == torch.autograd.DeviceType.CUDA and not getattr(evt, "is_user_annotation", False)
+
+
+def _union(intervals):
+    out = []
+    for lo, hi in sorted(intervals):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return out
+
+
+def _by_span(events, records, forwards):
+    """Per span name, in ms a forward: the union of the kernels inside its device-side ranges (the
+    trace's annotations of its ``record_function``), the ranges' length, and its CUDA events' time
+    (None for an untimed span); and its count a forward.  Copies are left out, as from the kernels'
+    busy time."""
+    ranges, kernels = {}, []
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        lo, hi = float(e.time_range.start), float(e.time_range.end)
+        if getattr(e, "is_user_annotation", False):
+            if e.name.startswith(profiling.SPAN_PREFIX):
+                ranges.setdefault(e.name[len(profiling.SPAN_PREFIX):], []).append((lo, hi))
+        elif not e.name.startswith(("Memcpy", "Memset")):
+            kernels.append((lo, hi))
+    kernels = _union(kernels)
+    timed = {}
+    for r in records:
+        if r.device_ms is not None:
+            timed[r.name] = timed.get(r.name, 0.0) + r.device_ms
+    rows = []
+    for name, spans in ranges.items():
+        inside = sum(max(0.0, min(k_hi, hi) - max(k_lo, lo)) for lo, hi in spans for k_lo, k_hi in kernels)
+        length = sum(hi - lo for lo, hi in spans)
+        events_ms = timed[name] / forwards if name in timed else None
+        rows.append((name, inside / 1e3 / forwards, length / 1e3 / forwards, events_ms, len(spans) // forwards))
+    return rows
 
 
 def main():
@@ -100,6 +146,7 @@ def main():
             end.record()
             torch.cuda.synchronize()
             fwd_ms = start.elapsed_time(end) / 3
+            profiling.reset_spans()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for _ in range(2):
@@ -118,6 +165,14 @@ def main():
                 if us <= 0:
                     break
                 print(f"  {us / 2e3:9.3f} ms/forward {100 * us / busy_us:5.1f}%  x{e.count // 2:<5d} {e.key[:160]}")
+            span_rows = _by_span(prof.events(), profiling.spans(), 2)
+            if span_rows:
+                print(f"  by span (kernels inside its device-side ranges; {sum(r[1] for r in span_rows):.3f} "
+                      f"ms/forward in all), range, CUDA events where timed:")
+            for span, kernel_ms, range_ms, events_ms, n in span_rows:
+                ev = "-" if events_ms is None else f"{events_ms:.3f}"
+                print(f"  {kernel_ms:9.3f} ms/forward {100 * kernel_ms / fwd_ms:5.1f}%  range {range_ms:9.3f}"
+                      f"  events {ev:>9s}  x{n:<5d} {profiling.SPAN_PREFIX}{span}")
             tables.append(f"== {args.model} {name} path ({card}, B={args.batch} bf16)\n"
                           + averages.table(sort_by="self_device_time_total", row_limit=100) + "\n")
     if args.report:
