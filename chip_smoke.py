@@ -26,16 +26,20 @@ any failure exits non-zero:
    at Cin 3 to 520, Cout 8 to 520, ragged pixel counts and one pixel, after a
    launch on NaN inputs; the three matrix-unit probes in bf16, their only
    type, the matmul on the TMA-fed wgmma GEMM up to the probe's full M, the
-   two conv probes on the wgmma mainloop), and the backward of the three
-   attention wrappers against autograd through their plain versions;
+   two conv probes on the wgmma mainloop; the pooled attention's epilogue,
+   lsa_epilogue, within one ulp of its plain version, in practice bit for
+   bit, at every flagship level, an odd size, a map larger than its level,
+   C that no 16-byte vector divides and a band's rows), and the backward of
+   the three attention wrappers against autograd through their plain
+   versions;
 4. serve the flagship DFC-SA-Res-Block at full width (224x224, features
    64/128/256/512, pool 8, seeded weights, BatchNorm statistics fitted to
    a slice of the batch so that the logits spread O(1)):
    one B=128 uint8 batch through the Predictor on the module path
    (attention kernel) and through the folded DFCEngine (tail kernel on the
-   7 "auto" levels, 3x3 conv kernel on the other two, attention kernel on
-   all 9); the probabilities must agree, and the launch counts show that
-   the kernels ran;
+   7 "auto" levels, 3x3 conv kernel on the other two, attention kernel and
+   its epilogue kernel on all 9); the probabilities must agree, and the
+   launch counts show that the kernels ran;
 5. three synthetic 512x512 requests through predict_sliding_stream(tta);
 6. serve the transformer zoo at full width and depth (224x224, ViT-B:
    E=768, 12 heads, 12 layers, MLP 3072; TransUNet: R50 units (3,4,9), the
@@ -52,8 +56,10 @@ any failure exits non-zero:
    ``bound_by`` says "bytes" or "operations", ``bound_term`` which of the
    three); the tail, the conv and conv3x3_bias_stats are held to their
    plain versions at each level's B=128 inputs (after a launch on NaN
-   inputs) before they are timed, and the kernels line keeps the three
-   level by level (``levels``); the flagship's nine attention launches
+   inputs) before they are timed, and so is the attention's epilogue (to
+   one ulp) beside F.interpolate and the torch island it replaces; the
+   kernels line keeps the four level by level (``levels``); the flagship's
+   nine attention launches
    again at B=1024 beside SDPA and their bound (``flagship_large_batch``:
    at B=128 the launches read the host);
 8. train at full width through the port's Trainer (train_epoch and
@@ -159,7 +165,7 @@ any failure exits non-zero:
    (this script with --rows_worker; each the Predictor over a 2-band
    serving_mesh, a band of half the rows each, the probabilities gathered):
    against one process at phase 5's bf16 limits and in f32 within 1e-5 of
-   max |logit|, 9 attention, 7 tail and 2 conv3x3 launches a forward on each
+   max |logit|, 9 attention, 9 epilogue, 7 tail and 2 conv3x3 launches a forward on each
    rank, each rank's peak memory and wall time beside one process's; (c) the
    flagship's f32 training at 224x224, B=4, 2 steps, on a Gloo pair of
    bands against one process (phase 14(b)'s limits), then with grad_accum 2
@@ -287,6 +293,13 @@ BLOCK_SHAPES = [("down1", 224, 3, 64), ("down2", 112, 64, 128), ("down3", 56, 12
                 ("down4", 28, 256, 512), ("bottleneck", 14, 512, 1024),
                 ("up_conv4", 28, 1024, 512), ("up_conv3", 56, 512, 256),
                 ("up_conv2", 112, 256, 128), ("up_conv1", 224, 128, 64)]
+# phase 3's lsa_epilogue checks (B, H, W, C, p, band): the flagship's five level shapes at B=4 (the decoder's
+# repeat them), a level already p x p, an odd size and C 24, a map larger than its level, C 3 and 12 (no 16-byte
+# vector of bf16 divides them: the one-element instantiation), and a band of rows (height, row0)
+LSA_SHAPES = [(4, 224, 224, 64, 8, None), (4, 112, 112, 128, 8, None), (4, 56, 56, 256, 8, None),
+              (4, 28, 28, 512, 8, None), (4, 14, 14, 1024, 8, None), (3, 8, 8, 64, 8, None), (3, 13, 17, 24, 8, None),
+              (2, 5, 6, 16, 8, None), (2, 21, 33, 3, 8, None), (2, 9, 7, 12, 4, None), (4, 14, 56, 256, 8, (56, 28)),
+              (4, 7, 28, 512, 8, (28, 21))]
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "s8": 1979e12}  # dense tensor cores (bf16, s8); f32 without them
 SMS, EXP_PER_CLOCK = 132, 16   # H100 SXM: SMs, and exponentials an SM's special-function units give a clock
@@ -405,7 +418,8 @@ ROWS17_MODELS = {
 # the int8 engines: label -> (the weights' model, image side, launches of one forward); the flagship on phase
 # 16(b)'s one large image, its fp levels on the tail and conv kernels
 ROWS17_INT8 = {
-    "int8 flagship": ("flagship", 2048, {"pooled_attention": 9, "dfc_tail": 4, "conv3x3_bn_relu": 1, "conv3x3_s8": 4}),
+    "int8 flagship": ("flagship", 2048, {"pooled_attention": 9, "lsa_epilogue": 9, "dfc_tail": 4, "conv3x3_bn_relu": 1,
+                                         "conv3x3_s8": 4}),
     "int8 ViT-B/16": ("ViT-B/16", IMG, {"fused_mha": 12}),
     "int8 R50-ViT-B/16": ("R50-ViT-B/16", IMG, {"fused_mha": 12}),
 }
@@ -690,9 +704,10 @@ def multi_device(seed, card, dev, fits, batch, items, run_epochs):
               "--overlap", "0", "--engine", "--bf16", "--batch_size", str(SERVE_BATCH), "--device", "cuda:0"]
 
     def served(got, n_images):
-        """The launches of serving ``n_images`` in batches of SERVE_BATCH: 9/7/2 a batch."""
+        """The launches of serving ``n_images`` in batches of SERVE_BATCH: 9/9/7/2 a batch."""
         n = -(-n_images // SERVE_BATCH)
-        return got == {**{k: 0 for k in got}, "pooled_attention": 9 * n, "dfc_tail": 7 * n, "conv3x3_bn_relu": 2 * n}
+        return got == {**{k: 0 for k in got}, "pooled_attention": 9 * n, "lsa_epilogue": 9 * n, "dfc_tail": 7 * n,
+                       "conv3x3_bn_relu": 2 * n}
 
     reset_launches()
     t0 = time.perf_counter()
@@ -739,7 +754,7 @@ def multi_device(seed, card, dev, fits, batch, items, run_epochs):
         with open(os.path.join(counts_dir, f"launches.rank{r}.json")) as f:
             got = json.load(f)
         if not served(got, SERVE_IMAGES // 2):
-            fail(f"phase 14(c): serving process {r} launched {got}, expected 9/7/2 a batch of {SERVE_BATCH}")
+            fail(f"phase 14(c): serving process {r} launched {got}, expected 9/9/7/2 a batch of {SERVE_BATCH}")
         count(f"(c) rank {r}", got)
     print(f"    multi-device launches, run by run: {run_counts}; the path's {path}", flush=True)
     tmp.cleanup()
@@ -901,10 +916,10 @@ def accumulation_and_cache(seed, card, dev, fits, fits_ms, run_epochs):
     got = pred.predict_probs(request)
     count("(e) predict_probs", launches())
     forwards = POLICY_FORWARDS
-    if run_counts["(e) predict_probs"] != {"pooled_attention": 9 * forwards, "dfc_tail": 7 * forwards,
-                                           "conv3x3_bn_relu": 2 * forwards}:
+    if run_counts["(e) predict_probs"] != {"pooled_attention": 9 * forwards, "lsa_epilogue": 9 * forwards,
+                                           "dfc_tail": 7 * forwards, "conv3x3_bn_relu": 2 * forwards}:
         fail(f"phase 15(e): predict_probs of {POLICY_IMAGES} images launched {run_counts['(e) predict_probs']}, "
-             f"expected {forwards} forward(s) of 9/7/2")
+             f"expected {forwards} forward(s) of 9/9/7/2")
     want = np.concatenate([pred._forward_u8(request[:128]), pred._forward_u8(request[128:])])
     logit_want = logit_of(want)
     std = float(logit_want.std())
@@ -1143,7 +1158,8 @@ def row_sharding(seed, card, dev, gen, max_err, run_epochs):
     run_children([[*child, "--rows_worker", str(r), "--rows_world", "2", "--rows_coordinator", coordinator,
                    "--rows_side", str(side)] for r in range(2)], "phase 16(b), the Gloo pair")
     pair = [torch.load(os.path.join(tmp.name, f"rank{r}of2.pt"), weights_only=False) for r in range(2)]
-    per_forward = {**{k: 0 for k in path}, "pooled_attention": 9, "dfc_tail": 7, "conv3x3_bn_relu": 2}
+    per_forward = {**{k: 0 for k in path}, "pooled_attention": 9, "lsa_epilogue": 9, "dfc_tail": 7,
+                   "conv3x3_bn_relu": 2}
     want_logit = logit_of(one["probs"])
     std = float(want_logit.std())
     bad = []
@@ -1166,7 +1182,7 @@ def row_sharding(seed, card, dev, gen, max_err, run_epochs):
             bad.append(f"rank {r} disagrees with one process")
         if got["bf16_launches"] != per_forward or got["f32_launches"] != per_forward:
             bad.append(f"rank {r} launched {got['bf16_launches']} (bf16), {got['f32_launches']} (f32), expected "
-                       f"9/7/2 a forward")
+                       f"9/9/7/2 a forward")
     if bad:
         fail("phase 16(b): " + "; ".join(bad))
     tmp.cleanup()
@@ -1512,6 +1528,19 @@ def row_sharding_families(seed, card, dev, gen, max_err):
     return path, fewer
 
 
+def ulps(got, want) -> int:
+    """The largest distance of ``got`` from ``want`` (bf16 or f32) in units in the last place: the floats
+    as integers in the order of their values (sign and magnitude to two's complement)."""
+    import torch
+
+    def ordered(t):
+        bits = t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32).to(torch.int64)
+        mag = bits & (0x7FFF if t.dtype == torch.bfloat16 else 0x7FFFFFFF)
+        return torch.where(bits < 0, -mag, mag)
+
+    return int((ordered(got) - ordered(want)).abs().max().item())
+
+
 def model_config(name):
     """The YAML model section of one of the DFC zoo's nine names."""
     return {"model": {"name": name, "bilinear": False} if name == "UNet" else {"name": name, **DFC_WIDTHS}}
@@ -1584,6 +1613,7 @@ def main():
     from dfc_sa_unet_torch.ops import conv_bn_stats as stats_ops
     from dfc_sa_unet_torch.ops import conv_s8 as s8_ops
     from dfc_sa_unet_torch.ops import dfc_tail as tail_ops, mha as mha_ops, pooled_attention as attn_ops
+    from dfc_sa_unet_torch.ops import lsa_epilogue as lsa_ops
     from dfc_sa_unet_torch.ops import mxu_probes as probe_ops
     from dfc_sa_unet_torch.data.normalize import normalize
     from dfc_sa_unet_torch.data.synthetic import samples
@@ -1669,7 +1699,7 @@ def main():
 
     max_err = {"pooled_attention": 0.0, "dfc_tail": 0.0, "conv3x3_bn_relu": 0.0, "fused_mha": 0.0,
                "fused_mha_sep": 0.0, "conv3x3_bias_stats": 0.0, "probe_matmul": 0.0, "probe_conv_cat": 0.0,
-               "probe_conv_9dot": 0.0, "conv3x3_s8": 0.0}
+               "probe_conv_9dot": 0.0, "conv3x3_s8": 0.0, "lsa_epilogue": 0.0}
     bad = []
 
     def check(name, kernel, plain, args, label, poison=()):
@@ -1713,6 +1743,28 @@ def main():
               f"tol {tol:.0e} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             bad.append(f"conv3x3_bias_stats {label}")
+
+    def lsa_inputs(b, h, w, c, p, dtype):
+        """a (post-ReLU, the attention branch's input), o (the attention's output) and gamma."""
+        return (torch.relu(randn(b, h, w, c)).to(dtype), randn(b, p, p, c, dtype=dtype),
+                torch.tensor([0.37], device=dev))
+
+    def check_lsa(args, label, band=None):
+        """The epilogue kernel against its plain version, within one ulp of the dtype (the kernel spells
+        out the roundings and FMAs of torch's upsample kernels, so in practice the same bits)."""
+        height, row0 = band or (None, 0)
+        got = lsa_ops.lsa_epilogue(*args, height, row0)
+        torch.cuda.synchronize()
+        want = lsa_ops.lsa_epilogue_plain(*args, height, row0)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        n_ulps, same = ulps(got, want), (got == want).float().mean().item()
+        max_err["lsa_epilogue"] = max(max_err["lsa_epilogue"], err)
+        ok = n_ulps <= 1 and got.shape == want.shape and got.dtype == want.dtype
+        print(f"    {'lsa_epilogue':16s} {label:38s} max_abs_err {err:.3e}, {n_ulps} ulp, {same:.6%} of the elements "
+              f"the same bits; tol 1 ulp {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(f"lsa_epilogue {label}")
 
     def check_backward(name, kernel, plain, args, extra, label):
         """Gradients through the wrapper (forward: the kernel; backward: its autograd Function)
@@ -1759,6 +1811,9 @@ def main():
                 check("pooled_attention", attn_ops.pooled_attention, attn_ops.pooled_attention_plain,
                       grid_attn_inputs(b, h, w, cq, c, dtype), f"{dn} B={b} N={h * w} ({h}x{w}) Cq={cq} C={c}",
                       poison=(0, 1, 2))
+        for b, h, w, c, p, band in LSA_SHAPES:
+            check_lsa(lsa_inputs(b, h, w, c, p, dtype), f"{dn} B={b} {h}x{w} C={c} p={p}"
+                      + (f" band {band[1]}+{h} of {band[0]}" if band else ""), band)
         for name, h, cin, c in BLOCK_SHAPES:
             label = f"{dn} {name} B=4 {h}x{h} {cin}->{c}"
             if name in AUTO_TAIL_LEVELS:
@@ -1843,7 +1898,7 @@ def main():
 
     none = {name: 0 for name in max_err}
     per_forward = {"module": {**none, "pooled_attention": 9},
-                   "engine": {**none, "pooled_attention": 9, "dfc_tail": 7, "conv3x3_bn_relu": 2}}
+                   "engine": {**none, "pooled_attention": 9, "lsa_epilogue": 9, "dfc_tail": 7, "conv3x3_bn_relu": 2}}
     reset_launches()  # the flagship's main path starts here (phases 4 and 5)
     probs = {}
     for kind in ("module", "engine"):
@@ -1894,7 +1949,7 @@ def main():
         fail("bf16 engine and module disagree on a request")
     main_launches = launches()  # the flagship's main path ends here
     print(f"    flagship main-path launches: {main_launches}", flush=True)
-    if min(main_launches[k] for k in ("pooled_attention", "dfc_tail", "conv3x3_bn_relu")) < 1:
+    if min(main_launches[k] for k in ("pooled_attention", "lsa_epilogue", "dfc_tail", "conv3x3_bn_relu")) < 1:
         fail(f"a kernel of the flagship's main path never launched: {main_launches}")
 
     # ------------------------------------------------------------ phase 6
@@ -1980,6 +2035,7 @@ def main():
         print(f"    {name:16s} {level:18s} kernel {ms:8.3f} ms  plain {plain_ms:8.3f} ms  "
               f"library {lib_ms:8.3f} ms  bound {bound:7.3f} ms", flush=True)
 
+    lsa_levels = []  # the attention epilogue's nine launches, level by level, kept in the kernels line
     tail_levels = []  # the tail's seven launches, level by level, kept in the kernels line
     conv_levels = []  # the same for the conv's two
     stats_levels = []  # and for the probe's four
@@ -2028,6 +2084,31 @@ def main():
                 add("conv3x3_bn_relu", name, *ms, *conv_bench.work(BATCH, h, cin, c))
                 conv_levels.append({"level": name, "ms": ms[0], "plain_ms": ms[1], "library_ms": ms[2],
                                     "bound_ms": conv_bench.bound_ms(BATCH, h, cin, c)[0]})
+
+        # the attention's epilogue at the engine's nine levels, pool 8: held to its plain version (to one ulp)
+        # at B=128 before it is timed, beside F.interpolate and the torch island the engine ran before it
+        for name, h, _, c in BLOCK_SHAPES:
+            args = lsa_inputs(BATCH, h, h, c, 8, bf)
+            check_lsa(args, f"bfloat16 {name} B={BATCH} {h}x{h} C={c}")
+            a, o, gamma = args
+            an, on = a.permute(0, 3, 1, 2), o.permute(0, 3, 1, 2)
+
+            def island():
+                up = F.interpolate(on, size=(h, h), mode="bilinear", align_corners=False)
+                return (gamma * up.float() + an.float()).to(an.dtype)
+
+            ms = (timed(lambda: lsa_ops.lsa_epilogue(*args), 10), timed(lambda: lsa_ops.lsa_epilogue_plain(*args), 3),
+                  timed(island, 3))
+            n = a.numel()
+            nbytes, nops = 2 * n + 2 * n + 2 * o.numel() + 4, 10 * n
+            add("lsa_epilogue", name, *ms, nbytes, nops)
+            lsa_levels.append({"level": name, "ms": ms[0], "plain_ms": ms[1], "library_ms": ms[2],
+                               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+            del args, a, o, an, on
+        print(f"    lsa_epilogue, the flagship's 9 launches: kernel {rows['lsa_epilogue']['ms']:.4f} ms  plain "
+              f"{rows['lsa_epilogue']['plain_ms']:.4f} ms  F.interpolate + the torch island "
+              f"{rows['lsa_epilogue']['library_ms']:.4f} ms  bound {rows['lsa_epilogue']['bound_ms']:.4f} ms ({card})",
+              flush=True)
 
         # one forward of either transformer launches its kernel LAYERS times at this shape
         head_dim = EMBED // HEADS
@@ -2497,7 +2578,7 @@ def main():
     self_check("int8 flagship", q_flag)
     pred_q = Predictor(q_flag, compute_dtype=bf, device=dev)
     probs_q = serve("int8 flagship bf16", pred_q,
-                    {"pooled_attention": 9, "dfc_tail": 4, "conv3x3_bn_relu": 1, "conv3x3_s8": 4})
+                    {"pooled_attention": 9, "lsa_epilogue": 9, "dfc_tail": 4, "conv3x3_bn_relu": 1, "conv3x3_s8": 4})
     with torch.inference_mode():
         q32 = Int8DFCEngine(CONFIG, weights, dtype=torch.float32, device=dev, act_scales=q_flag.act_scales,
                             tail_kernel_levels="auto", conv_kernel_levels="auto")
@@ -2587,7 +2668,7 @@ def main():
         time_paths(f"{label}: int8 engine vs bf16 module", pred_q, pred_fp)
         del pred_q, fp_mod, pred_fp, zoo_weights, zoo_probs, probs_fp
     print(f"    int8 main-path launches: {int8_launches}", flush=True)
-    if min(int8_launches[k] for k in ("conv3x3_s8", "pooled_attention", "dfc_tail", "conv3x3_bn_relu",
+    if min(int8_launches[k] for k in ("conv3x3_s8", "pooled_attention", "lsa_epilogue", "dfc_tail", "conv3x3_bn_relu",
                                       "fused_mha")) < 1:
         fail(f"a kernel of the int8 paths never launched: {int8_launches}")
     main_launches = {k: main_launches[k] + int8_launches[k] for k in main_launches}
@@ -2648,9 +2729,11 @@ def main():
                "probe_conv_cat": ("dfc_sa_unet_torch/csrc/mxu_probes.cu", "scripts/bench_mxu.py:129"),
                "probe_conv_9dot": ("dfc_sa_unet_torch/csrc/mxu_probes.cu", "scripts/bench_mxu.py:134"),
                # no Pallas kernel: the JAX int8 engine's s8 3x3 conv is an XLA convolution
-               "conv3x3_s8": ("dfc_sa_unet_torch/csrc/conv3x3_s8.cu", "dfc_sa_unet_tpu/infer/quant.py:240")}
+               "conv3x3_s8": ("dfc_sa_unet_torch/csrc/conv3x3_s8.cu", "dfc_sa_unet_tpu/infer/quant.py:240"),
+               # no Pallas kernel: XLA fuses the upsample, gamma and the residual add of the JAX engine's attention
+               "lsa_epilogue": ("dfc_sa_unet_torch/csrc/lsa_epilogue.cu", "dfc_sa_unet_tpu/infer/engine.py:161")}
     levels = {"dfc_tail": tail_levels, "conv3x3_bn_relu": conv_levels, "conv3x3_bias_stats": stats_levels,
-              "conv3x3_s8": s8_levels}
+              "conv3x3_s8": s8_levels, "lsa_epilogue": lsa_levels}
     kernels = []
     for name, r in rows.items():
         terms = {"bytes": r["bytes"] / HBM_BYTES_PER_S, "operations": r["ops"] / r["peak"],

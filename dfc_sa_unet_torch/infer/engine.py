@@ -6,7 +6,9 @@ Numerically the module's eval forward, built for serving:
   per-channel affine: W' = W*a, b' = (b - mean)*a + beta);
 * activations stay in the compute dtype end to end;
 * the attention core always goes through ``ops/pooled_attention`` (the
-  CUDA kernel on the card);
+  CUDA kernel on the card), and its epilogue (the upsample to the block's
+  size, gamma and the residual add) through ``ops/lsa_epilogue`` (one CUDA
+  pass on the card, where torch ran six);
 * ``tail_kernel_levels`` picks the blocks whose whole tail (3x3 conv,
   gate, fusion, residual) runs as one CUDA kernel (``ops/dfc_tail``), as
   ``pallas_conv_levels`` did; ``"auto"`` is the same 7 levels;
@@ -31,8 +33,9 @@ returns NCHW logits in the compute dtype.
 Under a band of rows (row sharding, parallel/rows.py) every 3x3 conv reads
 its neighbours' halo rows: the tail and conv3x3 kernels take them as their
 ``top`` and ``bottom`` rows (None at the image's edge), the cuDNN convs as two
-more rows at padding (0, 1); the attention's pool and upsample are the whole
-image's (``parallel.rows``), the max pools the band's own.
+more rows at padding (0, 1); the attention's pool is the whole image's
+(``parallel.rows``), its epilogue takes the band's rows of the whole image's
+upsample, the max pools are the band's own.
 
 Under a ``torch.profiler`` session each block is two timed spans (``utils/profiling.py``),
 ``engine.attn_branch`` (the attention branch) and ``engine.local_tail`` (the tail kernel, or the
@@ -47,9 +50,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dfc_sa_unet_torch.models.blocks import nchw, nhwc, upsample_pooled
+from dfc_sa_unet_torch.models.blocks import nchw, nhwc
 from dfc_sa_unet_torch.ops.convt import conv_transpose_2x2
 from dfc_sa_unet_torch.ops.dfc_tail import conv3x3_bn_relu, dfc_tail
+from dfc_sa_unet_torch.ops.lsa_epilogue import lsa_epilogue
 from dfc_sa_unet_torch.ops.pooled_attention import pooled_attention
 from dfc_sa_unet_torch.ops.pooling import adaptive_avg_pool, max_pool
 from dfc_sa_unet_torch.ops.resize import resize_bilinear
@@ -176,12 +180,14 @@ class DFCEngine:
     # ------------------------------------------------------------- forward
 
     def _lsa(self, d, a):
-        h, w = a.shape[2:]
+        """The pooled attention of a (NCHW, channels_last) and its epilogue in one kernel: the
+        upsample to a's rows, gamma and the residual add (``ops/lsa_epilogue``)."""
         p = self.pool_size
         pooled = adaptive_avg_pool(a, (p, p))
         q, k, v = (nhwc(_conv(pooled, *d[key])) for key in ("query", "key", "value"))
-        o = upsample_pooled(nchw(pooled_attention(q, k, v)), (h, w))
-        return (d["gamma"] * o.float() + a.float()).to(a.dtype)
+        band = rows.current()
+        height, row0 = (a.shape[2], 0) if band is None else band.level(a.shape[2])
+        return nchw(lsa_epilogue(nhwc(a), pooled_attention(q, k, v), d["gamma"], height, row0))
 
     @staticmethod
     def _halo(x):

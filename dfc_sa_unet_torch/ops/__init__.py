@@ -2,7 +2,7 @@
 
 Plain ops take NCHW tensors (the model's layout, stored channels_last);
 the kernel wrappers (``pooled_attention``, ``dfc_tail``, ``conv_bn_stats``, the convs of
-``mxu_probes``, ``conv_s8``) take NHWC, the
+``mxu_probes``, ``conv_s8``, ``lsa_epilogue``) take NHWC, the
 JAX layout, which is a contiguous ``permute(0, 2, 3, 1)`` view of a
 channels_last tensor; ``mha`` takes token tensors ``[B,N,E]``.
 """
@@ -12,6 +12,7 @@ from dfc_sa_unet_torch.ops.conv_bn_stats import LAUNCHES as _STATS_LAUNCHES
 from dfc_sa_unet_torch.ops.conv_s8 import LAUNCHES as _S8_LAUNCHES
 from dfc_sa_unet_torch.ops.convt import conv_transpose_2x2
 from dfc_sa_unet_torch.ops.dfc_tail import LAUNCHES as _TAIL_LAUNCHES
+from dfc_sa_unet_torch.ops.lsa_epilogue import LAUNCHES as _LSA_LAUNCHES
 from dfc_sa_unet_torch.ops.mha import LAUNCHES as _MHA_LAUNCHES
 from dfc_sa_unet_torch.ops.mxu_probes import LAUNCHES as _PROBE_LAUNCHES
 from dfc_sa_unet_torch.ops.pooled_attention import FEWER_QUERIES as _ATTN_FEWER_QUERIES
@@ -22,7 +23,8 @@ from dfc_sa_unet_torch.ops.resize import resize_bilinear
 __all__ = ["adaptive_avg_pool", "conv_transpose_2x2", "full_res_self_attention", "launches", "max_pool",
            "pooled_self_attention", "reset_launches", "resize_bilinear"]
 
-_COUNTS = (_ATTN_LAUNCHES, _TAIL_LAUNCHES, _MHA_LAUNCHES, _STATS_LAUNCHES, _PROBE_LAUNCHES, _S8_LAUNCHES)
+_COUNTS = (_ATTN_LAUNCHES, _TAIL_LAUNCHES, _MHA_LAUNCHES, _STATS_LAUNCHES, _PROBE_LAUNCHES, _S8_LAUNCHES,
+           _LSA_LAUNCHES)
 
 
 def reset_launches():

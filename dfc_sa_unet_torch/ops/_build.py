@@ -55,6 +55,8 @@ SIGNATURES = {
     "conv3x3_s8_f32": ("conv3x3_s8", [_P] * 5 + [_I] * 6 + [_P]),
     "conv3x3_s8_halo_bf16": ("conv3x3_s8", [_P] * 7 + [_I] * 6 + [_P]),
     "conv3x3_s8_halo_f32": ("conv3x3_s8", [_P] * 7 + [_I] * 6 + [_P]),
+    "lsa_epilogue_f32": ("lsa_epilogue", [_P] * 4 + [_I] * 8 + [_P]),
+    "lsa_epilogue_bf16": ("lsa_epilogue", [_P] * 4 + [_I] * 8 + [_P]),
 }
 
 _functions = None
