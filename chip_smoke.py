@@ -61,7 +61,12 @@ any failure exits non-zero:
    kernels line keeps the four level by level (``levels``); the flagship's
    nine attention launches
    again at B=1024 beside SDPA and their bound (``flagship_large_batch``:
-   at B=128 the launches read the host);
+   at B=128 the launches read the host); the attention at SegFormer-B5's
+   four launch shapes of a 1024x1024 tile at B=16 (every pixel's query
+   against 1024 keys, heads of 64, k and v the halves of one projection),
+   each held to its plain version on two images first, beside SDPA on the
+   same heads and with its bound, and the 52 launches of a request summed
+   (``segformer``);
 8. train at full width through the port's Trainer (train_epoch and
    validate_epoch) on synthetic ellipses made in memory, bce_dice 0.5/0.5
    and SGD as configs/config_dfc-sa-res-block.yaml: the flagship for 16
@@ -255,7 +260,8 @@ ATTN_BIG_BATCH = 1024          # phase 7: the flagship's nine attention launches
 # C 96, 200 and 100 (padded to 104).  Then every instantiation of the persistent kernel at a batch that
 # gives each of the 132 blocks three tiles or more, so that q slots and ring stages are reused across
 # tiles: the full-resolution model's two large levels at the main path's B, the flagship's five N = 64
-# levels at ATTN_BIG_BATCH, and C' 32, 64, 128 and 256 over more than 64 keys
+# levels at ATTN_BIG_BATCH, C' 32, 64, 128 and 256 over more than 64 keys, and the two warpgroups at
+# 64 channels of v (C <= 64, 16 < C' <= 64: SegFormer's heads) at C' 32 and, ragged, 64 with C 48
 ATTN_WGMMA_SHAPES = ([(8, 64, 64, 8, 64), (8, 32, 32, 16, 128), (8, 16, 16, 32, 256), (8, 8, 8, 64, 512),
                       (8, 4, 4, 128, 1024), (BATCH, 4, 4, 128, 1024), (3, 8, 8, 16, 128), (3, 10, 10, 8, 64),
                       (4, 17, 17, 8, 64), (2, 32, 32, 128, 1024), (2, 16, 16, 256, 64), (2, 16, 16, 256, 256),
@@ -264,7 +270,7 @@ ATTN_WGMMA_SHAPES = ([(8, 64, 64, 8, 64), (8, 32, 32, 16, 128), (8, 16, 16, 32, 
                      + [(BATCH, 64, 64, 8, 64), (BATCH, 32, 32, 16, 128)]
                      + [(ATTN_BIG_BATCH, 8, 8, c // 8, c) for c in (64, 128, 256, 512, 1024)]
                      + [(BATCH, 16, 16, 32, 256), (BATCH, 32, 32, 64, 512), (16, 32, 32, 128, 1024),
-                        (BATCH, 16, 16, 256, 256)])
+                        (BATCH, 16, 16, 256, 256), (BATCH, 24, 24, 32, 64), (4, 33, 31, 64, 48)])
 # phase 3's extra tail checks (B, H, W, Cin, C): odd H and W and ragged pixel counts at C = 512 and
 # C <= 256, the channel counts below the flagship's (C = 32 is padded to 64 columns), and down1's
 # Cin = 3 (zero-padded to 8 by the wrapper)
@@ -303,7 +309,7 @@ LSA_SHAPES = [(4, 224, 224, 64, 8, None), (4, 112, 112, 128, 8, None), (4, 56, 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "s8": 1979e12}  # dense tensor cores (bf16, s8); f32 without them
 SMS, EXP_PER_CLOCK = 132, 16   # H100 SXM: SMs, and exponentials an SM's special-function units give a clock
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # max |kernel - plain| <= TOL * max(1, max|plain|)
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # max |kernel - plain| <= TOL * max(1, max|plain|) (SegFormer's shapes: TOL * max|plain|)
 # module path vs engine path in f32: |dprob| <= 1e-3 and |dlogit| <= 1e-2 * std(logit); the
 # engine folds BatchNorm into the weights, which reorders the f32 sums of every conv
 PROB_TOL_F32 = 1e-3
@@ -336,6 +342,9 @@ DFC_ZOO_CPU_IMAGES = 2
 # the plain version, B*N*N f32 energies a tensor at N = 4096
 DFC_ZOO_TRAINING = [("UNet_AttentionOnly", IMG, 64), ("UNet_FullResAttention", 64, 8), ("UNet", IMG, 64)]
 # the full-resolution model at 64x64: (block, H, C) with N = H*H tokens a launch
+# SegFormer-B5 (models/segformer.py) at a 1024x1024 tile: (width, heads, reduction ratio, blocks) a stage
+SEGFORMER_STAGES = [(64, 1, 8, 3), (128, 2, 4, 6), (320, 5, 2, 40), (512, 8, 1, 3)]
+SEGFORMER_BATCH = 16  # the tiles of a request of the cell segformer_serve_b16_1024
 FULLRES_SHAPES = [("down1", 64, 64), ("down2", 32, 128), ("down3", 16, 256), ("down4", 8, 512),
                   ("bottleneck", 4, 1024), ("up_conv4", 8, 512), ("up_conv3", 16, 256), ("up_conv2", 32, 128),
                   ("up_conv1", 64, 64)]
@@ -1289,7 +1298,7 @@ def rows17_worker(args, device="cuda:0"):
     two bands; 1: one process, whose group makes the Trainer take the data-parallel path, so that its
     dropout seed is the pair's).  For each model of ROWS17_MODELS (the weights in ``--rows_out``): a bf16
     request of ROWS17_IMAGES images through the Predictor (a warm-up, then the timed one: its launches,
-    its pooled-attention launches with fewer queries than keys, its peak memory and wall time) and the
+    among them the pooled attention's with fewer queries than keys, its peak memory and wall time) and the
     f32 module's logits of two; the int8 engines (calibrated at max |t| on 8 whole synthetic images, the
     same in every process): the bf16 request, the flagship's on one 2048x2048 image, and the f32 int8
     flagship's logits of that image with the same scales; then one f32 training step of each model at a
@@ -1303,7 +1312,7 @@ def rows17_worker(args, device="cuda:0"):
     from dfc_sa_unet_torch.infer.quant_transunet import Int8TransUNetEngine
     from dfc_sa_unet_torch.infer.quant_vit import Int8ViTEngine
     from dfc_sa_unet_torch.models.factory import create_model
-    from dfc_sa_unet_torch.ops import launches, pooled_attention as attn_ops, reset_launches
+    from dfc_sa_unet_torch.ops import launches, reset_launches
     from dfc_sa_unet_torch.parallel.mesh import serving_mesh
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1323,7 +1332,6 @@ def rows17_worker(args, device="cuda:0"):
             t0 = time.perf_counter()
             probs = pred.predict_probs(images)
             return {"probs": probs, "wall_ms": (time.perf_counter() - t0) * 1e3, "launches": launches(),
-                    "fewer_queries": attn_ops.FEWER_QUERIES["pooled_attention"],
                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
     def band_of(side):
@@ -1379,13 +1387,19 @@ def rows17_worker(args, device="cuda:0"):
             reset_launches()
             trainer.train_epoch(0)
             rec["train"][label] = {"step_log": trainer.step_log, "launches": launches(),
-                                   "fewer_queries": attn_ops.FEWER_QUERIES["pooled_attention"],
                                    "state": {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}}
             del trainer
             torch.cuda.empty_cache()
         torch.save(rec, os.path.join(args.rows_out, f"rows17_rank{args.rows17_worker}of{args.rows_world}.pt"))
     finally:
         mesh.close()
+
+
+def banded_queries(label, launched):
+    """The pooled-attention launches of a band's run, of a model of phase 17 that one process ran with
+    ``launched``, that take fewer queries than keys: every one of the full-resolution model's (its band's
+    queries against the whole image's keys), none of another's (pooled keys, cut to the band too)."""
+    return launched["pooled_attention"] if label == "UNet_FullResAttention" else 0
 
 
 def row_sharding_families(seed, card, dev, gen, max_err):
@@ -1401,8 +1415,9 @@ def row_sharding_families(seed, card, dev, gen, max_err):
     rank's launches a forward, peak memory and wall time beside one process's; (c) one f32 training step of
     each of the four models on the pair against one process (phase 14(b)'s limits; the transformers at
     their configured dropout, whose masks the pair draws alike).  Returns the launch counts of the pair's
-    runs (not those of (a)'s comparisons, nor of the single-process references) and, of its pooled-attention
-    launches, those with fewer queries than keys."""
+    runs (not those of (a)'s comparisons, nor of the single-process references), among them the pooled
+    attention's with fewer queries than keys: the full-resolution model's, a band's queries against every
+    key."""
     import torch
 
     from dfc_sa_unet_torch.data.normalize import normalize
@@ -1415,7 +1430,6 @@ def row_sharding_families(seed, card, dev, gen, max_err):
           f"engines, seed {seed} ({card})", flush=True)
     t_phase = time.perf_counter()
     path = {k: 0 for k in launches()}
-    fewer = 0
     run_counts = {}
 
     def count(label, got):
@@ -1461,10 +1475,10 @@ def row_sharding_families(seed, card, dev, gen, max_err):
         per_forward = {**{k: 0 for k in path}, **want}
         if ref["launches"] != per_forward:
             bad.append(f"{label}: one process launched {ref['launches']}")
+        per_band = {**per_forward, "pooled_attention.fewer_queries": banded_queries(label, per_forward)}
         for r, got in enumerate(pair):
             g = got["serve"][label]
             count(f"(b) {label} rank {r}", g["launches"])
-            fewer += g["fewer_queries"]
             d = np.abs(logit_of(g["probs"]) - want_logit) / std
             f32 = ""
             if "logits" in ref:
@@ -1486,7 +1500,7 @@ def row_sharding_families(seed, card, dev, gen, max_err):
                         bad.append(f"{label} rank {r}: the bf16 control passes the f32 limit {tol}")
                 if not f32_ok:
                     bad.append(f"{label} rank {r}: f32 disagrees with one process")
-            fq = g["fewer_queries"]
+            fq = g["launches"]["pooled_attention.fewer_queries"]
             print(f"    (b) {label} rank {r} of 2, bf16, {g['probs'].shape[0]} x {g['probs'].shape[1]}x{g['probs'].shape[2]} "
                   f"(a band of {g['probs'].shape[1] // 2} rows): |dlogit| / std max {d.max():.3e} (tol {lim['max']}), "
                   f"mean {d.mean():.3e} (tol {lim['mean']}) against one process (logit std {std:.3e}){f32}; launches "
@@ -1497,17 +1511,14 @@ def row_sharding_families(seed, card, dev, gen, max_err):
                 bad.append(f"{label} rank {r}: probabilities of shape {g['probs'].shape}, logit std {std:.3e}")
             if not (d.max() <= lim["max"] and d.mean() <= lim["mean"]):
                 bad.append(f"{label} rank {r} disagrees with one process")
-            if g["launches"] != per_forward:
-                bad.append(f"{label} rank {r} launched {g['launches']}, expected {want} a forward")
-            if label == "UNet_FullResAttention" and fq != want["pooled_attention"]:
-                bad.append(f"{label} rank {r}: {fq} of its attention launches had fewer queries than keys")
+            if g["launches"] != per_band:
+                bad.append(f"{label} rank {r} launched {g['launches']}, expected {per_band} a forward")
     for label, (cfg, side, want) in ROWS17_MODELS.items():
         ref = one["train"][label]
         want_loss = [s["loss"] for s in ref["step_log"]]
         for r, got in enumerate(pair):
             g = got["train"][label]
             count(f"(c) {label} rank {r}", g["launches"])
-            fewer += g["fewer_queries"]
             loss = [s["loss"] for s in g["step_log"]]
             worst = max(float(((a.double() - b.double()).abs() - (DP_STATE_TOL["atol"] + DP_STATE_TOL["rtol"]
                                                                     * b.double().abs())).max())
@@ -1519,13 +1530,14 @@ def row_sharding_families(seed, card, dev, gen, max_err):
                   f"({card})", flush=True)
             if not np.allclose(loss, want_loss, **DP_LOSS_TOL) or len(loss) != 1 or worst > 0:
                 bad.append(f"(c) {label} rank {r} disagrees with one process")
-            if g["launches"] != ref["launches"]:
-                bad.append(f"(c) {label} rank {r} launched {g['launches']}, one process {ref['launches']}")
+            per_band = {**ref["launches"], "pooled_attention.fewer_queries": banded_queries(label, ref["launches"])}
+            if g["launches"] != per_band:
+                bad.append(f"(c) {label} rank {r} launched {g['launches']}, expected {per_band}")
     if bad:
         fail("phase 17: " + "; ".join(bad[:10]))
-    print(f"    phase 17 launches, run by run: {run_counts}; the phase's {path}, {fewer} attention launches with "
-          f"fewer queries than keys; weights {t_weights:.1f} s; {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return path, fewer
+    print(f"    phase 17 launches, run by run: {run_counts}; the phase's {path}; weights {t_weights:.1f} s; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return path
 
 
 def ulps(got, want) -> int:
@@ -1702,10 +1714,10 @@ def main():
                "probe_conv_9dot": 0.0, "conv3x3_s8": 0.0, "lsa_epilogue": 0.0}
     bad = []
 
-    def check(name, kernel, plain, args, label, poison=()):
-        """kernel(*args) against plain(*args); first, where ``poison`` names arguments, one launch
-        with those filled with NaN, so that a kernel reading shared memory it did not write this
-        launch (padding, a stale buffer) fails the check instead of passing by luck."""
+    def check(name, kernel, plain, args, label, poison=(), floor=1.0):
+        """kernel(*args) against plain(*args), to TOL of max(floor, max|plain|); first, where ``poison``
+        names arguments, one launch with those filled with NaN, so that a kernel reading shared memory it
+        did not write this launch (padding, a stale buffer) fails the check instead of passing by luck."""
         if poison:
             kernel(*(torch.full_like(a, float("nan")) if i in poison else a for i, a in enumerate(args)))
             torch.cuda.synchronize()
@@ -1714,7 +1726,7 @@ def main():
         want = plain(*args)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        scale = max(1.0, want.float().abs().max().item())
+        scale = max(floor, want.float().abs().max().item())
         tol = TOL[str(args[0].dtype).split(".")[-1]] * scale
         ok = bool(np.isfinite(err)) and err <= tol and got.shape == want.shape
         max_err[name] = max(max_err[name], err)
@@ -1896,7 +1908,7 @@ def main():
             fwd.load_state_dict(weights, strict=True)
         return Predictor(fwd, compute_dtype=dtype, device=dev)
 
-    none = {name: 0 for name in max_err}
+    none = {name: 0 for name in launches()}
     per_forward = {"module": {**none, "pooled_attention": 9},
                    "engine": {**none, "pooled_attention": 9, "lsa_epilogue": 9, "dfc_tail": 7, "conv3x3_bn_relu": 2}}
     reset_launches()  # the flagship's main path starts here (phases 4 and 5)
@@ -2170,6 +2182,37 @@ def main():
               + ", ".join(f"{key} {rows['pooled_attention'][key] - flagship_attn[key]:.4f}"
                           for key in ("ms", "bound_ms", "plain_ms", "library_ms")), flush=True)
 
+        # SegFormer-B5's four launch shapes at B=SEGFORMER_BATCH, q at 1/8 as the model's folded scale leaves
+        # it; kept beside row 1 in the kernels line, the stages weighted by their blocks (52 a request).  The
+        # outputs, means of v over 1024 keys, stay well below 1: held to TOL of max|plain| itself
+        # (a few roundings of bf16 at the largest output), not of 1
+        segformer_attn = {"batch": SEGFORMER_BATCH, "stages": [], "ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        for stage, (dim, heads, sr, blocks) in enumerate(SEGFORMER_STAGES, start=1):
+            side = 1024 >> (1 + stage)
+            nq, nk = side * side, (side // sr) ** 2
+            q = randn(SEGFORMER_BATCH, nq, dim, dtype=bf, scale=0.125)
+            kv = randn(SEGFORMER_BATCH, nk, 2 * dim, dtype=bf)
+            k, v = kv[..., :dim], kv[..., dim:]
+            check("pooled_attention", lambda a, b, c: attn_ops.pooled_attention(a, b, c, heads),
+                  lambda a, b, c: attn_ops.pooled_attention_plain(a, b, c, heads), (q[:2], k[:2], v[:2]),
+                  f"bfloat16 segformer stage {stage} {nq}q {nk}k {heads}h", poison=(0,), floor=0.0)
+            qs, ks, vs = (t.unflatten(-1, (heads, dim // heads)).transpose(1, 2) for t in (q, k, v))
+            ms = timed(lambda: attn_ops.pooled_attention(q, k, v, heads), 10)
+            lib_ms = timed(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0), 10)
+            exps = SEGFORMER_BATCH * heads * nq * nk
+            bound = max(2 * SEGFORMER_BATCH * 2 * (nq + nk) * dim / HBM_BYTES_PER_S,
+                        2 * exps * 2 * (dim // heads) / PEAK_OPS["bf16"], exps / exps_per_s) * 1e3
+            segformer_attn["stages"].append({"stage": stage, "queries": nq, "keys": nk, "heads": heads,
+                                             "blocks": blocks, "ms": ms, "library_ms": lib_ms, "bound_ms": bound})
+            for key, value in (("ms", ms), ("library_ms", lib_ms), ("bound_ms", bound)):
+                segformer_attn[key] += blocks * value
+            print(f"    pooled_attention segformer stage {stage}: {nq} queries, {nk} keys, {heads} heads, B="
+                  f"{SEGFORMER_BATCH}: kernel {ms:.4f} ms  SDPA {lib_ms:.4f} ms  bound {bound:.4f} ms "
+                  f"({100 * bound / ms:.1f}%) x {blocks}", flush=True)
+        print(f"    pooled_attention, SegFormer-B5's 52 launches a request: kernel {segformer_attn['ms']:.4f} ms  "
+              f"SDPA {segformer_attn['library_ms']:.4f} ms  bound {segformer_attn['bound_ms']:.4f} ms ({card})",
+              flush=True)
+
         # the matrix-unit probes at their own shape (scripts/bench_torch_mxu.py): cuBLAS and cuDNN beside them
         mx = mxu.Probe(BATCH, gen)
         need = mxu.bounds(BATCH)
@@ -2225,7 +2268,7 @@ def main():
             if delta != ({kernel_name: per_step * steps} if per_step else {}):
                 fail(f"{label}: {steps} steps launched {delta}, expected {per_step} of {kernel_name} a step")
 
-    train_launches = {k: 0 for k in max_err}
+    train_launches = {k: 0 for k in launches()}
 
     def close_run():
         """Add this training run's launch counts to the training path's and start the next at 0."""
@@ -2528,7 +2571,7 @@ def main():
                    for i in (0, INT8_CALIB_IMAGES))
     xs = torch.from_numpy(batch).to(dev)
     xn = normalize(xs, bf).permute(0, 3, 1, 2)
-    int8_launches = {k: 0 for k in max_err}
+    int8_launches = {k: 0 for k in launches()}
     speed = []  # (label, int8 forward ms, fp forward ms, int8 served img/s, fp served img/s)
 
     def self_check(label, engine):
@@ -2715,7 +2758,7 @@ def main():
     main_launches = {k: main_launches[k] + banded[k] for k in main_launches}
 
     # ------------------------------------------------------------ phase 17
-    families, fewer_queries = row_sharding_families(seed, card, dev, gen, max_err)
+    families = row_sharding_families(seed, card, dev, gen, max_err)
     main_launches = {k: main_launches[k] + families[k] for k in main_launches}
 
     sources = {"pooled_attention": ("dfc_sa_unet_torch/csrc/pooled_attention.cu",
@@ -2755,7 +2798,7 @@ def main():
                if name in ("dfc_tail", "conv3x3_bn_relu", "conv3x3_s8") else {}),
             # phase 17: the attention's launches with a band's queries against every key, and the MHA's on
             # the token maps gathered over the bands, among "launches"
-            **({"fewer_query_launches": fewer_queries, "flagship_large_batch": attn_big}
+            **({"fewer_query_launches": families["pooled_attention.fewer_queries"], "flagship_large_batch": attn_big, "segformer": segformer_attn}
                if name == "pooled_attention" else {}),
             **({"gathered_token_launches": families[name]} if name in ("fused_mha", "fused_mha_sep") else {}),
         })

@@ -2,15 +2,24 @@
 //
 // Replaces the TPU kernel dfc_sa_unet_tpu/ops/pallas_attention.py::
 // fused_pooled_attention (body _attn_kernel, :32-43): for each batch element
+// and head
 //
-//     out = softmax(q k^T) v        q: [Nq, Cq], k: [Nk, Cq], v: [Nk, C], Nk = p*p <= 4096
+//     out = softmax(q k^T) v        q: [Nq, Cq], k: [Nk, Cq], v: [Nk, C], Nk <= 4096
 //
-// Nq = Nk but under row sharding, where the full-resolution attention takes a
-// band's queries against the whole image's keys (parallel/rows.py): the tiles
-// and the row masks walk the Nq queries, the key loops the Nk keys.
+// Nq and Nk apart: under row sharding the full-resolution attention takes a
+// band's queries against the whole image's keys (parallel/rows.py, Nq < Nk),
+// and SegFormer's spatial-reduction attention (models/segformer.py) takes every
+// pixel's query against the keys of a map cut by its reduction ratio (Nq > Nk,
+// up to 64 times as many).  The tiles and the row masks walk the Nq queries,
+// the key loops the Nk keys.  Heads: a call holds `heads` heads side by side in
+// each row, q [B][Nq][heads x Cq], k [B][Nk][heads x Cq], v [B][Nk][heads x C]
+// and out [B][Nq][heads x C], each input a row stride of its own (k and v may
+// be the two halves of one [B][Nk][2 heads x C] projection); the flagship and
+// the ablations call one head with dense rows.
 //
-// with no 1/sqrt(Cq) scale (the reference model has none), energies and the
-// softmax in f32, f32 accumulation, and the output rounded to v's dtype.  The
+// No 1/sqrt(Cq) scale (the reference model has none; SegFormer folds its 1/8,
+// a power of two, into q exactly), energies and the softmax in f32, f32
+// accumulation, and the output rounded to v's dtype.  The
 // TPU kernel's point is that the N x N energies never reach device memory;
 // none of the kernels here writes them either.
 //
@@ -25,9 +34,10 @@
 //   * one persistent block an SM, three warpgroups or four: a producer (one
 //     thread, 40 or 24 registers after setmaxnreg) keeps a ring of chunks of
 //     keys and values and two q slots full by TMA (tensor maps encoded on the
-//     host, 64-channel boxes in the 128-byte swizzle that the wgmma
-//     descriptors name; zero fill past nk, Cq, C, nq and the last image), each
-//     behind a `full` mbarrier and freed on an `empty` one;
+//     host over [image][row][head][channel], 64-channel boxes of one head in
+//     the 128-byte swizzle that the wgmma descriptors name; zero fill past nk,
+//     Cq, C, nq and the last image), each behind a `full` mbarrier and freed
+//     on an `empty` one;
 //   * two or three consumer warpgroups of 64 query rows each.  q's fragments
 //     go to registers once a tile.  Per chunk of keys one issue puts on the
 //     tensor cores e = q k^T (wgmma, q the register A operand, k K-major) and
@@ -35,16 +45,17 @@
 //     the accumulators of e rounded to bf16; v MN-major, the transpose flag):
 //     the chunk's maxima and exponentials run while that p v does, and while
 //     the other warpgroups' products do;
-//   * up to 64 keys (the flagship, the pool-4 bottleneck; so nq <= 64) each
-//     consumer takes an image of its own, the two in turns on the tensor cores
-//     (named barriers 1 and 2, FA3's ping-pong).  Over more keys the consumers
-//     share one image's rows (two warpgroups of 128 channels of v, or three of
-//     64 where C <= 64 and Cq <= 16: a tile of 192 rows, so each image's k and
-//     v come from L2 a third as often as with 64) and run free: the turns made
+//   * up to 64 keys and 64 queries (the flagship, the pool-4 bottleneck) each
+//     consumer takes an image (an image's head) of its own, the two in turns on
+//     the tensor cores (named barriers 1 and 2, FA3's ping-pong).  Otherwise the
+//     consumers share one image's rows (two warpgroups of 128 channels of v, or
+//     of 64 where C <= 64 and 16 < Cq <= 64, SegFormer's heads; or three of 64
+//     where C <= 64 and Cq <= 16: a tile of 192 rows, so each image's k and v
+//     come from L2 a third as often as with 64) and run free: the turns made
 //     the small products wait on each other's exponentials, and the timings of
 //     scripts/bench_torch_pooled_attention.py --configs chose both (PERF.md
-//     §6).  Chunks of 128 keys where the registers hold them (Cq <= 64), else
-//     64.
+//     §6).  Chunks of 128 keys where the registers hold them (Cq <= 64),
+//     else 64 (and 64 in turns).
 // Order of arithmetic (tests/test_torch_attention_emulation.py emulates it and
 // holds it to the JAX kernel and the plain version): one pass over the keys
 // in chunks, in key order, per row a reference d (starting at -inf); per chunk
@@ -56,8 +67,10 @@
 // (f32 accumulation); out = bf16(o * (1 / l)).  The reference rounds the
 // normalised p / l to bf16 instead (pallas_attention.py:42): the two differ by
 // bf16 roundings of p, far inside the 2e-2 chip_smoke.py allows.  The chunk
-// goes by Nk, Cq and C alone, so a query row's result is the same bits
-// whatever Nq and tile it falls in (phase 17(a) holds a band to the whole map).
+// goes by Nk and Cq alone (up to 64 keys one chunk holds them all, whichever
+// path runs), so a query row's result is the same bits whatever Nq and tile it
+// falls in (phase 17(a) holds a band to the whole map, the card tests a call
+// to any part of its rows).
 // TMA reads rows of 16-byte multiples: the wrapper zero-pads Cq and C to
 // multiples of 8 (ops/pooled_attention.py::tma_rows) rather than keeping a
 // cp.async path here; no main-path shape needs it.
@@ -65,12 +78,12 @@
 // f32 (the parity path, exact to 1e-5; TF32 would break it): two SIMT kernels,
 // picked by the wrapper (ops/pooled_attention.py) by N.
 //
-// * N <= 1024 (pooled_attention_kernel): a block owns (batch element, 16
-//   query rows, 128 channels of v).  It computes its 16 x N energy rows from K
+// * N <= 1024 (pooled_attention_kernel): a block owns (batch element and
+//   head, 16 query rows, 128 channels of v).  It computes its 16 x N energy rows from K
 //   staged through shared memory in 32-key steps, takes the softmax with one
 //   warp per row, then streams V in 32-key steps for the AV product.
-// * N up to 4096 (pooled_attention_long_kernel): a block owns (batch element,
-//   64 query rows, 64 channels of v) and goes over the keys twice in chunks of
+// * N up to 4096 (pooled_attention_long_kernel): a block owns (batch element
+//   and head, 64 query rows, 64 channels of v) and goes over the keys twice in chunks of
 //   64: pass one keeps each row's running max and the sum of exp(e - max) in
 //   registers; pass two recomputes the chunk's energies, normalises with the
 //   final max and sum and accumulates P V in f32 registers.
@@ -92,27 +105,28 @@ constexpr int kKeys = 32;      // keys staged per step
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-pooled_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ out, int nq, int n, int cq, int c) {
+pooled_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                        T* __restrict__ out, int nq, int n, int cq, int c, int heads, int sq, int sk, int sv) {
   extern __shared__ float smem[];
   const int cqp = cq + 1;  // padded row stride: no bank conflicts in q.k
   float* s_e = smem;                   // [kRows][n] energies, then P
   float* s_q = s_e + kRows * n;        // [kRows][cqp]
   float* s_kv = s_q + kRows * cqp;     // [kKeys][cqp] keys, or [kKeys][kCols] values
 
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / heads, h = blockIdx.z - b * heads;
   const int row0 = blockIdx.x * kRows;
   const int col0 = blockIdx.y * kCols;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int rows = min(kRows, nq - row0);
-  const T* qb = q + (size_t)b * nq * cq;
-  const T* kb = k + (size_t)b * n * cq;
-  const T* vb = v + (size_t)b * n * c;
+  const T* qb = q + (size_t)b * nq * sq + (size_t)h * cq;
+  const T* kb = k + (size_t)b * n * sk + (size_t)h * cq;
+  const T* vb = v + (size_t)b * n * sv + (size_t)h * c;
+  T* ob = out + (size_t)b * nq * heads * c + (size_t)h * c;
 
   for (int i = tid; i < kRows * cq; i += kThreads) {
     const int r = i / cq, ch = i - r * cq;
-    s_q[r * cqp + ch] = r < rows ? dfc::to_f(qb[(size_t)(row0 + r) * cq + ch]) : 0.f;
+    s_q[r * cqp + ch] = r < rows ? dfc::to_f(qb[(size_t)(row0 + r) * sq + ch]) : 0.f;
   }
 
   // energies e[r][j] = q[r] . k[j]
@@ -121,7 +135,7 @@ pooled_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     for (int i = tid; i < keys * cq; i += kThreads) {
       const int j = i / cq, ch = i - j * cq;
-      s_kv[j * cqp + ch] = dfc::to_f(kb[(size_t)(j0 + j) * cq + ch]);
+      s_kv[j * cqp + ch] = dfc::to_f(kb[(size_t)(j0 + j) * sk + ch]);
     }
     __syncthreads();
     for (int i = tid; i < kRows * keys; i += kThreads) {
@@ -160,7 +174,7 @@ pooled_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < keys * kCols; i += kThreads) {
       const int j = i / kCols, cc = i - j * kCols;
       const int ch = col0 + cc;
-      s_kv[i] = ch < c ? dfc::to_f(vb[(size_t)(j0 + j) * c + ch]) : 0.f;
+      s_kv[i] = ch < c ? dfc::to_f(vb[(size_t)(j0 + j) * sv + ch]) : 0.f;
     }
     __syncthreads();
     const float* p0 = s_e + (2 * warp) * n + j0;
@@ -182,23 +196,23 @@ pooled_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int ch = col0 + lane + 32 * jj;
-      if (ch < c) out[((size_t)b * nq + row0 + r) * c + ch] = dfc::from_f<T>(acc[ii][jj]);
+      if (ch < c) ob[(size_t)(row0 + r) * heads * c + ch] = dfc::from_f<T>(acc[ii][jj]);
     }
   }
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int nq, int n, int cq, int c,
-           void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, int b, int heads, int nq, int n, int cq, int c,
+           int sq, int sk, int sv, void* stream) {
   const int cqp = cq + 1;
   const int kv = kKeys * (cqp > kCols ? cqp : kCols);
   const size_t smem = sizeof(float) * ((size_t)kRows * n + (size_t)kRows * cqp + kv);
   cudaFuncSetAttribute(pooled_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  const dim3 grid(dfc::ceil_div(nq, kRows), dfc::ceil_div(c, kCols), b);
+  const dim3 grid(dfc::ceil_div(nq, kRows), dfc::ceil_div(c, kCols), b * heads);
   pooled_attention_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), nq, n, cq, c);
+      static_cast<T*>(out), nq, n, cq, c, heads, sq, sk, sv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -240,17 +254,18 @@ __device__ __forceinline__ void chunk_energies(float (&e)[4][4], const float* s_
 
 template <typename T>
 __device__ __forceinline__ void stage_keys(float* s_k, const T* __restrict__ kb, int j0, int keys,
-                                           int cq, int cqp) {
+                                           int cq, int cqp, int sk) {
   for (int i = threadIdx.x; i < kLKeys * cq; i += kThreads) {
     const int j = i / cq, ch = i - j * cq;
-    s_k[j * cqp + ch] = j < keys ? dfc::to_f(kb[(size_t)(j0 + j) * cq + ch]) : 0.f;
+    s_k[j * cqp + ch] = j < keys ? dfc::to_f(kb[(size_t)(j0 + j) * sk + ch]) : 0.f;
   }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-pooled_attention_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, T* __restrict__ out, int nq, int n, int cq, int c) {
+pooled_attention_long_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                             T* __restrict__ out, int nq, int n, int cq, int c, int heads, int sq, int sk,
+                             int sv) {
   extern __shared__ __align__(16) float smem_long[];
   const int cqp = cq + 1;  // padded row stride: no bank conflicts in q.k
   float* s_v = smem_long;                      // [kLKeys][kLCols]
@@ -258,17 +273,18 @@ pooled_attention_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* s_q = s_p + kLRows * kLdp;       // [kLRows][cqp]
   float* s_k = s_q + kLRows * cqp;        // [kLKeys][cqp]
 
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / heads, h = blockIdx.z - b * heads;
   const int row0 = blockIdx.x * kLRows;
   const int col0 = blockIdx.y * kLCols;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const T* qb = q + (size_t)b * nq * cq;
-  const T* kb = k + (size_t)b * n * cq;
-  const T* vb = v + (size_t)b * n * c;
+  const T* qb = q + (size_t)b * nq * sq + (size_t)h * cq;
+  const T* kb = k + (size_t)b * n * sk + (size_t)h * cq;
+  const T* vb = v + (size_t)b * n * sv + (size_t)h * c;
+  T* ob = out + (size_t)b * nq * heads * c + (size_t)h * c;
 
   for (int i = tid; i < kLRows * cq; i += kThreads) {
     const int r = i / cq, ch = i - r * cq;
-    s_q[r * cqp + ch] = row0 + r < nq ? dfc::to_f(qb[(size_t)(row0 + r) * cq + ch]) : 0.f;
+    s_q[r * cqp + ch] = row0 + r < nq ? dfc::to_f(qb[(size_t)(row0 + r) * sq + ch]) : 0.f;
   }
 
   // pass one: per row the running max m and l = sum exp(e - m)
@@ -282,7 +298,7 @@ pooled_attention_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j0 = 0; j0 < n; j0 += kLKeys) {
     const int keys = min(kLKeys, n - j0);
     __syncthreads();
-    stage_keys(s_k, kb, j0, keys, cq, cqp);
+    stage_keys(s_k, kb, j0, keys, cq, cqp, sk);
     __syncthreads();
     chunk_energies(e, s_q, s_k, cq, cqp, ty, tx, keys);
 #pragma unroll
@@ -308,10 +324,10 @@ pooled_attention_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j0 = 0; j0 < n; j0 += kLKeys) {
     const int keys = min(kLKeys, n - j0);
     __syncthreads();
-    stage_keys(s_k, kb, j0, keys, cq, cqp);
+    stage_keys(s_k, kb, j0, keys, cq, cqp, sk);
     for (int i = tid; i < kLKeys * kLCols; i += kThreads) {
       const int j = i / kLCols, ch = col0 + i - j * kLCols;
-      s_v[i] = (j < keys && ch < c) ? dfc::to_f(vb[(size_t)(j0 + j) * c + ch]) : 0.f;
+      s_v[i] = (j < keys && ch < c) ? dfc::to_f(vb[(size_t)(j0 + j) * sv + ch]) : 0.f;
     }
     __syncthreads();
     chunk_energies(e, s_q, s_k, cq, cqp, ty, tx, keys);
@@ -342,22 +358,22 @@ pooled_attention_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int ch = col0 + tx * 4 + jj;
-      if (ch < c) out[((size_t)b * nq + r) * c + ch] = dfc::from_f<T>(acc[i][jj]);
+      if (ch < c) ob[(size_t)r * heads * c + ch] = dfc::from_f<T>(acc[i][jj]);
     }
   }
 }
 
 template <typename T>
-int launch_long(const void* q, const void* k, const void* v, void* out, int b, int nq, int n, int cq, int c,
-                void* stream) {
+int launch_long(const void* q, const void* k, const void* v, void* out, int b, int heads, int nq, int n, int cq,
+                int c, int sq, int sk, int sv, void* stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kLKeys * kLCols + kLRows * kLdp + (size_t)(kLRows + kLKeys) * (cq + 1));
   cudaFuncSetAttribute(pooled_attention_long_kernel<T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const dim3 grid(dfc::ceil_div(nq, kLRows), dfc::ceil_div(c, kLCols), b);
+  const dim3 grid(dfc::ceil_div(nq, kLRows), dfc::ceil_div(c, kLCols), b * heads);
   pooled_attention_long_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), nq, n, cq, c);
+      static_cast<T*>(out), nq, n, cq, c, heads, sq, sk, sv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -373,7 +389,6 @@ using wgconv::mbar_expect_tx;
 using wgconv::mbar_init;
 using wgconv::mbar_wait;
 using wgconv::named_sync;
-using wgconv::tma_load;
 
 constexpr int kQSlots = 2;          // q tiles in flight: the next tile's lands during this one
 constexpr int kMaxStages = 8;
@@ -419,6 +434,16 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// one box of a map of head_map's at (channel c0, head c1, row c2, image c3) into dst, completing on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // d = A . B (accumulate = 0) or d += A . B for a 64 x N x 16 product, N = 2 R keys: A, 16 channels of q,
 // in registers (the m16n8k16 fragment layout, wgmma.cuh's wgmma_rs), B the keys K-major in shared memory
 template <int R>
@@ -461,7 +486,8 @@ __device__ __forceinline__ void energies_wgmma(float (&d)[R], const uint32_t (&a
 // 2^(x - y): ex2.approx of one subtraction (both operands already scaled by log2(e)); 0 for x = -inf
 __device__ __forceinline__ float exp2_diff(float x, float y) { return dfc::exp2_scaled(x, 1.f, y); }
 
-// One persistent block an SM walks tiles (column tile fastest, then row tile, then image or image group).
+// One persistent block an SM walks tiles (column tile fastest, then row tile, then image or image group; an
+// "image" is one head of one batch element, image z = batch element z / heads, head z % heads).
 // The last warpgroup, the producer (one thread), keeps the q slots and a ring of kStages chunks full by
 // TMA, each behind a `full` mbarrier, and reuses one when every consumer warp has arrived on its `empty`
 // one.  The NC consumer warpgroups each own 64 query rows: q's fragments come from the slot into
@@ -477,8 +503,8 @@ __device__ __forceinline__ float exp2_diff(float x, float y) { return dfc::exp2_
 // After the last chunk one more issue adds p v; out = o / l, rounded to bf16, stored from registers.
 template <int CQP, int CT, int NC, bool SPLIT, int CH>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
-pooled_attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out, int b, int nq, int nk,
-                              int c) {
+pooled_attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out, int b, int heads, int nq,
+                              int nk, int c) {
   using S = Shape<CQP, CT, NC, SPLIT, CH>;
   constexpr int ST = S::kStages, OR = CT / 2, ER = CH / 2, KK = CH / 16;  // registers of o and e; k-steps of p v
   extern __shared__ __align__(16) unsigned char smem_wg[];
@@ -492,9 +518,9 @@ pooled_attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restric
   auto q_full = [&](int i) { return bars + 8 * (2 * kMaxStages + i % kQSlots); };
   auto q_empty = [&](int i) { return bars + 8 * (2 * kMaxStages + kQSlots + i % kQSlots); };
 
-  const int chunks = (nk + CH - 1) / CH, ctiles = (c + CT - 1) / CT;
+  const int chunks = (nk + CH - 1) / CH, ctiles = (c + CT - 1) / CT, images = b * heads;
   const int rtiles = SPLIT ? 1 : (nq + S::kRows - 1) / S::kRows;
-  const int tiles = (SPLIT ? (b + NC - 1) / NC : b) * rtiles * ctiles;
+  const int tiles = (SPLIT ? (images + NC - 1) / NC : images) * rtiles * ctiles;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -518,20 +544,22 @@ pooled_attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restric
         const int col0 = (t % ctiles) * CT, row0 = (t / ctiles % rtiles) * S::kRows, img = t / (ctiles * rtiles);
         if (i >= kQSlots) mbar_wait(q_empty(i), ((i / kQSlots) & 1) ^ 1);  // tile i - 2 has read its q
         mbar_expect_tx(q_full(i), S::kQBytes);
-        for (int w = 0; w < NC; ++w)
-          for (int kb = 0; kb < S::KB; ++kb)  // rows past nq, and images past b, read zero
-            tma_load(q_slot(i) + (w * S::KB + kb) * kTile, &maps.q, q_full(i), 64 * kb, SPLIT ? 0 : row0 + w * 64,
-                     SPLIT ? NC * img + w : img);
+        for (int w = 0; w < NC; ++w) {
+          const int z = SPLIT ? NC * img + w : img, zb = z / heads;
+          for (int kb = 0; kb < S::KB; ++kb)  // rows past nq, and images past the last, read zero
+            tma_load(q_slot(i) + (w * S::KB + kb) * kTile, &maps.q, q_full(i), 64 * kb, z - zb * heads,
+                     SPLIT ? 0 : row0 + w * 64, zb);
+        }
         for (int j = 0; j < chunks; ++j, ++g) {
           if (g >= ST) mbar_wait(empty(g), ((g / ST) & 1) ^ 1);  // chunk g - ST has freed the stage
           mbar_expect_tx(full(g), S::kStageBytes);
           for (int s = 0; s < S::SUB; ++s) {  // keys past nk and channels past cq or c read zero
-            const int z = SPLIT ? NC * img + s : img;
+            const int z = SPLIT ? NC * img + s : img, zb = z / heads, zh = z - zb * heads;
             for (int kb = 0; kb < S::KB; ++kb)
-              tma_load(stage(g) + (s * S::KB + kb) * S::kBlock, &maps.k, full(g), 64 * kb, j * CH, z);
+              tma_load(stage(g) + (s * S::KB + kb) * S::kBlock, &maps.k, full(g), 64 * kb, zh, j * CH, zb);
             for (int vb = 0; vb < S::VB; ++vb)
-              tma_load(stage(g) + S::kKBytes + (s * S::VB + vb) * S::kBlock, &maps.v, full(g), col0 + 64 * vb,
-                       j * CH, z);
+              tma_load(stage(g) + S::kKBytes + (s * S::VB + vb) * S::kBlock, &maps.v, full(g), col0 + 64 * vb, zh,
+                       j * CH, zb);
           }
         }
       }
@@ -668,13 +696,15 @@ pooled_attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restric
 
       // o[4x + y]: row 16 warp + lane/4 (+8 for y >= 2), column 8x + 2 t4 + (y & 1) of the tile
       const int image = SPLIT ? NC * img + cw : img;
-      if (image < b) {
+      if (image < images) {
         const float rl[2] = {1.f / dfc::quad_sum(l[0]), 1.f / dfc::quad_sum(l[1])};
-        const int ra = (SPLIT ? 0 : row0 + cw * 64) + warp * 16 + lane / 4;
+        const int ra = (SPLIT ? 0 : row0 + cw * 64) + warp * 16 + lane / 4, ib = image / heads;
+        // out [b][nq][heads][c]: this image's head of each of its rows
+        bf16* const oi = out + ((size_t)ib * nq * heads + (image - ib * heads)) * c + col0 + 2 * t4;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           if (ra + 8 * h >= nq) continue;
-          bf16* dst = out + ((size_t)image * nq + ra + 8 * h) * c + col0 + 2 * t4;
+          bf16* dst = oi + (size_t)(ra + 8 * h) * heads * c;
 #pragma unroll
           for (int x = 0; x < OR / 4; ++x)  // c is a multiple of 8: a pair is inside or past c whole
             if (col0 + 8 * x < c)
@@ -691,15 +721,30 @@ pooled_attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restric
 
 constexpr int kMaxDevices = 64;
 
+// a map of the bf16 tensor [z][rows][heads][cols] at t, whose rows lie row_stride elements apart (heads x cols
+// or more), in boxes of 64 columns of one head (128 bytes, the 128-byte swizzle) x box_rows rows; boxes read
+// zero past cols, rows and z.  cols and row_stride are multiples of 8 (16-byte strides), t 16-byte aligned.
+inline bool head_map(CUtensorMap* map, const void* t, uint64_t cols, uint64_t heads, uint64_t rows, uint64_t z,
+                     uint64_t row_stride, uint32_t box_rows) {
+  const cuuint64_t dims[4] = {cols, heads, rows, z}, strides[3] = {cols * 2, row_stride * 2, row_stride * rows * 2};
+  const cuuint32_t box[4] = {64, 1, box_rows, 1}, unit[4] = {1, 1, 1, 1};
+  return wgconv::encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t), dims, strides, box,
+                                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// row strides sq, sk, sv of 0: dense rows (heads x cq, heads x cq, heads x c)
 template <int CQP, int CT, int NC, bool SPLIT, int CH>
 int launch_wg(const void* q, const void* k, const void* v, void* out, int b, int nq, int nk, int cq, int c,
-              void* stream) {
+              void* stream, int heads = 1, int sq = 0, int sk = 0, int sv = 0) {
   using S = wg::Shape<CQP, CT, NC, SPLIT, CH>;
-  wg::Maps maps;  // [b][rows][channels], boxes of 64 channels x 64 rows
-  if (!wgconv::tile_map(&maps.q, q, cq, nq, b, 64) || !wgconv::tile_map(&maps.k, k, cq, nk, b, CH) ||
-      !wgconv::tile_map(&maps.v, v, c, nk, b, CH))
+  wg::Maps maps;  // [b][rows][heads][channels], boxes of 64 channels x 64 (q) or CH (k, v) rows
+  if (!head_map(&maps.q, q, cq, heads, nq, b, sq ? sq : heads * cq, 64) ||
+      !head_map(&maps.k, k, cq, heads, nk, b, sk ? sk : heads * cq, CH) ||
+      !head_map(&maps.v, v, c, heads, nk, b, sv ? sv : heads * c, CH))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles = (long long)(SPLIT ? (b + NC - 1) / NC : b) * (SPLIT ? 1 : dfc::ceil_div(nq, S::kRows)) *
+  const long long images = (long long)b * heads;
+  const long long tiles = (SPLIT ? (images + NC - 1) / NC : images) * (SPLIT ? 1 : dfc::ceil_div(nq, S::kRows)) *
                           dfc::ceil_div(c, CT);
   // the SM count and the shared-memory attribute, once a device for this instantiation (0: not yet)
   static std::atomic<int> sms_of[kMaxDevices];
@@ -719,52 +764,60 @@ int launch_wg(const void* q, const void* k, const void* v, void* out, int b, int
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
   wg::pooled_attention_wgmma_kernel<CQP, CT, NC, SPLIT, CH><<<grid, S::kThreads, S::kSmem,
                                                               static_cast<cudaStream_t>(stream)>>>(
-      maps, static_cast<bf16*>(out), b, nq, nk, c);
+      maps, static_cast<bf16*>(out), b, heads, nq, nk, c);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the instantiation for cqp among CQ..., or cudaErrorInvalidValue
 template <int CT, int NC, bool SPLIT, int CH, int... CQ>
-int launch_wg_cq(int cqp, const void* q, const void* k, const void* v, void* out, int b, int nq, int nk, int cq,
-                 int c, void* stream) {
+int launch_wg_cq(int cqp, const void* q, const void* k, const void* v, void* out, int b, int heads, int nq, int nk,
+                 int cq, int c, int sq, int sk, int sv, void* stream) {
   int err = static_cast<int>(cudaErrorInvalidValue);
-  ((cqp == CQ ? (err = launch_wg<CQ, CT, NC, SPLIT, CH>(q, k, v, out, b, nq, nk, cq, c, stream)) : 0), ...);
+  ((cqp == CQ ? (err = launch_wg<CQ, CT, NC, SPLIT, CH>(q, k, v, out, b, nq, nk, cq, c, stream, heads, sq, sk, sv))
+              : 0),
+   ...);
   return err;
 }
 
 }  // namespace
 
-// every entry point: q [b][nq][cq], k [b][n][cq], v [b][n][c], out [b][nq][c]; nq <= n
-extern "C" int pooled_attention_long_f32(const void* q, const void* k, const void* v, void* out,
-                                         int b, int nq, int n, int cq, int c, void* stream) {
-  return launch_long<float>(q, k, v, out, b, nq, n, cq, c, stream);
+// every entry point: q [b][nq][heads][cq], k [b][n][heads][cq], v [b][n][heads][c] with rows sq, sk, sv
+// elements apart (the heads of a row side by side, cq and c apart); out [b][nq][heads][c], dense; any nq
+extern "C" int pooled_attention_long_f32(const void* q, const void* k, const void* v, void* out, int b, int heads,
+                                         int nq, int n, int cq, int c, int sq, int sk, int sv, void* stream) {
+  return launch_long<float>(q, k, v, out, b, heads, nq, n, cq, c, sq, sk, sv, stream);
 }
 
-extern "C" int pooled_attention_f32(const void* q, const void* k, const void* v, void* out, int b,
-                                    int nq, int n, int cq, int c, void* stream) {
-  return launch<float>(q, k, v, out, b, nq, n, cq, c, stream);
+extern "C" int pooled_attention_f32(const void* q, const void* k, const void* v, void* out, int b, int heads, int nq,
+                                    int n, int cq, int c, int sq, int sk, int sv, void* stream) {
+  return launch<float>(q, k, v, out, b, heads, nq, n, cq, c, sq, sk, sv, stream);
 }
 
-// bf16 on wgmma with TMA-fed q, keys and values: any nq <= n = nk <= 4096, cq <= 256 and c, both multiples
-// of 8 (TMA's 16-byte row strides: the wrapper zero-pads other widths), every pointer 16-byte aligned.
-extern "C" int pooled_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* out, int b, int nq,
-                                           int n, int cq, int c, void* stream) {
+// bf16 on wgmma with TMA-fed q, keys and values: any nq, n = nk <= 4096, cq <= 256 and c, both multiples of 8, as
+// the row strides (TMA's 16-byte strides: the wrapper zero-pads other widths), every pointer 16-byte aligned.
+extern "C" int pooled_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* out, int b, int heads,
+                                           int nq, int n, int cq, int c, int sq, int sk, int sv, void* stream) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
-  if (b < 1 || nq < 1 || nq > n || cq < 1 || cq > 256 || cq % 8 || c < 1 || c % 8 || ptrs % 16 ||
+  if (b < 1 || heads < 1 || nq < 1 || n < 1 || n > 4096 || cq < 1 || cq > 256 || cq % 8 || c < 1 || c % 8 ||
+      sq < heads * cq || sk < heads * cq || sv < heads * c || (sq | sk | sv) % 8 || ptrs % 16 ||
       !wgconv::encode_tiled())
     return static_cast<int>(cudaErrorInvalidValue);
   const int cqp = cq <= 16 ? 16 : cq <= 32 ? 32 : cq <= 64 ? 64 : cq <= 128 ? 128 : 256;
-  // 64 channels of v a tile where c <= 64 and cq <= 16, else 128.  Up to 64 keys (so nq <= 64): two
-  // warpgroups take an image each, in turns on the tensor cores.  Else one image's rows are shared by free-
-  // running warpgroups, in chunks of 128 keys where their registers hold them (cq <= 64), else 64: three
-  // warpgroups at 64 channels, two at 128.  The chunk goes by nk, cq and c alone, never by nq.
-  const bool narrow = c <= 64 && cqp == 16;
-  if (n <= 64 && cqp <= 128)
-    return narrow ? launch_wg_cq<64, 2, true, 64, 16>(cqp, q, k, v, out, b, nq, n, cq, c, stream)
-                  : launch_wg_cq<128, 2, true, 64, 16, 32, 64, 128>(cqp, q, k, v, out, b, nq, n, cq, c, stream);
+  // 64 channels of v a tile where c <= 64 and cq <= 64, else 128.  Up to 64 keys and 64 queries: two warpgroups
+  // take an image each, in turns on the tensor cores.  Else one image's rows are shared by free-running
+  // warpgroups, three at 64 channels and cq <= 16, else two, in chunks of 128 keys where their registers hold
+  // them (cq <= 64), else 64.  Up to 64 keys every chunk holds all the keys, whichever path takes them, and
+  // keys past nk add exact zeros: so the result goes by nk, cq and c alone, never by nq.
+  const bool narrow = c <= 64 && cqp == 16, half = c <= 64 && cqp <= 64;
+#define PA_ARGS q, k, v, out, b, heads, nq, n, cq, c, sq, sk, sv, stream
+  if (n <= 64 && nq <= 64 && cqp <= 128)
+    return narrow ? launch_wg_cq<64, 2, true, 64, 16>(cqp, PA_ARGS)
+                  : launch_wg_cq<128, 2, true, 64, 16, 32, 64, 128>(cqp, PA_ARGS);
   if (cqp <= 64)
-    return narrow ? launch_wg_cq<64, 3, false, 128, 16>(cqp, q, k, v, out, b, nq, n, cq, c, stream)
-                  : launch_wg_cq<128, 2, false, 128, 16, 32, 64>(cqp, q, k, v, out, b, nq, n, cq, c, stream);
-  return launch_wg_cq<128, 2, false, 64, 128, 256>(cqp, q, k, v, out, b, nq, n, cq, c, stream);
+    return narrow ? launch_wg_cq<64, 3, false, 128, 16>(cqp, PA_ARGS)
+           : half ? launch_wg_cq<64, 2, false, 128, 32, 64>(cqp, PA_ARGS)
+                  : launch_wg_cq<128, 2, false, 128, 16, 32, 64>(cqp, PA_ARGS);
+  return launch_wg_cq<128, 2, false, 64, 128, 256>(cqp, PA_ARGS);
+#undef PA_ARGS
 }

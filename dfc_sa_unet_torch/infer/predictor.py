@@ -18,7 +18,8 @@ note once.
 Under a ``torch.profiler`` session a request's parts are spans (``utils/profiling.py``):
 ``predictor.request`` around ``predictor.stage_in`` (the copy to the card),
 ``predictor.forward`` (normalise, model, sigmoid), ``predictor.gather`` (row bands only) and
-``predictor.read_back`` (the copy to the host, which waits for the forward).
+``predictor.read_back`` (the copy to the host, into page-locked memory, which waits for the
+forward).
 """
 
 import queue
@@ -114,11 +115,25 @@ def _tile_coords(h, w, tile_size, overlap):
     return coords
 
 
+def _to_host(probs: torch.Tensor) -> np.ndarray:
+    """``probs`` as a host array.  From the card the copy lands in page-locked memory from torch's
+    caching host allocator, whose block is taken again once the caller drops the previous answer, so
+    a request maps no fresh pages and the CUDA driver stages nothing: on an H100 host SegFormer's
+    64 MB answer then reads back in 1.4 ms, against 27-78 ms as a pageable copy (PERF.md §6)."""
+    if not probs.is_cuda:
+        return probs.numpy()
+    out = torch.empty(probs.shape, dtype=probs.dtype, pin_memory=True)
+    out.copy_(probs, non_blocking=True)
+    torch.cuda.current_stream(probs.device).synchronize()
+    return out.numpy()
+
+
 class Predictor:
     """Batched forward of a model (an nn.Module or any callable, e.g. a
     DFCEngine) that takes normalised NCHW images and returns NCHW logits.
     Runs on ``device`` (default CUDA, raising without it).  A model with an
-    ``img_dim`` attribute (ViT-seg, TransUNet) is served at that size only.
+    ``img_dim`` attribute (ViT-seg, TransUNet) is served at that size only,
+    one with a ``tile_multiple`` (SegFormer) at multiples of it.
     ``exe_cache_dir``: the directory the CUDA kernels are built in and loaded
     from (``ops/_build.py::set_build_dir``).  ``mesh``: a ``parallel.mesh.ProcessMesh``
     whose ``spatial`` above 1 shards every image's rows over the ranks of a
@@ -183,7 +198,7 @@ class Predictor:
                 with span("predictor.gather"):
                     probs = self._gather_bands(probs, band)
             with span("predictor.read_back"):
-                return probs.cpu().numpy()
+                return _to_host(probs)
 
     def predict_probs(self, images_u8: np.ndarray) -> np.ndarray:
         """[B,H,W,3] uint8 -> [B,H,W] probabilities, the batch run as it is.
@@ -203,12 +218,17 @@ class Predictor:
         return self._forward_u8(np.asarray(images_u8))
 
     def _check_tile(self, tile_size: int):
-        """The transformer families take one input size only (their position
-        embeddings are per patch), so sliding tiles must be that size."""
+        """ViT-seg and TransUNet take one input size only (their position
+        embeddings are per patch), so sliding tiles must be that size; a model
+        with a ``tile_multiple`` (SegFormer: 32) takes any multiple of it."""
         img_dim = getattr(self.model, "img_dim", None)
         if img_dim is not None and tile_size != img_dim:
             raise ValueError(f"{type(self.model).__name__} takes {img_dim}x{img_dim} inputs only: "
                              f"use tile_size={img_dim}, not {tile_size}")
+        multiple = getattr(self.model, "tile_multiple", None)
+        if multiple is not None and tile_size % multiple:
+            raise ValueError(f"{type(self.model).__name__} takes tiles whose side is a multiple of {multiple}, "
+                             f"not {tile_size}")
 
     def predict_single(self, image_u8: np.ndarray) -> np.ndarray:
         """One image at its own resolution (reference inference.py:93-102)."""

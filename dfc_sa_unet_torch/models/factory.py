@@ -9,8 +9,10 @@ ablations (``UNet_Baseline``, ``UNet_AttentionOnly``,
 ``UNet_AdditionFusion``, ``UNet_ConcatFusion``, ``UNet_FullResAttention``,
 ``UNet_EncoderOnlyDFC``, ``UNet_DecoderOnlyDFC``,
 ``UNet_BothStandardConv``) and the transformer zoo,
-``VisionTransformerSegmentation`` and ``TransformerUNet`` / ``TransUNet``.
-Any other name raises ValueError.
+``VisionTransformerSegmentation`` and ``TransformerUNet`` / ``TransUNet``;
+and one the JAX package lacks, ``SegFormer`` (models/segformer.py:
+``embed_dims``, ``depths``, ``num_heads``, ``sr_ratios``, ``mlp_ratio`` and
+``decoder_dim``, MiT-B5's by default).  Any other name raises ValueError.
 
 In JAX a module holds no weights, so the facade returns Flax variables beside
 the model.  A PyTorch module holds its own: here "variables" are the state
@@ -48,6 +50,7 @@ def create_model(config: Mapping[str, Any], dtype=None, use_pallas: bool = False
     any of them as "every encoder layer, ResNet unit and decoder block".
     As in the JAX factory (factory.py:37-45,113-121) it does not reach
     ``UNet`` or the ablations: they keep every activation whatever it says.
+    SegFormer takes it as "every block of the encoder".
     The ablations also ignore ``ablation_on_qk_channels``: their attention
     reduces Q and K to C//8.
 
@@ -96,6 +99,12 @@ def create_model(config: Mapping[str, Any], dtype=None, use_pallas: bool = False
         vit_config["n_classes"] = out_channels
         vit_config["patches_grid"] = (img_size // 16, img_size // 16)
         model = TransUNet(config=vit_config, img_size=img_size, num_classes=out_channels, compute_dtype=dtype,
+                          remat=bool(remat))
+    elif name == "SegFormer":
+        from dfc_sa_unet_torch.models.segformer import B5, SegFormer
+
+        model = SegFormer(in_channels=in_channels, num_classes=out_channels,
+                          **{key: m.get(key, default) for key, default in B5.items()}, compute_dtype=dtype,
                           remat=bool(remat))
     elif name == "VisionTransformerSegmentation":
         from dfc_sa_unet_torch.models.vit_seg import VisionTransformerForSegmentation

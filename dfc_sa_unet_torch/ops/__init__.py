@@ -17,6 +17,7 @@ from dfc_sa_unet_torch.ops.mha import LAUNCHES as _MHA_LAUNCHES
 from dfc_sa_unet_torch.ops.mxu_probes import LAUNCHES as _PROBE_LAUNCHES
 from dfc_sa_unet_torch.ops.pooled_attention import FEWER_QUERIES as _ATTN_FEWER_QUERIES
 from dfc_sa_unet_torch.ops.pooled_attention import LAUNCHES as _ATTN_LAUNCHES
+from dfc_sa_unet_torch.ops.pooled_attention import MORE_QUERIES as _ATTN_MORE_QUERIES
 from dfc_sa_unet_torch.ops.pooling import adaptive_avg_pool, max_pool
 from dfc_sa_unet_torch.ops.resize import resize_bilinear
 
@@ -28,13 +29,17 @@ _COUNTS = (_ATTN_LAUNCHES, _TAIL_LAUNCHES, _MHA_LAUNCHES, _STATS_LAUNCHES, _PROB
 
 
 def reset_launches():
-    """Set every kernel's launch count to 0 (and the pooled attention's count of launches with fewer
-    queries than keys, a part of its own)."""
-    for counts in (*_COUNTS, _ATTN_FEWER_QUERIES):
+    """Set every count of ``launches()`` to 0."""
+    for counts in (*_COUNTS, _ATTN_FEWER_QUERIES, _ATTN_MORE_QUERIES):
         for key in counts:
             counts[key] = 0
 
 
 def launches() -> dict:
-    """{kernel name: launches since the last reset}."""
-    return {name: n for counts in _COUNTS for name, n in counts.items()}
+    """{kernel name: launches since the last reset}, and two parts of the pooled attention's own:
+    ``pooled_attention.fewer_queries`` and ``pooled_attention.more_queries``, its launches with fewer
+    queries than keys (a band's) and with more (SegFormer's)."""
+    counts = {name: n for counts in _COUNTS for name, n in counts.items()}
+    counts["pooled_attention.fewer_queries"] = _ATTN_FEWER_QUERIES["pooled_attention"]
+    counts["pooled_attention.more_queries"] = _ATTN_MORE_QUERIES["pooled_attention"]
+    return counts

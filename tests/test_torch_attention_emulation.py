@@ -17,7 +17,10 @@ kernel (Pallas interpret mode) and against the port's plain version, on bf16
 inputs made with numpy from a seed, at the full-resolution model's shapes with
 B cut to 2, and at a key count that no chunk divides.  A band's queries
 against every key (``nq < nk``, parallel/rows.py) must give the whole map's
-rows bit for bit: the chunks go by key index, never by query.
+rows bit for bit: the chunks go by key index, never by query.  SegFormer's spatial-reduction
+attention takes more queries than keys (``nq > nk``): its heads of 64, the queries scaled by 1/8 as
+its folded scale leaves them, against keys cut by its ratios, held to the JAX package's attention
+core, which takes any two token counts.
 
 Tolerance: 8e-3 of max|reference|.  The two orders differ by bf16 roundings of
 p, which flip the output's last bit here and there: one ulp of the largest
@@ -31,6 +34,7 @@ import torch
 
 import jax.numpy as jnp
 
+from dfc_sa_unet_tpu.ops.attention import _attention_core
 from dfc_sa_unet_tpu.ops.pallas_attention import fused_pooled_attention
 from dfc_sa_unet_torch.ops.attention import pooled_self_attention
 
@@ -105,6 +109,31 @@ def test_a_bands_queries_give_the_whole_maps_rows_bit_for_bit(h, cq, c, bands):
         assert torch.equal(got, whole[:, r0:r0 + step]), r0
         plain = pooled_self_attention(qb, tk, tv).float()
         assert (got.float() - plain).abs().max() <= TOL * plain.abs().max()
+
+
+# (query side, key side, C' = C): SegFormer's heads of 64 at a small tile, keys cut by its ratios 8
+# (32x32 queries against 4x4 keys: one chunk), 2 (24x24 against 12x12 = 144: a chunk of 128 and
+# one of 16) and 1 (16x16 against as many); narrow heads, 40x40 against 5x5
+@pytest.mark.parametrize("hq,hk,c", [(32, 4, 64), (24, 12, 64), (16, 16, 64), (40, 5, 8)],
+                         ids=["ratio8_Nq1024_Nk16", "ratio2_Nq576_Nk144", "ratio1_N256", "C8_Nq1600_Nk25"])
+def test_more_queries_than_keys_match_the_jax_core_and_keep_their_bits_in_any_call(hq, hk, c):
+    """nq >= nk: the emulation within the tolerance of the JAX attention core and of the plain version,
+    and every part of the rows (8 query rows of the map at a time, across the kernel's 64-row tiles)
+    the same bits as the whole call's."""
+    rng = np.random.default_rng(hq * hk + c)
+    q = (rng.standard_normal((2, hq, hq, c)) * 0.125).astype(np.float32)
+    k, v = (rng.standard_normal((2, hk, hk, c)).astype(np.float32) for _ in range(2))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = kernel_order(tq, tk, tv)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, hq, hq, c)
+    jq, jk, jv = (jnp.asarray(a.reshape(2, -1, c), jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(_attention_core(jq, jk, jv), np.float32).reshape(2, hq, hq, c)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=TOL * scale)
+    plain = pooled_self_attention(tq, tk, tv).float().numpy()
+    np.testing.assert_allclose(got.float().numpy(), plain, rtol=0, atol=TOL * scale)
+    for r0 in range(0, hq, 8):
+        assert torch.equal(kernel_order(tq[:, r0:r0 + 8].contiguous(), tk, tv), got[:, r0:r0 + 8]), r0
 
 
 @pytest.mark.parametrize("spread", [0.25, 6.0], ids=["reference_moves_once", "reference_moves_often"])
