@@ -66,7 +66,15 @@ any failure exits non-zero:
    against 1024 keys, heads of 64, k and v the halves of one projection),
    each held to its plain version on two images first, beside SDPA on the
    same heads and with its bound, and the 52 launches of a request summed
-   (``segformer``);
+   (``segformer``); the bias pass of a SegFormer-B5 request (ops/bias_add.py,
+   scripts/bench_torch_bias_add.py: 370 launches at 16 1024x1024 tiles),
+   each biased output's shape held to torch's add_ bit for bit, then timed
+   in place beside it (``bias_add``, shape by shape in ``levels``), and
+   held bit for bit at TransUNet's and the flagship module's shapes in bf16
+   at B=128 and in f32 (TransUNet at B=128, the flagship at phase 8's B=2);
+   every path through the layers of nn/layers.py launches it, and each
+   phase holds its count (``BIAS_LAUNCHES`` a forward, at least one a
+   training step; 0 on the engines' paths);
 8. train at full width through the port's Trainer (train_epoch and
    validate_epoch) on synthetic ellipses made in memory, bce_dice 0.5/0.5
    and SGD as configs/config_dfc-sa-res-block.yaml: the flagship for 16
@@ -336,6 +344,15 @@ DFC_WIDTHS = {"in_channels": 3, "out_channels": 1, "features": [64, 128, 256, 51
 DFC_ZOO = {"UNet": (IMG, 0), "UNet_Baseline": (IMG, 0), "UNet_AttentionOnly": (IMG, 9),
            "UNet_AdditionFusion": (IMG, 9), "UNet_ConcatFusion": (IMG, 9), "UNet_FullResAttention": (64, 9),
            "UNet_EncoderOnlyDFC": (IMG, 5), "UNet_DecoderOnlyDFC": (IMG, 4), "UNet_BothStandardConv": (IMG, 0)}
+# the bias pass's launches (ops/bias_add.py) of one forward of each model's module, by factory name: every
+# biased Dense and conv of nn/layers.py, one call each (a forward on the CPU counts the same calls); the
+# engines add their biases themselves, but the int8 TransUNet keeps its module's patch embedding and
+# segmentation head
+BIAS_LAUNCHES = {"DFC-SA-Res-Block": 64, "VisionTransformerSegmentation": 54, "TransformerUNet": 74, "UNet": 19,
+                 "UNet_Baseline": 10, "UNet_AttentionOnly": 37, "UNet_AdditionFusion": 46, "UNet_ConcatFusion": 55,
+                 "UNet_FullResAttention": 64, "UNet_EncoderOnlyDFC": 40, "UNet_DecoderOnlyDFC": 34,
+                 "UNet_BothStandardConv": 10}
+INT8_BIAS_LAUNCHES = {"VisionTransformerSegmentation": 0, "TransformerUNet": 2}
 DFC_ZOO_F32_BATCH = 8
 DFC_ZOO_CPU_IMAGES = 2
 # phase 11: (model, image size, batch); the full-resolution model's backward recomputes through
@@ -419,10 +436,11 @@ ROWS_F32_TOL = 1e-5
 # pair sharing the card, each rank a band of half the rows, against one process: label -> (config, image side,
 # launches of one forward); the transformers' configs are phase 6's, the full-resolution model's phase 10's
 ROWS17_MODELS = {
-    "ViT-B/16": (ZOO["ViT-seg"][0], IMG, {"fused_mha": 12}),
-    "R50-ViT-B/16": (ZOO["TransUNet"][0], IMG, {"fused_mha_sep": 12}),
-    "UNet_FullResAttention": ({"model": {"name": "UNet_FullResAttention", **DFC_WIDTHS}}, 64, {"pooled_attention": 9}),
-    "UNet bilinear": ({"model": {"name": "UNet", "bilinear": True}}, IMG, {}),
+    "ViT-B/16": (ZOO["ViT-seg"][0], IMG, {"fused_mha": 12, "bias_add": BIAS_LAUNCHES["VisionTransformerSegmentation"]}),
+    "R50-ViT-B/16": (ZOO["TransUNet"][0], IMG, {"fused_mha_sep": 12, "bias_add": BIAS_LAUNCHES["TransformerUNet"]}),
+    "UNet_FullResAttention": ({"model": {"name": "UNet_FullResAttention", **DFC_WIDTHS}}, 64,
+                              {"pooled_attention": 9, "bias_add": BIAS_LAUNCHES["UNet_FullResAttention"]}),
+    "UNet bilinear": ({"model": {"name": "UNet", "bilinear": True}}, IMG, {"bias_add": BIAS_LAUNCHES["UNet"]}),
 }
 # the int8 engines: label -> (the weights' model, image side, launches of one forward); the flagship on phase
 # 16(b)'s one large image, its fp levels on the tail and conv kernels
@@ -430,7 +448,7 @@ ROWS17_INT8 = {
     "int8 flagship": ("flagship", 2048, {"pooled_attention": 9, "lsa_epilogue": 9, "dfc_tail": 4, "conv3x3_bn_relu": 1,
                                          "conv3x3_s8": 4}),
     "int8 ViT-B/16": ("ViT-B/16", IMG, {"fused_mha": 12}),
-    "int8 R50-ViT-B/16": ("R50-ViT-B/16", IMG, {"fused_mha": 12}),
+    "int8 R50-ViT-B/16": ("R50-ViT-B/16", IMG, {"fused_mha": 12, "bias_add": INT8_BIAS_LAUNCHES["TransformerUNet"]}),
 }
 # the bf16 requests' limits against one process, |dlogit| / std: phase 5's, and TransUNet's wider ones of phase 6
 # (its int8 engine keeps the module's bf16 R50 stem), which phase 13 holds the int8 transformers to; the f32
@@ -597,7 +615,8 @@ def gloo_pair_against_one(seed, card, dev, tmp, label, training, run_epochs, spa
     bad = []
     for r, got in enumerate(ranks):
         loss = [s["loss"] for s in got["step_log"]]
-        if got["launches"] != {**{k: 0 for k in got["launches"]}, "pooled_attention": per_step * DP_STEPS}:
+        launched = without_bias(got["launches"], DP_STEPS, f"{label}, rank {r}")
+        if launched != {**{k: 0 for k in launched}, "pooled_attention": per_step * DP_STEPS}:
             bad.append(f"rank {r} launched {got['launches']}")
         if not np.allclose(loss, want_loss, **DP_LOSS_TOL) or len(loss) != DP_STEPS:
             bad.append(f"rank {r} losses {loss} against {want_loss}")
@@ -888,7 +907,8 @@ def accumulation_and_cache(seed, card, dev, fits, fits_ms, run_epochs):
             print(out.stdout[-3000:], out.stderr[-3000:])
             fail(f"phase 15(d): the {label} child failed")
         rec = json.loads(out.stdout.strip().splitlines()[-1])
-        if (rec["launches"] != {**{k: 0 for k in rec["launches"]}, "pooled_attention": 9} or not rec["finite"]
+        if (rec["launches"] != {**{k: 0 for k in rec["launches"]}, "pooled_attention": 9,
+                                "bias_add": BIAS_LAUNCHES[CONFIG["model"]["name"]]} or not rec["finite"]
                 or rec["build_dir"] != os.path.realpath(cache)):
             fail(f"phase 15(d): the {label} child launched {rec['launches']} from {rec['build_dir']}, finite "
                  f"{rec['finite']}")
@@ -1558,6 +1578,14 @@ def model_config(name):
     return {"model": {"name": name, "bilinear": False} if name == "UNet" else {"name": name, **DFC_WIDTHS}}
 
 
+def without_bias(got, least, label):
+    """The launch counts ``got`` without the bias pass's, once those are held to at least ``least``: a
+    training step through the layers of nn/layers.py adds each bias through ops.bias_add's kernel."""
+    if got.get("bias_add", 0) < least:
+        fail(f"{label}: {got.get('bias_add', 0)} bias_add launches, expected at least {least}")
+    return {k: v for k, v in got.items() if k != "bias_add"}
+
+
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -1630,6 +1658,7 @@ def main():
     from dfc_sa_unet_torch.data.normalize import normalize
     from dfc_sa_unet_torch.data.synthetic import samples
     from dfc_sa_unet_torch.utils.weights import calibrate_batch_stats_, init_random_, load_state_dict_file
+    from scripts import bench_torch_bias_add as bias_bench
     from scripts import bench_torch_bn_stats as probe
     from scripts import bench_torch_conv3x3 as conv_bench
     from scripts import bench_torch_dfc_tail as tail_bench
@@ -1711,7 +1740,7 @@ def main():
 
     max_err = {"pooled_attention": 0.0, "dfc_tail": 0.0, "conv3x3_bn_relu": 0.0, "fused_mha": 0.0,
                "fused_mha_sep": 0.0, "conv3x3_bias_stats": 0.0, "probe_matmul": 0.0, "probe_conv_cat": 0.0,
-               "probe_conv_9dot": 0.0, "conv3x3_s8": 0.0, "lsa_epilogue": 0.0}
+               "probe_conv_9dot": 0.0, "conv3x3_s8": 0.0, "lsa_epilogue": 0.0, "bias_add": 0.0}
     bad = []
 
     def check(name, kernel, plain, args, label, poison=(), floor=1.0):
@@ -1909,7 +1938,7 @@ def main():
         return Predictor(fwd, compute_dtype=dtype, device=dev)
 
     none = {name: 0 for name in launches()}
-    per_forward = {"module": {**none, "pooled_attention": 9},
+    per_forward = {"module": {**none, "pooled_attention": 9, "bias_add": BIAS_LAUNCHES[CONFIG["model"]["name"]]},
                    "engine": {**none, "pooled_attention": 9, "lsa_epilogue": 9, "dfc_tail": 7, "conv3x3_bn_relu": 2}}
     reset_launches()  # the flagship's main path starts here (phases 4 and 5)
     probs = {}
@@ -1940,10 +1969,13 @@ def main():
     pred_module = serving(torch.bfloat16, engine=False)
     requests = [(f"req{i}", rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)) for i in range(3)]
     t0 = time.perf_counter()
+    bias_before = launches()["bias_add"]
     with torch.inference_mode():
         served = list(pred_engine.predict_sliding_stream(iter(requests), tta=True))
+        engine_bias = launches()["bias_add"] - bias_before
         ref = pred_module.predict_sliding(requests[0][1], tta=True)
     torch.cuda.synchronize()
+    module_bias = launches()["bias_add"] - bias_before - engine_bias
     print(f"[5] {len(served)} requests of 512x512 with TTA through the bf16 engine in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for (key, p), (want_key, _) in zip(served, requests):
@@ -1959,9 +1991,16 @@ def main():
         fail(f"request logit std {req_std:.3e} < {MIN_LOGIT_STD}")
     if not (req_diff.max() <= DLOGIT_TOL_BF16["max"] and req_diff.mean() <= DLOGIT_TOL_BF16["mean"]):
         fail("bf16 engine and module disagree on a request")
+    per_module = BIAS_LAUNCHES[CONFIG["model"]["name"]]
+    print(f"    bias_add launches: the engine's requests {engine_bias}, the module's request {module_bias} "
+          f"({module_bias / per_module:g} forwards of {per_module})", flush=True)
+    if engine_bias or module_bias < per_module or module_bias % per_module:
+        fail(f"phase 5: bias_add launched {engine_bias} times on the engine's requests and {module_bias} on the "
+             f"module's, expected none and whole forwards of {per_module}")
     main_launches = launches()  # the flagship's main path ends here
     print(f"    flagship main-path launches: {main_launches}", flush=True)
-    if min(main_launches[k] for k in ("pooled_attention", "lsa_epilogue", "dfc_tail", "conv3x3_bn_relu")) < 1:
+    if min(main_launches[k] for k in ("pooled_attention", "lsa_epilogue", "dfc_tail", "conv3x3_bn_relu",
+                                      "bias_add")) < 1:
         fail(f"a kernel of the flagship's main path never launched: {main_launches}")
 
     # ------------------------------------------------------------ phase 6
@@ -1984,8 +2023,9 @@ def main():
                 zoo_probs[dn] = pred.predict_probs(batch)
             delta = {k: v - before[k] for k, v in launches().items()}
             print(f"    {label} {dn}: probs {zoo_probs[dn].shape}, launches {delta}", flush=True)
-            if delta != {**none, kernel_name: LAYERS}:
-                fail(f"{label} forward launched {delta}, expected {LAYERS} of {kernel_name} alone")
+            want = {**none, kernel_name: LAYERS, "bias_add": BIAS_LAUNCHES[cfg["model"]["name"]]}
+            if delta != want:
+                fail(f"{label} forward launched {delta}, expected {want}")
             if zoo_probs[dn].shape != (BATCH, IMG, IMG) or not np.isfinite(zoo_probs[dn]).all():
                 fail(f"{label} {dn} probabilities: shape {zoo_probs[dn].shape} or non-finite values")
         zoo_pred[label] = pred  # the bf16 predictor, timed in phase 7
@@ -2011,7 +2051,7 @@ def main():
         del cpu_fwd, fwd, zoo_weights
     zoo_launches = launches()  # the transformers' main path ends here
     print(f"    transformer main-path launches: {zoo_launches}", flush=True)
-    if min(zoo_launches[k] for k in ("fused_mha", "fused_mha_sep")) < 1:
+    if min(zoo_launches[k] for k in ("fused_mha", "fused_mha_sep", "bias_add")) < 1:
         fail(f"a kernel of the transformers' main path never launched: {zoo_launches}")
     main_launches = {k: main_launches[k] + zoo_launches[k] for k in main_launches}
 
@@ -2121,6 +2161,32 @@ def main():
               f"{rows['lsa_epilogue']['plain_ms']:.4f} ms  F.interpolate + the torch island "
               f"{rows['lsa_epilogue']['library_ms']:.4f} ms  bound {rows['lsa_epilogue']['bound_ms']:.4f} ms ({card})",
               flush=True)
+
+        # the bias pass of one SegFormer-B5 request (16 1024x1024 tiles): each biased output's shape held to
+        # torch's add_ bit for bit, then timed in place beside it, times its launches a request; torch's add_ is
+        # both the plain version and the yardstick
+        bias_levels = bias_bench.measure("segformer", timed, 10, gen)
+        for r in bias_levels:
+            n = r["launches"]
+            add("bias_add", r["label"], n * r["ms"], n * r["torch_ms"], n * r["torch_ms"], n * r["bytes"], 0)
+            max_err["bias_add"] = max(max_err["bias_add"], r["max_abs_err"])
+            if not r["same_bits"]:
+                bad.append(f"bias_add segformer {r['label']} {r['shape']}")
+        bias_request = bias_bench.totals(bias_levels)
+        print(f"    bias_add, a SegFormer-B5 request's {bias_request['launches']} launches: kernel "
+              f"{bias_request['ms']:.4f} ms  torch's add_ {bias_request['torch_ms']:.4f} ms  bound "
+              f"{bias_request['bound_ms']:.4f} ms ({card})", flush=True)
+        # and bit for bit at the shapes the other paths give it: TransUNet and the flagship module in bf16 at
+        # B=128, TransUNet in f32 at B=128 and the flagship module at phase 8's f32 training batch
+        for model, dtype, b in (("transunet", torch.bfloat16, BATCH), ("transunet", torch.float32, BATCH),
+                                ("flagship", torch.bfloat16, BATCH), ("flagship", torch.float32, F32_TRAIN_BATCH)):
+            held = bias_bench.measure(model, None, 0, gen, dtype, batch=b)
+            for r in held:
+                max_err["bias_add"] = max(max_err["bias_add"], r["max_abs_err"])
+                if not r["same_bits"]:
+                    bad.append(f"bias_add {model} {dtype} {r['label']} {r['shape']}")
+            print(f"    bias_add at {model}'s {len(held)} shapes, {str(dtype).split('.')[-1]} B={b}: "
+                  f"{sum(r['same_bits'] for r in held)} the same bits as torch's add_", flush=True)
 
         # one forward of either transformer launches its kernel LAYERS times at this shape
         head_dim = EMBED // HEADS
@@ -2255,12 +2321,13 @@ def main():
 
     def run_epochs(trainer, epochs, kernel_name, per_step, label):
         """train_epoch over ``epochs``: every step finite and applied, ``per_step`` launches of
-        ``kernel_name`` a step and of nothing else."""
+        ``kernel_name`` a step and of nothing else but the bias pass, at least once a step."""
         for epoch in epochs:
             before, n0 = launches(), len(trainer.step_log)
             trainer.train_epoch(epoch)
             steps = len(trainer.step_log) - n0
-            delta = {k: v - before[k] for k, v in launches().items() if v != before[k]}
+            delta = without_bias({k: v - before[k] for k, v in launches().items() if v != before[k]}, steps,
+                                 f"{label}: epoch {epoch}")
             if steps != len(trainer.train_loader) or trainer.last_epoch_applied != steps:
                 fail(f"{label}: epoch {epoch} applied {trainer.last_epoch_applied} of {steps} steps")
             if not all(m["finite"] and np.isfinite(m["loss"]) for m in trainer.step_log[n0:]):
@@ -2332,9 +2399,9 @@ def main():
         print(f"    {os.path.basename(path)} through ModelFactory.get_model_and_variables, served through the "
               f"Predictor: launches {delta}, max |dprob| against the served best_model {d_facade:.2e} (tol 1e-5)",
               flush=True)
-        if facade_sd is None or delta != {"pooled_attention": 9}:
+        if facade_sd is None or delta != {"pooled_attention": 9, "bias_add": BIAS_LAUNCHES[CONFIG["model"]["name"]]}:
             fail(f"the facade's model of {path} loaded {facade_sd is not None} and launched {delta}, expected 9 "
-                 f"pooled_attention")
+                 f"pooled_attention and the module's bias_add launches")
         if facade_probs.shape != best_probs.shape or not np.isfinite(facade_probs).all() or d_facade > 1e-5:
             fail(f"the facade's model of {path} disagrees with the served best_model")
         del facade_model, facade_sd
@@ -2397,7 +2464,7 @@ def main():
         torch.cuda.empty_cache()
     close_run()  # the training main path ends here
     print(f"    training main-path launches: {train_launches}", flush=True)
-    if min(train_launches[k] for k in ("pooled_attention", "fused_mha", "fused_mha_sep")) < 1:
+    if min(train_launches[k] for k in ("pooled_attention", "fused_mha", "fused_mha_sep", "bias_add")) < 1:
         fail(f"a kernel of the training path never launched: {train_launches}")
     main_launches = {k: main_launches[k] + train_launches[k] for k in main_launches}
     tmp.cleanup()
@@ -2454,8 +2521,9 @@ def main():
             with torch.inference_mode():
                 zoo_probs[dn] = pred.predict_probs(images[:n_img])
             delta = {k: v - before[k] for k, v in launches().items()}
-            if delta != {**none, "pooled_attention": per_fwd}:
-                fail(f"{name} {dn} forward launched {delta}, expected {per_fwd} of pooled_attention alone")
+            if delta != {**none, "pooled_attention": per_fwd, "bias_add": BIAS_LAUNCHES[name]}:
+                fail(f"{name} {dn} forward launched {delta}, expected {per_fwd} of pooled_attention and "
+                     f"{BIAS_LAUNCHES[name]} of bias_add")
             if zoo_probs[dn].shape != (n_img, size, size) or not np.isfinite(zoo_probs[dn]).all():
                 fail(f"{name} {dn} probabilities: shape {zoo_probs[dn].shape} or non-finite values")
             if dtype == torch.bfloat16:
@@ -2686,7 +2754,8 @@ def main():
                                    calib_percentile=pct, holdout_batch=held8)
             self_check(tag, q_zoo)
             pred = Predictor(q_zoo, compute_dtype=bf, device=dev)
-            zoo_probs[pct] = serve(f"{tag} bf16", pred, {"fused_mha": LAYERS})
+            zoo_probs[pct] = serve(f"{tag} bf16", pred,
+                                   {"fused_mha": LAYERS, "bias_add": INT8_BIAS_LAUNCHES[cfg["model"]["name"]]})
             if pct is None:
                 pred_q = pred  # the gated one, timed below
             del q_zoo, pred
@@ -2774,9 +2843,11 @@ def main():
                # no Pallas kernel: the JAX int8 engine's s8 3x3 conv is an XLA convolution
                "conv3x3_s8": ("dfc_sa_unet_torch/csrc/conv3x3_s8.cu", "dfc_sa_unet_tpu/infer/quant.py:240"),
                # no Pallas kernel: XLA fuses the upsample, gamma and the residual add of the JAX engine's attention
-               "lsa_epilogue": ("dfc_sa_unet_torch/csrc/lsa_epilogue.cu", "dfc_sa_unet_tpu/infer/engine.py:161")}
+               "lsa_epilogue": ("dfc_sa_unet_torch/csrc/lsa_epilogue.cu", "dfc_sa_unet_tpu/infer/engine.py:161"),
+               # no Pallas kernel: XLA fuses each layer's bias add into the ops around it
+               "bias_add": ("dfc_sa_unet_torch/csrc/bias_add.cu", "dfc_sa_unet_tpu/nn/layers.py")}
     levels = {"dfc_tail": tail_levels, "conv3x3_bn_relu": conv_levels, "conv3x3_bias_stats": stats_levels,
-              "conv3x3_s8": s8_levels, "lsa_epilogue": lsa_levels}
+              "conv3x3_s8": s8_levels, "lsa_epilogue": lsa_levels, "bias_add": bias_levels}
     kernels = []
     for name, r in rows.items():
         terms = {"bytes": r["bytes"] / HBM_BYTES_PER_S, "operations": r["ops"] / r["peak"],

@@ -17,6 +17,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from dfc_sa_unet_torch.ops.bias_add import bias_add
 from dfc_sa_unet_torch.ops.convt import conv_transpose_2x2
 from dfc_sa_unet_torch.ops.dropout import recomputing
 from dfc_sa_unet_torch.parallel import rows
@@ -75,14 +76,14 @@ class _CrossReplicaNorm(torch.autograd.Function):
 
 
 class _AddBias(torch.autograd.Function):
-    """``y.add_(bias)`` whose backward sums the bias gradient in f32: plain
+    """``y.add_(bias)`` (``ops.bias_add``) whose backward sums the bias gradient in f32: plain
     autograd would reduce a bf16 ``grad_y`` to a bf16 sum before the cast."""
 
     @staticmethod
     def forward(ctx, y, bias):
         ctx.mark_dirty(y)
         ctx.bias_shape = bias.shape
-        return y.add_(bias)
+        return bias_add(y, bias)
 
     @staticmethod
     def backward(ctx, grad):
@@ -98,12 +99,13 @@ def add_bias_(y, bias):
     as ``(y + bias).to(y.dtype)``, which takes two passes and an f32 copy).
     Safe under autograd: a conv or a matrix product saves its inputs, not
     its output, and the bias gradient is summed in f32 as it would be for the
-    out-of-place sum."""
+    out-of-place sum.  On a card the pass is ``ops.bias_add``'s kernel, the
+    same bits as ``y.add_(bias)``."""
     if bias is None:
         return y
     if torch.is_grad_enabled() and (y.requires_grad or bias.requires_grad):
         return _AddBias.apply(y, bias)
-    return y.add_(bias)
+    return bias_add(y, bias)
 
 
 class Conv(nn.Conv2d):

@@ -4,10 +4,12 @@ Plain ops take NCHW tensors (the model's layout, stored channels_last);
 the kernel wrappers (``pooled_attention``, ``dfc_tail``, ``conv_bn_stats``, the convs of
 ``mxu_probes``, ``conv_s8``, ``lsa_epilogue``) take NHWC, the
 JAX layout, which is a contiguous ``permute(0, 2, 3, 1)`` view of a
-channels_last tensor; ``mha`` takes token tensors ``[B,N,E]``.
+channels_last tensor; ``mha`` takes token tensors ``[B,N,E]``; ``bias_add`` a product in the
+layer's layout and its bias as torch broadcasts it.
 """
 
 from dfc_sa_unet_torch.ops.attention import full_res_self_attention, pooled_self_attention
+from dfc_sa_unet_torch.ops.bias_add import LAUNCHES as _BIAS_LAUNCHES
 from dfc_sa_unet_torch.ops.conv_bn_stats import LAUNCHES as _STATS_LAUNCHES
 from dfc_sa_unet_torch.ops.conv_s8 import LAUNCHES as _S8_LAUNCHES
 from dfc_sa_unet_torch.ops.convt import conv_transpose_2x2
@@ -25,7 +27,7 @@ __all__ = ["adaptive_avg_pool", "conv_transpose_2x2", "full_res_self_attention",
            "pooled_self_attention", "reset_launches", "resize_bilinear"]
 
 _COUNTS = (_ATTN_LAUNCHES, _TAIL_LAUNCHES, _MHA_LAUNCHES, _STATS_LAUNCHES, _PROBE_LAUNCHES, _S8_LAUNCHES,
-           _LSA_LAUNCHES)
+           _LSA_LAUNCHES, _BIAS_LAUNCHES)
 
 
 def reset_launches():

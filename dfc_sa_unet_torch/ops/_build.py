@@ -27,7 +27,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # exported C functions: name -> (source stem, argtypes); every one returns
 # cudaGetLastError() as an int
 SIGNATURES = {
@@ -57,6 +57,8 @@ SIGNATURES = {
     "conv3x3_s8_halo_f32": ("conv3x3_s8", [_P] * 7 + [_I] * 6 + [_P]),
     "lsa_epilogue_f32": ("lsa_epilogue", [_P] * 4 + [_I] * 8 + [_P]),
     "lsa_epilogue_bf16": ("lsa_epilogue", [_P] * 4 + [_I] * 8 + [_P]),
+    "bias_add_f32": ("bias_add", [_P, _P, _L, _I, _L, _P]),
+    "bias_add_bf16": ("bias_add", [_P, _P, _L, _I, _L, _P]),
 }
 
 _functions = None
