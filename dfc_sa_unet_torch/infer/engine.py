@@ -208,25 +208,52 @@ class DFCEngine:
 
             range_tap(ranges, key, t, getattr(self, "calib_percentile", None))
 
-    def _tail_lax(self, d, local, a, x, name=None, ranges=None):
+    # The block's steps, each written once; the int8 engine (infer/quant.py) overrides a step only to
+    # run it in s8.  ``q`` is what its steps read beside x: None here and while calibrating.
+
+    def _quantized(self, name, x, ranges):
+        """What the int8 engine's steps of block ``name`` read beside its input x; None: every step fp."""
+        return None
+
+    def _a0(self, name, x, q=None):
+        """The attention branch's 1x1 conv + BatchNorm (folded) + ReLU."""
+        return torch.relu(_conv(x, *self.blocks[name]["attn0"]).float()).to(x.dtype)
+
+    def _local(self, name, x, q=None):
+        """The 3x3 conv + BatchNorm (folded) + ReLU: the conv kernel at ``conv_kernel_levels``, else a
+        bias-free cuDNN conv in the compute dtype, then the +bc / ReLU epilogue."""
+        d = self.blocks[name]
+        if name in self.conv_kernel_levels:
+            top, bottom = self._halo(x)
+            return nchw(conv3x3_bn_relu(nhwc(x), d["wc"], d["conv"][1], top=top, bottom=bottom))
+        y3 = rows.conv3x3(x, d["conv"][0]).to(x.dtype)
+        return torch.relu(y3.float() + d["conv"][1].view(-1, 1, 1)).to(x.dtype)
+
+    def _gate(self, name, combined, q=None):
+        """The gate's 1x1 conv + BatchNorm + sigmoid of [local|a], in f32."""
+        return torch.sigmoid(_conv(combined, *self.blocks[name]["kg"]).float())
+
+    def _fuse(self, name, cat3, q=None):
+        """The fusion's 1x1 conv + BatchNorm + ReLU of [fused|local|a], in f32."""
+        return torch.relu(_conv(cat3, *self.blocks[name]["kf"]).float())
+
+    def _residual(self, name, o, x, q=None):
+        """o plus the residual of x: its 1x1 conv with res_scale folded in, or res_scale * x."""
+        d = self.blocks[name]
+        if d["kr"] is not None:
+            return o + F.conv2d(x, d["kr"])
+        return o + d["res_scale"] * x.float()
+
+    def _tail_lax(self, name, local, a, x, q=None, ranges=None):
         """The module tail with BN folded: concat + 1x1 convs.  With ``ranges`` the int8
         quantization points c2 (combined) and c3 (cat3) are recorded."""
         combined = torch.cat([local, a], 1)
         self._tap(ranges, f"{name}.c2", combined)
-        g = torch.sigmoid(_conv(combined, *d["kg"]).float())
+        g = self._gate(name, combined, q)
         fused = (g * local.float() + (1.0 - g) * a.float()).to(local.dtype)
         cat3 = torch.cat([fused, combined], 1)
         self._tap(ranges, f"{name}.c3", cat3)
-        o = torch.relu(_conv(cat3, *d["kf"]).float())
-        if d["kr"] is not None:
-            o = o + F.conv2d(x, d["kr"])
-        else:
-            o = o + d["res_scale"] * x.float()
-        return o.to(local.dtype)
-
-    def _attn_branch(self, d, x):
-        a = torch.relu(_conv(x, *d["attn0"]).float()).to(x.dtype)
-        return self._lsa(d["lsa"], a)
+        return self._residual(name, self._fuse(name, cat3, q), x, q).to(local.dtype)
 
     def _block(self, name, x, ranges=None):
         """Block ``name``.  With ``ranges`` (calibration) its input x is recorded as ``{name}.x`` and
@@ -234,21 +261,15 @@ class DFCEngine:
         d = self.blocks[name]
         self._tap(ranges, f"{name}.x", x)
         with span("engine.attn_branch", timed=True):
-            a = self._attn_branch(d, x)
+            q = self._quantized(name, x, ranges)
+            a = self._lsa(d["lsa"], self._a0(name, x, q))
         with span("engine.local_tail", timed=True):
             if ranges is None and name in self.tail_kernel_levels:
                 top, bottom = self._halo(x)
                 out = dfc_tail(nhwc(x), nhwc(a), d["wc"], d["conv"][1], d["wg"], d["kg"][1],
                                d["wf"], d["kf"][1], d["wr"], top=top, bottom=bottom)
                 return nchw(out)
-            if name in self.conv_kernel_levels:
-                top, bottom = self._halo(x)
-                local = nchw(conv3x3_bn_relu(nhwc(x), d["wc"], d["conv"][1], top=top, bottom=bottom))
-            else:
-                # bias-free 3x3 conv in the compute dtype, then the +bc/ReLU epilogue
-                y3 = rows.conv3x3(x, d["conv"][0]).to(x.dtype)
-                local = torch.relu(y3.float() + d["conv"][1].view(-1, 1, 1)).to(x.dtype)
-            return self._tail_lax(d, local, a, x, name, ranges)
+            return self._tail_lax(name, self._local(name, x, q), a, x, q, ranges)
 
     def _fwd(self, x, ranges=None):
         """The one forward: serving (``ranges`` None) and int8 calibration (``ranges`` a dict that

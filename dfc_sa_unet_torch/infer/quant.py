@@ -17,7 +17,9 @@ Post-training quantization, as the JAX engine does it:
 
 ``Int8DFCEngine`` is the port's ``DFCEngine`` with the chosen levels served
 in int8; the others run as the fp engine, on the tail and conv kernels where
-``tail_kernel_levels`` / ``conv_kernel_levels`` say so.  Calibration runs the
+``tail_kernel_levels`` / ``conv_kernel_levels`` say so.  It overrides only the
+block steps it runs in s8 (``_a0``, ``_local``, ``_gate``, ``_fuse``,
+``_residual``) and calls DFCEngine's for every op its op set leaves out.  Calibration runs the
 fp engine's own forward with range taps (``DFCEngine._fwd``) on the engine's
 device.  ``int8_self_check`` compares the int8 engine with the fp
 probabilities captured during calibration.
@@ -37,14 +39,10 @@ from typing import Any, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from dfc_sa_unet_torch.infer.engine import (AUTO_CONV_LEVELS, AUTO_TAIL_LEVELS, BLOCKS, DFCEngine, _conv,
-                                            _levels, fold_block)
+from dfc_sa_unet_torch.infer.engine import AUTO_CONV_LEVELS, AUTO_TAIL_LEVELS, BLOCKS, DFCEngine, _levels, fold_block
 from dfc_sa_unet_torch.models.blocks import nchw, nhwc
 from dfc_sa_unet_torch.ops.conv_s8 import conv3x3_s8, pack_s8_taps, s8_matmul
-from dfc_sa_unet_torch.parallel import rows
-from dfc_sa_unet_torch.utils.profiling import span
 
 _ALL_OPS = frozenset({"conv", "attn0", "gate", "fuse", "res"})
 PROBE_INT8_OPS = {
@@ -283,73 +281,58 @@ class Int8DFCEngine(Calibrated, DFCEngine):
             self.qblocks[name] = {key: (w8.to(self.device), s.to(self.device)) for key, (w8, s) in q.items()}
         return self._cast_block(f)
 
-    def _x_branches(self, name, x):
-        """What int8 level ``name`` computes from its input x alone: (x8, local, a0).  x8 is x
-        quantized (None where no op reads it); local the 3x3 conv + BN (folded) + ReLU, on the s8
-        kernel with its f32 epilogue or fp; a0 the attention branch's 1x1 conv + BN + ReLU, s8 or fp.
-        Given the same x, the s8 ones are the same bits on any device."""
-        x8 = self._x8(name, x)
-        return x8, self._local(name, x, x8), self._a0(name, x, x8)
+    # The steps the level's op set runs in s8, each on its f32 epilogue; every other op is DFCEngine's.
 
-    def _x8(self, name, x):
-        if self.int8_ops[name] & {"conv", "attn0", "res"}:
-            return quantize_act(nhwc(x), self.act_scales[f"{name}.x"])
-        return None
-
-    def _local(self, name, x, x8):
-        d, dt = self.blocks[name], x.dtype
-        if "conv" in self.int8_ops[name]:
-            w8, s3 = self.qblocks[name]["conv"]
-            # under a band of rows the neighbours' s8 rows: the scale is static and per tensor, so they
-            # are the rows the neighbours quantized, in half the bytes of the compute dtype's
-            top, bottom = self._halo(nchw(x8))
-            return nchw(conv3x3_s8(x8, w8, self.act_scales[f"{name}.x"] * s3, d["conv"][1], out_dtype=dt,
-                                   top=top, bottom=bottom))
-        y3 = rows.conv3x3(x, d["conv"][0]).to(dt)
-        return torch.relu(y3.float() + d["conv"][1].view(-1, 1, 1)).to(dt)
-
-    def _a0(self, name, x, x8):
-        d, dt = self.blocks[name], x.dtype
-        if "attn0" in self.int8_ops[name]:
-            wa, sa = self.qblocks[name]["attn0"]
-            return nchw(torch.relu(s8_matmul(x8, wa, self.act_scales[f"{name}.x"] * sa, d["attn0"][1])).to(dt))
-        return torch.relu(_conv(x, *d["attn0"]).float()).to(dt)
-
-    def _block(self, name, x, ranges=None):
-        """The fp engine's block with the level's int8 ops, under the same two spans: the attention
-        branch's (with x's quantization, which the 3x3 conv and the residual read too) and the
-        local conv's and the tail's."""
+    def _quantized(self, name, x, ranges):
+        """Serving an int8 level: (its op set, x quantized once for the conv, attn0 and the residual, None
+        where none of them is s8); None at the fp levels and while calibrating, which runs the fp math."""
         ops = self.int8_ops.get(name)
-        if ranges is not None or not ops:  # calibration runs the fp math (and its taps)
-            return super()._block(name, x, ranges)
-        d, q, dt = self.blocks[name], self.qblocks[name], x.dtype
-        with span("engine.attn_branch", timed=True):
-            x8 = self._x8(name, x)
-            a = self._lsa(d["lsa"], self._a0(name, x, x8))
-        with span("engine.local_tail", timed=True):
-            local = self._local(name, x, x8)
-            combined = torch.cat([local, a], 1)
-            if "gate" in ops:
-                sc2 = self.act_scales[f"{name}.c2"]
-                wg, sg = q["kg"]
-                g = nchw(torch.sigmoid(s8_matmul(quantize_act(nhwc(combined), sc2), wg, sc2 * sg, d["kg"][1])))
-            else:
-                g = torch.sigmoid(_conv(combined, *d["kg"]).float())
-            fused = (g * local.float() + (1.0 - g) * a.float()).to(dt)
+        if ranges is not None or not ops:
+            return None
+        return ops, quantize_act(nhwc(x), self.act_scales[f"{name}.x"]) if ops & {"conv", "attn0", "res"} else None
 
-            cat3 = torch.cat([fused, combined], 1)
-            if "fuse" in ops:
-                sc3 = self.act_scales[f"{name}.c3"]
-                wf, sf = q["kf"]
-                o = nchw(torch.relu(s8_matmul(quantize_act(nhwc(cat3), sc3), wf, sc3 * sf, d["kf"][1])))
-            else:
-                o = torch.relu(_conv(cat3, *d["kf"]).float())
+    def _x_branches(self, name, x):
+        """What int8 level ``name`` computes from its input x alone: (x8, local, a0).  Given the same x,
+        the s8 ones are the same bits on any device."""
+        q = self._quantized(name, x, None)
+        return q[1], self._local(name, x, q), self._a0(name, x, q)
 
-            if d["kr"] is None:
-                o = o + d["res_scale"] * x.float()
-            elif "res" in ops:
-                wr, sr = q["kr"]
-                o = o + nchw(s8_matmul(x8, wr, self.act_scales[f"{name}.x"] * sr))
-            else:
-                o = o + F.conv2d(x, d["kr"]).float()
-            return o.to(dt)
+    def _a0(self, name, x, q=None):
+        if q is None or "attn0" not in q[0]:
+            return super()._a0(name, x, q)
+        wa, sa = self.qblocks[name]["attn0"]
+        y = s8_matmul(q[1], wa, self.act_scales[f"{name}.x"] * sa, self.blocks[name]["attn0"][1])
+        return nchw(torch.relu(y).to(x.dtype))
+
+    def _local(self, name, x, q=None):
+        if q is None or "conv" not in q[0]:
+            return super()._local(name, x, q)
+        w8, s3 = self.qblocks[name]["conv"]
+        # under a band of rows the neighbours' s8 rows: the scale is static and per tensor, so they are
+        # the rows the neighbours quantized, in half the bytes of the compute dtype's
+        top, bottom = self._halo(nchw(q[1]))
+        return nchw(conv3x3_s8(q[1], w8, self.act_scales[f"{name}.x"] * s3, self.blocks[name]["conv"][1],
+                               out_dtype=x.dtype, top=top, bottom=bottom))
+
+    def _product(self, name, t, key, tap):
+        """The s8 1x1 conv ``key`` of t, on the scale calibrated at ``{name}.{tap}``: f32, before its
+        activation."""
+        sc = self.act_scales[f"{name}.{tap}"]
+        w8, s = self.qblocks[name][key]
+        return nchw(s8_matmul(quantize_act(nhwc(t), sc), w8, sc * s, self.blocks[name][key][1]))
+
+    def _gate(self, name, combined, q=None):
+        if q is None or "gate" not in q[0]:
+            return super()._gate(name, combined, q)
+        return torch.sigmoid(self._product(name, combined, "kg", "c2"))
+
+    def _fuse(self, name, cat3, q=None):
+        if q is None or "fuse" not in q[0]:
+            return super()._fuse(name, cat3, q)
+        return torch.relu(self._product(name, cat3, "kf", "c3"))
+
+    def _residual(self, name, o, x, q=None):
+        if q is None or "res" not in q[0] or self.blocks[name]["kr"] is None:
+            return super()._residual(name, o, x, q)
+        wr, sr = self.qblocks[name]["kr"]
+        return o + nchw(s8_matmul(q[1], wr, self.act_scales[f"{name}.x"] * sr))

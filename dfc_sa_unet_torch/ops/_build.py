@@ -1,4 +1,4 @@
-"""Build and load the hand-written CUDA kernels of ``dfc_sa_unet_torch/csrc``.
+"""Build, load and call the hand-written CUDA kernels of ``dfc_sa_unet_torch/csrc``.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface and loaded with ``ctypes``
@@ -9,6 +9,14 @@ kernel, never at import.  Libraries land in ``dfc_sa_unet_torch/_build/``
 ``--exe_cache``), under a name that carries a hash of the sources, the
 flags and ``nvcc --version``, so an edited source or a new toolkit is
 rebuilt and a stale library is never loaded.
+
+This module is also the one seam through which the wrappers of ``ops/`` call a kernel: ``on_cpu``
+(every operand on the CPU: the wrapper runs its plain version), ``check_operands`` (the device,
+dtype, layout and grad rules they share), ``launch`` (the entry point on the current stream, its
+error checked, the launch counted in ``LAUNCHES``) and ``PlainBackward`` (a kernel's forward under
+autograd, its backward recomputed through the plain version).  Adding a kernel takes a
+``csrc/<name>.cu``, its ``SIGNATURES`` lines with its counted name in ``LAUNCHES`` beside them, and a
+wrapper that calls these.
 """
 
 import ctypes
@@ -60,6 +68,13 @@ SIGNATURES = {
     "bias_add_f32": ("bias_add", [_P, _P, _L, _I, _L, _P]),
     "bias_add_bf16": ("bias_add", [_P, _P, _L, _I, _L, _P]),
 }
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}  # the entry points' dtype suffixes
+
+# {counted name: launches since the last reset}, which ops.launches() shows
+LAUNCHES = dict.fromkeys((
+    "pooled_attention", "conv3x3_bn_relu", "dfc_tail", "fused_mha", "fused_mha_sep", "conv3x3_bias_stats",
+    "probe_matmul", "probe_conv_cat", "probe_conv_9dot", "conv3x3_s8", "lsa_epilogue", "bias_add",
+    "pooled_attention.fewer_queries", "pooled_attention.more_queries"), 0)
 
 _functions = None
 _loaded_from = None  # the directory the loaded libraries came from
@@ -147,3 +162,90 @@ def check(err: int, name: str):
 
 def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launches() -> dict:
+    """{kernel name: launches since the last reset}, and two parts of the pooled attention's own:
+    ``pooled_attention.fewer_queries`` and ``pooled_attention.more_queries``, its launches with fewer
+    queries than keys (a band's) and with more (SegFormer's)."""
+    return dict(LAUNCHES)
+
+
+def reset_launches() -> None:
+    """Set every count of ``launches()`` to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch(entry: str, counted: tuple, device, *args) -> None:
+    """Launch the C function ``entry`` of SIGNATURES on ``args`` and ``device``'s current stream, raise
+    where it returns an error, and count the launch under each name of ``counted`` in LAUNCHES."""
+    err = kernel(entry)(*args, stream_handle(device))
+    if err:
+        check(err, entry)
+    for name in counted:
+        LAUNCHES[name] += 1
+
+
+def on_cpu(*tensors) -> bool:
+    """Whether every tensor given (None: a halo row not given) lies on the CPU, where a wrapper runs its
+    plain version; a wrapper given tensors elsewhere launches its kernel or raises, it never falls back."""
+    for t in tensors:
+        if t is not None and t.device.type != "cpu":
+            return False
+    return True
+
+
+def check_operands(name: str, operands, contiguous: bool = True, aligned: bool = False, no_grad=()) -> None:
+    """Raise unless kernel ``name`` takes ``operands``, (label, tensor, dtype) triples checked one after
+    another: each on the CUDA device of the first (ValueError), of its dtype (TypeError; None: the
+    compute dtype, the first operand's, f32 or bf16), contiguous where ``contiguous`` and starting
+    16-byte aligned where ``aligned`` (ValueError).  Then NotImplementedError where grad is enabled and
+    a tensor of ``no_grad`` requires it: those kernels have no backward."""
+    label0, first, dtype0 = operands[0]
+    dev, compute = first.device, first.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: {label0} is on {dev}; the kernel takes CUDA tensors")
+    if dtype0 is None and compute not in SUFFIX:
+        raise TypeError(f"{name}: {label0} is {compute}; the kernel takes f32 or bf16")
+    for label, t, dtype in operands:
+        if t.device != dev:
+            raise ValueError(f"{name}: {label} is on {t.device}, {label0} on {dev}")
+        if t.dtype != (compute if dtype is None else dtype):
+            raise TypeError(f"{name}: {label} is {t.dtype}, must be {compute if dtype is None else dtype}")
+        if contiguous and not t.is_contiguous() or aligned and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must be contiguous{' and 16-byte aligned' if aligned else ''}")
+    if no_grad and torch.is_grad_enabled():
+        for t in no_grad:
+            if t.requires_grad:
+                raise NotImplementedError(f"{name}: the kernel is forward-only, it has no backward")
+
+
+def plain_vjp(plain, inputs, grad_out):
+    """Gradients of ``plain(*inputs)`` w.r.t. the inputs that need one, for the backward of a kernel's
+    autograd Function: the forward is recomputed through the plain version on detached copies, so
+    nothing but the inputs was saved.  Gradients come back contiguous, in the inputs' layout."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(t.requires_grad) for t in inputs]
+        out = plain(*leaves)
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    return tuple(next(grads).contiguous() if t.requires_grad else None for t in leaves)
+
+
+class PlainBackward(torch.autograd.Function):
+    """``apply(launch_fn, plain, args, *tensors)``: ``launch_fn(*tensors, *args)`` forward (the kernel);
+    backward, the gradients of ``plain(*tensors, *args)`` through ``plain_vjp``, which is what the JAX
+    custom VJPs do: no kernel has a backward."""
+
+    @staticmethod
+    def forward(ctx, launch_fn, plain, args, *tensors):
+        ctx.save_for_backward(*tensors)
+        ctx.plain, ctx.args = plain, args
+        return launch_fn(*tensors, *args)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (None, None, None,
+                *plain_vjp(lambda *t: ctx.plain(*t, *ctx.args), ctx.saved_tensors, grad_out))
+

@@ -10,7 +10,7 @@ channel the bias runs along either the innermost index in memory (a Dense output
 channels_last conv output) or the outer index of contiguous planes (an NCHW-contiguous conv
 output), or a one-value bias over y in either layout; the bias f32, on y's device, with at least
 one dimension (``kernel_layout``).  Anything else on a CUDA tensor raises ValueError.  On the CPU
-it runs the plain version.  ``LAUNCHES`` counts the kernel's launches (``bias_add``).
+it runs the plain version.  ``ops.launches()`` counts the kernel's launches (``bias_add``).
 """
 
 import math
@@ -19,9 +19,7 @@ import torch
 
 from dfc_sa_unet_torch.ops import _build
 
-_NAMES = {torch.bfloat16: "bias_add_bf16", torch.float32: "bias_add_f32"}
-
-LAUNCHES = {"bias_add": 0}
+_ENTRY = {dtype: f"bias_add_{suffix}" for dtype, suffix in _build.SUFFIX.items()}
 
 
 def bias_add_plain(y, bias):
@@ -35,7 +33,7 @@ def kernel_layout(y, bias):
     over planes; None for any other input.  Looks at dtypes, shapes and strides, not the device.
     A 0-dim bias is refused: torch's add_ rounds it to y's dtype first, where a bias with a
     dimension takes part in the sum in f32."""
-    if (y.dtype not in _NAMES or bias.dtype != torch.float32 or bias.device != y.device
+    if (y.dtype not in _ENTRY or bias.dtype != torch.float32 or bias.device != y.device
             or not 1 <= bias.dim() <= y.dim()):
         return None
     c = bias.numel()
@@ -68,11 +66,8 @@ def bias_add(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
                          f"dimension along one of y's channels, not y {y.dtype} {tuple(y.shape)} strides "
                          f"{y.stride()} and bias {bias.dtype} {tuple(bias.shape)} on {bias.device}")
     if y.numel():
-        name = _NAMES[y.dtype]
-        err = _build.kernel(name)(y.data_ptr(), bias.contiguous().data_ptr(), y.numel(), *layout,
-                                  _build.stream_handle(y.device))
-        _build.check(err, name)
-        LAUNCHES["bias_add"] += 1
+        _build.launch(_ENTRY[y.dtype], ("bias_add",), y.device, y.data_ptr(), bias.contiguous().data_ptr(),
+                      y.numel(), *layout)
     if not y.is_inference():  # as torch's in-place ops do; inference tensors keep no version
         torch.autograd.graph.increment_version(y)
     return y

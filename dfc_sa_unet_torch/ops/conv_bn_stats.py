@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from dfc_sa_unet_torch.ops import _build
-from dfc_sa_unet_torch.ops.dfc_tail import conv_tiling, pack_conv_taps
+from dfc_sa_unet_torch.ops.dfc_tail import conv_tiling, pack_conv_taps, pad_dim
 
 F32_BLOCK_PIXELS = 64  # kM of csrc/conv_bn_stats.cu: pixels a block of the f32 kernel
 # The partial rows are summed in groups of ROW_GROUP first: torch's sum over the middle dimension
@@ -34,10 +34,6 @@ F32_BLOCK_PIXELS = 64  # kM of csrc/conv_bn_stats.cu: pixels a block of the f32 
 # 0.571-0.577 ms with one sum and 0.485-0.499 with the groups (H100 80GB HBM3, 700 W,
 # scripts/bench_torch_bn_stats.py).
 ROW_GROUP = 64
-
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
-LAUNCHES = {"conv3x3_bias_stats": 0}
 
 
 def conv3x3_bias_stats_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
@@ -88,24 +84,13 @@ def row_means(partial: torch.Tensor, npix: int):
 
 def conv3x3_bias_stats(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     """x: [B,H,W,Cin]; w: [3,3,Cin,Cout]; b: [Cout] f32 -> (y, mean, mean2)."""
-    if x.device.type == "cpu" and w.device.type == "cpu" and b.device.type == "cpu":
+    if _build.on_cpu(x, w, b):
         return conv3x3_bias_stats_plain(x, w, b)
     name = "conv3x3_bias_stats"
     if x.dim() != 4:
         raise ValueError(f"{name}: x has shape {tuple(x.shape)}; the kernel takes NHWC")
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: x is on {x.device}; the kernel takes CUDA tensors")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"{name}: x is {x.dtype}; the kernel takes f32 or bf16")
-    for label, t, want in (("x", x, x.dtype), ("w", w, x.dtype), ("b", b, torch.float32)):
-        if t.device != x.device:
-            raise ValueError(f"{name}: {label} is on {t.device}, x on {x.device}")
-        if t.dtype != want:
-            raise TypeError(f"{name}: {label} is {t.dtype}, must be {want}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: {label} must be contiguous and 16-byte aligned")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
-        raise NotImplementedError(f"{name}: the kernel is a forward-only probe, as the TPU kernel it replaces")
+    _build.check_operands(name, (("x", x, None), ("w", w, None), ("b", b, torch.float32)), aligned=True,
+                          no_grad=(x, w, b))
     bsz, h, width, cin = x.shape
     cout = w.shape[-1]
     if tuple(w.shape) != (3, 3, cin, cout) or tuple(b.shape) != (cout,):
@@ -116,18 +101,12 @@ def conv3x3_bias_stats(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
                          f"not supported by the kernel")
     y = torch.empty((bsz, h, width, cout), dtype=x.dtype, device=x.device)
     partial = partial_buffer(npix, cin, cout, x.dtype, x.device)
-    fn = f"{name}_{_DTYPES[x.dtype]}"
     out = (y.data_ptr(), partial[0].data_ptr(), partial[1].data_ptr())
-    stream = _build.stream_handle(x.device)
     if x.dtype == torch.bfloat16:  # the wgmma kernels: the flat K walk's weight, x with the channels they read
         t = stats_tiling(cin, cout)
-        if t.cin != cin:
-            x = F.pad(x, (0, t.cin - cin))
-        wk = pack_conv_taps(w)
-        err = _build.kernel(fn)(x.data_ptr(), wk.data_ptr(), b.data_ptr(), *out, npix, h, width, t.cin, cout,
-                                t.nb, t.stages, stream)
+        x, wk = pad_dim(x, -1, t.cin), pack_conv_taps(w)
+        args = (x.data_ptr(), wk.data_ptr(), b.data_ptr(), *out, npix, h, width, t.cin, cout, t.nb, t.stages)
     else:
-        err = _build.kernel(fn)(x.data_ptr(), w.data_ptr(), b.data_ptr(), *out, npix, h, width, cin, cout, stream)
-    _build.check(err, fn)
-    LAUNCHES[name] += 1
+        args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), *out, npix, h, width, cin, cout)
+    _build.launch(f"{name}_{_build.SUFFIX[x.dtype]}", (name,), x.device, *args)
     return (y, *row_means(partial, npix))

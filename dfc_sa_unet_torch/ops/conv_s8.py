@@ -35,12 +35,10 @@ import torch
 import torch.nn.functional as F
 
 from dfc_sa_unet_torch.ops import _build
+from dfc_sa_unet_torch.ops.dfc_tail import halo_ptrs, halo_rows, pad_dim, pad_rows
 
 CIN_MULTIPLE = 16  # the kernel's 16-byte chunks of x: a chunk never straddles two taps
 BLOCK_PIXELS = 128  # pixels a block: wgconv::kBM of csrc/conv3x3_wgmma.cuh
-_OUT = {torch.bfloat16: "bf16", torch.float32: "f32"}
-
-LAUNCHES = {"conv3x3_s8": 0}
 
 
 def s8_tiling(cout: int) -> int:
@@ -54,13 +52,13 @@ def pack_s8_taps(w_oihw: torch.Tensor) -> torch.Tensor:
     return w_oihw.permute(0, 2, 3, 1).reshape(cout, 9 * cin).contiguous()
 
 
-def _pad_cin(x8, w8, multiple):
-    """x8 [B,H,W,Cin] and w8 [Cout, 9 * Cin] with Cin zero-padded to a multiple of ``multiple``."""
-    pad = -x8.shape[-1] % multiple
-    if not pad:
-        return x8, w8
+def _pad_cin(x8, w8):
+    """x8 [B,H,W,Cin] and w8 [Cout, 9 * Cin] with Cin zero-padded to a multiple of CIN_MULTIPLE."""
     cout, cin = w8.shape[0], x8.shape[-1]
-    return F.pad(x8, (0, pad)), F.pad(w8.view(cout, 9, cin), (0, pad)).reshape(cout, 9 * (cin + pad))
+    width = -(-cin // CIN_MULTIPLE) * CIN_MULTIPLE
+    if width == cin:
+        return x8, w8
+    return pad_dim(x8, -1, width), pad_dim(w8.view(cout, 9, cin), -1, width).reshape(cout, 9 * width)
 
 
 def _int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -103,17 +101,12 @@ def im2col_s8(x8: torch.Tensor, top=None, bottom=None) -> torch.Tensor:
     return torch.cat(taps, dim=-1).reshape(b * h * w, 9 * cin)
 
 
-def _pad_rows(rows, cin):
-    """The halo rows {label: [B,W,c]} with their channels zero-padded to x's ``cin``."""
-    return {k: F.pad(t, (0, cin - t.shape[-1])) if t.shape[-1] != cin else t for k, t in rows.items()}
-
-
 def conv3x3_s8_s32(x8: torch.Tensor, w8: torch.Tensor, top=None, bottom=None) -> torch.Tensor:
     """The s32 3x3 conv (zero padding 1, or the halo rows ``top`` / ``bottom``) of x8 [B,H,W,Cin] with
     w8 [Cout, 9 * Cin]: _int_mm on the [P, 9 * Cin] taps -> [B,H,W,Cout] s32, exact."""
     bsz, h, w, _ = x8.shape
-    x8, w8 = _pad_cin(x8, w8, CIN_MULTIPLE)
-    rows = _pad_rows({k: t for k, t in (("top", top), ("bottom", bottom)) if t is not None}, x8.shape[-1])
+    x8, w8 = _pad_cin(x8, w8)
+    rows = pad_rows({k: t for k, t in (("top", top), ("bottom", bottom)) if t is not None}, x8.shape[-1])
     return _int_mm(im2col_s8(x8, rows.get("top"), rows.get("bottom")), w8).reshape(bsz, h, w, w8.shape[0])
 
 
@@ -123,54 +116,34 @@ def conv3x3_s8_plain(x8, w8, scale, b, out_dtype=torch.bfloat16, top=None, botto
     return torch.relu(conv3x3_s8_s32(x8, w8, top, bottom).float() * scale + b).to(out_dtype)
 
 
-def _check(x8, w8, scale, b, out_dtype, rows):
-    dev = x8.device
-    if x8.dim() != 4 or w8.dim() != 2:
-        raise ValueError(f"conv3x3_s8: x8 {tuple(x8.shape)} must be NHWC, w8 {tuple(w8.shape)} [Cout, 9 * Cin]")
-    cin, cout = x8.shape[-1], w8.shape[0]
-    if tuple(w8.shape) != (cout, 9 * cin) or tuple(scale.shape) != (cout,) or tuple(b.shape) != (cout,):
-        raise ValueError(f"conv3x3_s8: shapes x8 {tuple(x8.shape)}, w8 {tuple(w8.shape)}, scale "
-                         f"{tuple(scale.shape)}, b {tuple(b.shape)}")
-    if dev.type != "cuda":
-        raise ValueError(f"conv3x3_s8: x8 is on {dev}; the kernel takes CUDA tensors")
-    for label, t in rows.items():
-        if tuple(t.shape) != (x8.shape[0], x8.shape[2], cin):
-            raise ValueError(f"conv3x3_s8: {label} has shape {tuple(t.shape)}, expected {(x8.shape[0], *x8.shape[2:])}")
-    for label, t, want in (("x8", x8, torch.int8), ("w8", w8, torch.int8), ("scale", scale, torch.float32),
-                           ("b", b, torch.float32), *((k, t, torch.int8) for k, t in rows.items())):
-        if t.device != dev:
-            raise ValueError(f"conv3x3_s8: {label} is on {t.device}, x8 on {dev}")
-        if t.dtype != want:
-            raise TypeError(f"conv3x3_s8: {label} is {t.dtype}, must be {want}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"conv3x3_s8: {label} must be contiguous and 16-byte aligned")
-    if out_dtype not in _OUT:
-        raise TypeError(f"conv3x3_s8: out_dtype {out_dtype}; the kernel writes bf16 or f32")
-    if cout % 8:
-        raise ValueError(f"conv3x3_s8: Cout={cout} not supported by the kernel (a multiple of 8)")
-    if x8.shape[0] * x8.shape[1] * x8.shape[2] >= 2**31:
-        raise ValueError("conv3x3_s8: the pixels exceed the kernel's int32 pixel index")
-
-
 def conv3x3_s8(x8: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor, b: torch.Tensor,
                out_dtype=torch.bfloat16, top=None, bottom=None) -> torch.Tensor:
     """x8 [B,H,W,Cin] s8; w8 [Cout, 9*Cin] s8; scale, b [Cout] f32 -> [B,H,W,Cout] ``out_dtype``;
     ``top``, ``bottom``: the halo rows (see the module docstring)."""
-    rows = {k: t for k, t in (("top", top), ("bottom", bottom)) if t is not None}
-    if all(t.device.type == "cpu" for t in (x8, w8, scale, b, *rows.values())):
+    if _build.on_cpu(x8, w8, scale, b, top, bottom):
         return conv3x3_s8_plain(x8, w8, scale, b, out_dtype, top, bottom)
-    _check(x8, w8, scale, b, out_dtype, rows)
-    bsz, h, width, _ = x8.shape
+    if x8.dim() != 4 or w8.dim() != 2:
+        raise ValueError(f"conv3x3_s8: x8 {tuple(x8.shape)} must be NHWC, w8 {tuple(w8.shape)} [Cout, 9 * Cin]")
+    bsz, h, width, cin = x8.shape
     cout = w8.shape[0]
+    if tuple(w8.shape) != (cout, 9 * cin) or tuple(scale.shape) != (cout,) or tuple(b.shape) != (cout,):
+        raise ValueError(f"conv3x3_s8: shapes x8 {tuple(x8.shape)}, w8 {tuple(w8.shape)}, scale "
+                         f"{tuple(scale.shape)}, b {tuple(b.shape)}")
+    rows = halo_rows("conv3x3_s8", x8, top, bottom)
+    s8, f32 = torch.int8, torch.float32
+    _build.check_operands("conv3x3_s8", (("x8", x8, s8), ("w8", w8, s8), ("scale", scale, f32), ("b", b, f32),
+                                         *((k, t, s8) for k, t in rows.items())), aligned=True)
+    if out_dtype not in _build.SUFFIX:
+        raise TypeError(f"conv3x3_s8: out_dtype {out_dtype}; the kernel writes bf16 or f32")
+    if cout % 8:
+        raise ValueError(f"conv3x3_s8: Cout={cout} not supported by the kernel (a multiple of 8)")
+    if bsz * h * width >= 2**31:
+        raise ValueError("conv3x3_s8: the pixels exceed the kernel's int32 pixel index")
     out = torch.empty((bsz, h, width, cout), dtype=out_dtype, device=x8.device)
     if out.numel():
-        x8, w8 = _pad_cin(x8, w8, CIN_MULTIPLE)
-        rows = _pad_rows(rows, x8.shape[-1])  # [B][W][Cin] as x8's rows, read in the same 2-byte units
-        name = f"conv3x3_s8{'_halo' if rows else ''}_{_OUT[out_dtype]}"
-        halo = tuple(None if rows.get(k) is None else rows[k].data_ptr() for k in ("top", "bottom")) if rows else ()
-        err = _build.kernel(name)(x8.data_ptr(), w8.data_ptr(), scale.data_ptr(), b.data_ptr(), *halo,
-                                  out.data_ptr(), bsz * h * width, h, width, x8.shape[-1], cout, s8_tiling(cout),
-                                  _build.stream_handle(x8.device))
-        _build.check(err, name)
-        LAUNCHES["conv3x3_s8"] += 1
+        x8, w8 = _pad_cin(x8, w8)
+        rows = pad_rows(rows, x8.shape[-1])  # [B][W][Cin] as x8's rows, read in the same 2-byte units
+        entry = f"conv3x3_s8{'_halo' if rows else ''}_{_build.SUFFIX[out_dtype]}"
+        _build.launch(entry, ("conv3x3_s8",), x8.device, x8.data_ptr(), w8.data_ptr(), scale.data_ptr(), b.data_ptr(),
+                      *halo_ptrs(rows), out.data_ptr(), bsz * h * width, h, width, x8.shape[-1], cout, s8_tiling(cout))
     return out

@@ -19,7 +19,8 @@ and H read instead of zero; None is the image's edge.  ``a`` and the
 residual's x are the band's own rows.  With either row the wrappers launch
 the kernels' halo instantiations (``conv3x3_bn_relu_halo_*``,
 ``dfc_tail_halo_*``: the template flag ``dfc::HaloRows`` of csrc/common.cuh),
-counted under the same names.
+counted under the same names.  ``halo_rows``, ``pad_rows``, ``halo_ptrs`` and ``pad_dim`` serve
+the int8 conv (ops/conv_s8.py) too.
 """
 
 from collections import namedtuple
@@ -33,9 +34,6 @@ TAIL_CHANNELS = (32, 64, 128, 256, 512)  # C of the tail: one block holds all C
 CONV_BLOCK_PIXELS = 128  # pixels a block of the bf16 conv's ring: wgconv::kBM of csrc/conv3x3_wgmma.cuh
 NARROW_BLOCK_PIXELS = 64  # pixels a tile of its persistent kernel (Cin <= 8): wgconv::kNarrowBM
 ConvTiling = namedtuple("ConvTiling", "cin steps nb bm stages smem_bytes")
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
-LAUNCHES = {"conv3x3_bn_relu": 0, "dfc_tail": 0}
 
 
 def _conv3x3_f32(x: torch.Tensor, wc: torch.Tensor, top=None, bottom=None) -> torch.Tensor:
@@ -70,14 +68,18 @@ def dfc_tail_plain(x, a, wc, bc, wg, bg, wf, bf, wr, top=None, bottom=None):
     return o.to(dtype)
 
 
+def pad_dim(t, dim, width):
+    """t zero-padded at the end of dimension ``dim`` to ``width`` entries; t itself where it has them."""
+    pad = width - t.shape[dim]
+    return F.pad(t, (0, 0) * (t.dim() - 1 - dim % t.dim()) + (0, pad)) if pad else t
+
+
 def pad_cin(x, wc, wr, multiple=8):
     """x, wc and wr with Cin zero-padded to a multiple of ``multiple``: the same tail (the
     added channels meet zero weights), with x's rows in whole 16-byte copies for the bf16
     kernel."""
-    pad = -x.shape[-1] % multiple
-    if not pad:
-        return x, wc, wr
-    return F.pad(x, (0, pad)), F.pad(wc, (0, 0, 0, pad)), F.pad(wr, (0, 0, 0, pad))
+    width = -(-x.shape[-1] // multiple) * multiple
+    return pad_dim(x, -1, width), pad_dim(wc, 2, width), pad_dim(wr, 0, width)
 
 
 def conv_tiling(cin: int, cout: int) -> ConvTiling:
@@ -105,14 +107,13 @@ def pack_conv_taps(w: torch.Tensor) -> torch.Tensor:
     """HWIO w [3,3,Cin,Cout] -> the bf16 conv kernel's weight [9 * Cin8, Cout], Cin zero-padded to
     Cin8, a multiple of 8: row tap * Cin8 + c is tap (dy+1)*3 + (dx+1), channel c, the order of
     the kernel's flat K walk (step s, 16-byte chunk q -> K row 64 s + 8 q)."""
-    pad = -w.shape[2] % 8
-    if pad:
-        w = F.pad(w, (0, 0, 0, pad))
+    w = pad_dim(w, 2, -(-w.shape[2] // 8) * 8)
     return w.reshape(9 * w.shape[2], w.shape[3])
 
 
-def _halo(name, x, top, bottom):
-    """The halo rows as the kernel reads them: {label: tensor} of those given, [B,W,Cin] each."""
+def halo_rows(name, x, top, bottom):
+    """The halo rows given, {label: tensor} without the None ones, each of x's [B,W,Cin] shape (else
+    ValueError)."""
     rows = {k: t for k, t in (("top", top), ("bottom", bottom)) if t is not None}
     for label, t in rows.items():
         if tuple(t.shape) != (x.shape[0], x.shape[2], x.shape[3]):
@@ -120,46 +121,26 @@ def _halo(name, x, top, bottom):
     return rows
 
 
-def _pad_rows(rows, width):
-    """The halo rows with their channels zero-padded to ``width``, as x is for the bf16 kernels."""
-    return {k: F.pad(t, (0, width - t.shape[-1])) if t.shape[-1] != width else t for k, t in rows.items()}
+def pad_rows(rows, width):
+    """The halo rows with their channels zero-padded to ``width``, as x's are for the kernels."""
+    return {k: pad_dim(t, -1, width) for k, t in rows.items()}
 
 
-def _ptr(t):
-    """A tensor's device address, or None (a null pointer: the image's edge)."""
-    return None if t is None else t.data_ptr()
-
-
-def _check(name, x, tensors, weights, biases):
-    dev = x.device
-    if x.dim() != 4:
-        raise ValueError(f"{name}: x has shape {tuple(x.shape)}; the kernel takes NHWC")
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: x is on {dev}; the kernel takes CUDA tensors")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"{name}: activations are {x.dtype}; the kernel takes f32 or bf16")
-    for label, t in {"x": x, **tensors, **weights, **biases}.items():
-        if t.device != dev:
-            raise ValueError(f"{name}: {label} is on {t.device}, x on {dev}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: {label} must be contiguous and 16-byte aligned")
-        want = torch.float32 if label in biases else x.dtype
-        if t.dtype != want:
-            raise TypeError(f"{name}: {label} is {t.dtype}, must be {want}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *tensors.values(), *weights.values())):
-        raise NotImplementedError(f"{name}: the kernel is inference-only (ROADMAP.md)")
-    bsz, h, w, _ = x.shape
-    if bsz * h * w >= 2**31:
-        raise ValueError(f"{name}: {bsz * h * w} pixels exceed the kernel's int32 pixel index")
+def halo_ptrs(rows):
+    """The halo rows' device addresses as the halo kernels take them, top then bottom, None (a null
+    pointer: the image's edge) for a missing one; ``()`` without a row (the plain kernels)."""
+    if not rows:
+        return ()
+    return tuple(None if rows.get(k) is None else rows[k].data_ptr() for k in ("top", "bottom"))
 
 
 def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, top=None, bottom=None) -> torch.Tensor:
     """x: [B,H,W,Cin]; w: [3,3,Cin,Cout] (BN folded); b: [Cout] f32 -> [B,H,W,Cout]; ``top``,
     ``bottom``: the halo rows (see the module docstring)."""
-    rows = _halo("conv3x3_bn_relu", x, top, bottom)
-    if all(t.device.type == "cpu" for t in (x, w, b, *rows.values())):
+    rows = halo_rows("conv3x3_bn_relu", x, top, bottom)
+    if _build.on_cpu(x, w, b, top, bottom):
         return conv3x3_bn_relu_plain(x, w, b, top, bottom)
-    _check("conv3x3_bn_relu", x, rows, {"w": w}, {"b": b})
+    _check("conv3x3_bn_relu", x, rows, (("w", w, None), ("b", b, torch.float32)), (w,))
     bsz, h, width, cin = x.shape
     cout = w.shape[-1]
     if tuple(w.shape) != (3, 3, cin, cout) or tuple(b.shape) != (cout,):
@@ -168,33 +149,44 @@ def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, top=None,
         raise ValueError(f"conv3x3_bn_relu: Cout={cout} not supported by the kernel (a multiple of 8)")
     out = torch.empty((bsz, h, width, cout), dtype=x.dtype, device=x.device)
     if out.numel():
-        name = f"conv3x3_bn_relu{'_halo' if rows else ''}_{_DTYPES[x.dtype]}"
-        npix, stream = bsz * h * width, _build.stream_handle(x.device)
+        entry = f"conv3x3_bn_relu{'_halo' if rows else ''}_{_build.SUFFIX[x.dtype]}"
         if x.dtype == torch.bfloat16:  # the wgmma kernels: the flat K walk's weight, x with the channels they read
             t = conv_tiling(cin, cout)
             if t.cin != cin:
-                x = F.pad(x, (0, t.cin - cin))
-                rows = _pad_rows(rows, t.cin)
+                x, rows = pad_dim(x, -1, t.cin), pad_rows(rows, t.cin)
             wk = pack_conv_taps(w)
-            head, tail = (x.data_ptr(), wk.data_ptr(), b.data_ptr()), (t.cin, cout, t.nb, t.stages, stream)
+            head, tail = (x.data_ptr(), wk.data_ptr(), b.data_ptr()), (t.cin, cout, t.nb, t.stages)
         else:
-            head, tail = (x.data_ptr(), w.data_ptr(), b.data_ptr()), (cin, cout, stream)
-        halo = (_ptr(rows.get("top")), _ptr(rows.get("bottom"))) if rows else ()
-        err = _build.kernel(name)(*head, *halo, out.data_ptr(), npix, h, width, *tail)
-        _build.check(err, name)
-        LAUNCHES["conv3x3_bn_relu"] += 1
+            head, tail = (x.data_ptr(), w.data_ptr(), b.data_ptr()), (cin, cout)
+        _build.launch(entry, ("conv3x3_bn_relu",), x.device, *head, *halo_ptrs(rows), out.data_ptr(), bsz * h * width,
+                      h, width, *tail)
     return out
+
+
+def _check(name, x, rows, weights, no_grad):
+    """The operand rules of both kernels: x NHWC, x, the halo rows and ``weights`` ((label, tensor,
+    dtype), None: x's) on x's card, contiguous and 16-byte aligned; no gradient through x, the rows and
+    ``no_grad``; the pixels within the kernels' int32 index."""
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x has shape {tuple(x.shape)}; the kernel takes NHWC")
+    halo = tuple((k, t, None) for k, t in rows.items()) if rows else ()
+    _build.check_operands(name, (("x", x, None), *halo, *weights), aligned=True,
+                          no_grad=(x, *rows.values(), *no_grad))
+    if x.shape[0] * x.shape[1] * x.shape[2] >= 2**31:
+        raise ValueError(f"{name}: {x.shape[0] * x.shape[1] * x.shape[2]} pixels exceed the kernel's int32 pixel index")
 
 
 def dfc_tail(x, a, wc, bc, wg, bg, wf, bf, wr, top=None, bottom=None) -> torch.Tensor:
     """x: [B,H,W,Cin]; a: [B,H,W,C] -> [B,H,W,C]; ``top``, ``bottom``: the halo rows of x (see the
     module docstring)."""
     args = (x, a, wc, bc, wg, bg, wf, bf, wr)
-    rows = _halo("dfc_tail", x, top, bottom)
-    if all(t.device.type == "cpu" for t in (*args, *rows.values())):
+    rows = halo_rows("dfc_tail", x, top, bottom)
+    if _build.on_cpu(*args, top, bottom):
         return dfc_tail_plain(*args, top, bottom)
-    _check("dfc_tail", x, {"a": a, **rows}, {"wc": wc, "wg": wg, "wf": wf, "wr": wr},
-           {"bc": bc, "bg": bg, "bf": bf})
+    f32 = torch.float32
+    _check("dfc_tail", x, rows, (("a", a, None), ("wc", wc, None), ("wg", wg, None), ("wf", wf, None),
+                                 ("wr", wr, None), ("bc", bc, f32), ("bg", bg, f32), ("bf", bf, f32)),
+           (a, wc, wg, wf, wr))
     bsz, h, width, cin = x.shape
     c = a.shape[-1]
     shapes = {"a": (a.shape, (bsz, h, width, c)), "wc": (wc.shape, (3, 3, cin, c)),
@@ -209,13 +201,10 @@ def dfc_tail(x, a, wc, bc, wg, bg, wf, bf, wr, top=None, bottom=None) -> torch.T
     if out.numel():
         if x.dtype == torch.bfloat16:  # the bf16 kernel copies x in 16-byte rows
             x, wc, wr = pad_cin(x, wc, wr)
-            rows = _pad_rows(rows, x.shape[-1])
+            rows = pad_rows(rows, x.shape[-1])
             cin = x.shape[-1]
             args = (x, a, wc, bc, wg, bg, wf, bf, wr)
-        name = f"dfc_tail{'_halo' if rows else ''}_{_DTYPES[x.dtype]}"
-        halo = (_ptr(rows.get("top")), _ptr(rows.get("bottom"))) if rows else ()
-        err = _build.kernel(name)(*(t.data_ptr() for t in args), *halo, out.data_ptr(),
-                                  bsz * h * width, h, width, cin, c, _build.stream_handle(x.device))
-        _build.check(err, name)
-        LAUNCHES["dfc_tail"] += 1
+        entry = f"dfc_tail{'_halo' if rows else ''}_{_build.SUFFIX[x.dtype]}"
+        _build.launch(entry, ("dfc_tail",), x.device, *(t.data_ptr() for t in args), *halo_ptrs(rows),
+                      out.data_ptr(), bsz * h * width, h, width, cin, c)
     return out

@@ -13,7 +13,7 @@ gamma an f32 scalar tensor.  Inference only, as the tail kernel: the module path
 
 Under a band of rows (parallel/rows.py) ``height`` and ``row0`` are the whole image's height and
 the band's first row: the result is the band's rows of the whole image's epilogue.  Without a band
-``height`` is a's H and ``row0`` 0.  Every launch counts under ``LAUNCHES``.
+``height`` is a's H and ``row0`` 0.  Every launch counts under ``ops.launches()["lsa_epilogue"]``.
 """
 
 import torch
@@ -21,9 +21,7 @@ import torch.nn.functional as F
 
 from dfc_sa_unet_torch.ops import _build
 
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
-LAUNCHES = {"lsa_epilogue": 0}
+_ENTRY = {dtype: f"lsa_epilogue_{suffix}" for dtype, suffix in _build.SUFFIX.items()}
 
 
 def _band(a, height, row0):
@@ -53,35 +51,23 @@ def lsa_epilogue_plain(a, o, gamma, height=None, row0=0):
 def lsa_epilogue(a: torch.Tensor, o: torch.Tensor, gamma: torch.Tensor, height=None, row0=0) -> torch.Tensor:
     """a: [B,H,W,C]; o: [B,p,q,C] in a's dtype; gamma: f32, one element -> [B,H,W,C] in a's dtype;
     ``height``, ``row0``: the band (see the module docstring)."""
-    if all(t.device.type == "cpu" for t in (a, o, gamma)):
+    if _build.on_cpu(a, o, gamma):
         return lsa_epilogue_plain(a, o, gamma, height, row0)
     if a.dim() != 4 or o.dim() != 4:
         raise ValueError(f"lsa_epilogue: a {tuple(a.shape)} and o {tuple(o.shape)} must be NHWC")
-    if a.device.type != "cuda":
-        raise ValueError(f"lsa_epilogue: a is on {a.device}; the kernel takes CUDA tensors")
-    for label, t in (("o", o), ("gamma", gamma)):
-        if t.device != a.device:
-            raise ValueError(f"lsa_epilogue: {label} is on {t.device}, a on {a.device}")
-    if a.dtype not in _DTYPES or o.dtype != a.dtype:
-        raise TypeError(f"lsa_epilogue: a is {a.dtype}, o {o.dtype}; the kernel takes both f32 or both bf16")
+    _build.check_operands("lsa_epilogue", (("a", a, None), ("o", o, None)), no_grad=(a, o, gamma))
+    if gamma.device != a.device:  # one element, read in any layout
+        raise ValueError(f"lsa_epilogue: gamma is on {gamma.device}, a on {a.device}")
     if gamma.dtype != torch.float32 or gamma.numel() != 1:
         raise TypeError(f"lsa_epilogue: gamma is {gamma.dtype} of {gamma.numel()} elements; takes one f32")
-    for label, t in (("a", a), ("o", o)):
-        if not t.is_contiguous():
-            raise ValueError(f"lsa_epilogue: {label} must be a contiguous NHWC tensor")
     bsz, h, w, c = a.shape
     if o.shape[0] != bsz or o.shape[3] != c or min(o.shape[1:3]) < 1:
         raise ValueError(f"lsa_epilogue: o has shape {tuple(o.shape)}, a {tuple(a.shape)}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (a, o, gamma)):
-        raise NotImplementedError("lsa_epilogue: the kernel is inference-only (ROADMAP.md)")
     height, row0 = _band(a, height, row0)
     if bsz * h >= 2**31 or w * c >= 2**31:
         raise ValueError(f"lsa_epilogue: {bsz * h} rows of {w * c} elements exceed the kernel's int32 indices")
     out = torch.empty_like(a)
     if out.numel():
-        name = f"lsa_epilogue_{_DTYPES[a.dtype]}"
-        err = _build.kernel(name)(a.data_ptr(), o.data_ptr(), gamma.data_ptr(), out.data_ptr(), bsz, h, w, c,
-                                  o.shape[1], o.shape[2], height, row0, _build.stream_handle(a.device))
-        _build.check(err, name)
-        LAUNCHES["lsa_epilogue"] += 1
+        _build.launch(_ENTRY[a.dtype], ("lsa_epilogue",), a.device, a.data_ptr(), o.data_ptr(), gamma.data_ptr(),
+                      out.data_ptr(), bsz, h, w, c, o.shape[1], o.shape[2], height, row0)
     return out

@@ -33,8 +33,6 @@ from dfc_sa_unet_torch.ops import _build
 
 BLOCK_ROWS = 128  # rows or pixels a tile: kGemmBM of csrc/mxu_probes.cu, wgconv::kBM of conv3x3_wgmma.cuh
 
-LAUNCHES = {"probe_matmul": 0, "probe_conv_cat": 0, "probe_conv_9dot": 0}
-
 
 def probe_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """f32 accumulation, rounded once (``_mm_kernel``, bench_mxu.py:51-54)."""
@@ -69,30 +67,12 @@ def probe_conv_9dot_plain(x: torch.Tensor, w9: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
-def _on_cpu(*tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
-
-
-def _check_operands(name, x, w):
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: x is on {x.device}; the kernel takes CUDA tensors")
-    for label, t in (("x", x), ("w", w)):
-        if t.device != x.device:
-            raise ValueError(f"{name}: {label} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: {label} is {t.dtype}; the kernel takes bf16")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: {label} must be contiguous and 16-byte aligned")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(f"{name}: the kernel is a forward-only probe, as the TPU kernel it replaces")
-
-
 def probe_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: [M,K]; w: [K,N] -> [M,N]."""
-    if _on_cpu(x, w):
+    if _build.on_cpu(x, w):
         return probe_matmul_plain(x, w)
     name = "probe_matmul"
-    _check_operands(name, x, w)
+    _build.check_operands(name, (("x", x, torch.bfloat16), ("w", w, torch.bfloat16)), aligned=True, no_grad=(x, w))
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"{name}: shapes x {tuple(x.shape)}, w {tuple(w.shape)}")
     m, k = x.shape
@@ -101,15 +81,12 @@ def probe_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{name}: M={m} (1 .. 2^31 - 1), K={k} and N={n} (multiples of 8: the 16-byte strides "
                          f"of its TMA maps) not supported by the kernel")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    err = _build.kernel("probe_matmul_bf16")(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-                                             _build.stream_handle(x.device))
-    _build.check(err, name)
-    LAUNCHES[name] += 1
+    _build.launch("probe_matmul_bf16", (name,), x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n)
     return out
 
 
 def _probe_conv(name, taps_per_pass, x, w):
-    _check_operands(name, x, w)
+    _build.check_operands(name, (("x", x, torch.bfloat16), ("w", w, torch.bfloat16)), aligned=True, no_grad=(x, w))
     if x.dim() != 4:
         raise ValueError(f"{name}: x has shape {tuple(x.shape)}; the kernel takes NHWC")
     bsz, h, width, cin = x.shape
@@ -122,22 +99,20 @@ def _probe_conv(name, taps_per_pass, x, w):
         raise ValueError(f"{name}: Cin={cin} and Cout={cout} (multiples of 8) or {npix} pixels "
                          f"(1 .. 2^31 - 1) not supported by the kernel")
     out = torch.empty((bsz, h, width, cout), dtype=x.dtype, device=x.device)
-    err = _build.kernel(f"{name}_bf16")(x.data_ptr(), w.data_ptr(), out.data_ptr(), npix, h, width, cin, cout,
-                                        _build.stream_handle(x.device))
-    _build.check(err, name)
-    LAUNCHES[name] += 1
+    _build.launch(f"{name}_bf16", (name,), x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), npix, h, width, cin,
+                  cout)
     return out
 
 
 def probe_conv_cat(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
     """x: [B,H,W,Cin]; w3: [3, 3*Cin, Cout] -> [B,H,W,Cout]."""
-    if _on_cpu(x, w3):
+    if _build.on_cpu(x, w3):
         return probe_conv_cat_plain(x, w3)
     return _probe_conv("probe_conv_cat", 3, x, w3)
 
 
 def probe_conv_9dot(x: torch.Tensor, w9: torch.Tensor) -> torch.Tensor:
     """x: [B,H,W,Cin]; w9: [9, Cin, Cout] -> [B,H,W,Cout]."""
-    if _on_cpu(x, w9):
+    if _build.on_cpu(x, w9):
         return probe_conv_9dot_plain(x, w9)
     return _probe_conv("probe_conv_9dot", 1, x, w9)

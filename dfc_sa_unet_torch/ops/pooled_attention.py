@@ -21,7 +21,7 @@ where a call has another width, and copies a tensor that does not start
 bytes.  f32, the parity path: two SIMT
 kernels, the 16-row kernel that keeps its energies in shared memory up to
 ``SHORT_TOKENS`` and the two-pass kernel above.  All count under
-``LAUNCHES["pooled_attention"]``, one per call.  Above ``MAX_TOKENS`` (the
+``ops.launches()["pooled_attention"]``, one per call.  Above ``MAX_TOKENS`` (the
 full-resolution attention of a 64x64 image, the TPU kernel's own limit,
 blocks.py:58) the wrapper raises: the plain version would hold B*N*N f32
 energies in device memory.
@@ -34,10 +34,9 @@ pixel's query against the keys of a map its reduction conv cut down (more
 queries than keys, up to 64 times as many at its first stage).  The tiles
 walk the ``nq`` queries, the key loops the ``nk`` keys; ``entry_point``,
 ``MAX_TOKENS`` and the bf16 kernel's chunks go by ``nk``, so a query's row is
-the same bits in a band as in the whole map.  Every launch counts under
-``LAUNCHES``; one with fewer queries than keys also under ``FEWER_QUERIES``,
-one with more under ``MORE_QUERIES`` (``ops.launches()`` holds both, as
-``pooled_attention.fewer_queries`` and ``pooled_attention.more_queries``).
+the same bits in a band as in the whole map.  A launch with fewer queries
+than keys also counts under ``pooled_attention.fewer_queries``, one with more
+under ``pooled_attention.more_queries``.
 
 Heads (``heads`` > 1, SegFormer): q and k hold ``heads`` heads of C' channels
 side by side in each row, v ``heads`` heads of C, and the output the heads'
@@ -48,9 +47,9 @@ nothing is permuted or copied unless TMA cannot read a tensor as it is
 (``tma_rows``).  Token tensors ``[B,N,*]`` are taken beside NHWC maps.
 
 Under autograd the forward still launches the kernel; the backward
-recomputes through the plain version and returns its gradients, which is
-what the JAX custom VJP does (pallas_attention.py:98-106): the TPU package
-has no backward kernel either.
+recomputes through the plain version and returns its gradients
+(``_build.PlainBackward``), which is what the JAX custom VJP does
+(pallas_attention.py:98-106): the TPU package has no backward kernel either.
 """
 
 import math
@@ -64,11 +63,9 @@ from dfc_sa_unet_torch.ops.attention import pooled_self_attention
 SHORT_TOKENS = 128  # f32: N = p*p up to which the 16-row kernel is launched (it takes N <= 1024)
 MAX_TOKENS = 4096
 MAX_QK_CHANNELS = 256
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
-LAUNCHES = {"pooled_attention": 0}
-FEWER_QUERIES = {"pooled_attention": 0}  # the launches above with nq < nk (a band's queries)
-MORE_QUERIES = {"pooled_attention": 0}  # the launches above with nq > nk (SegFormer's reduced keys)
+# the names a launch counts under, by the sign of nq - nk
+_COUNTED = {0: ("pooled_attention",), -1: ("pooled_attention", "pooled_attention.fewer_queries"),
+            1: ("pooled_attention", "pooled_attention.more_queries")}
 
 
 def pooled_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int = 1) -> torch.Tensor:
@@ -86,13 +83,10 @@ def pooled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: i
     same with heads C channels (nk keys) -> q's shape with heads C channels; softmax(q k^T) v of each head,
     unscaled.  Each tensor's channels are adjacent and its rows evenly apart (k and v may be views of one
     projection's halves)."""
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+    if _build.on_cpu(q, k, v):
         return pooled_attention_plain(q, k, v, heads)
+    _build.check_operands("pooled_attention", (("q", q, None), ("k", k, None), ("v", v, None)), contiguous=False)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"pooled_attention: {name} is on {t.device}, q on {q.device}")
-        if t.dtype not in _DTYPES or t.dtype != v.dtype:
-            raise TypeError(f"pooled_attention: {name} is {t.dtype}; takes q, k, v all f32 or all bf16")
         if t.dim() not in (3, 4) or t.dim() != q.dim():
             raise ValueError(f"pooled_attention: {name} must be an NHWC map or [B,N,*] tokens, not {tuple(t.shape)}")
     b, cq, n = q.shape[0], q.shape[-1] // max(heads, 1), math.prod(k.shape[1:-1])
@@ -104,7 +98,7 @@ def pooled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: i
         raise ValueError(f"pooled_attention: N={n} (max {MAX_TOKENS}), C'={cq} (max "
                          f"{MAX_QK_CHANNELS}), B x heads={b * heads} (max 65535) not supported by the kernel")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _PooledAttention.apply(q, k, v, heads)
+        return _build.PlainBackward.apply(_launch, pooled_attention_plain, (heads,), q, k, v)
     return _launch(q, k, v, heads)
 
 
@@ -128,7 +122,7 @@ def entry_point(dtype: torch.dtype, n: int) -> str:
     """The C function of csrc/pooled_attention.cu that computes a call of N keys."""
     if dtype == torch.bfloat16:
         return "pooled_attention_wgmma_bf16"
-    return f"pooled_attention_{'long_' if n > SHORT_TOKENS else ''}{_DTYPES[dtype]}"
+    return f"pooled_attention_{'long_' if n > SHORT_TOKENS else ''}{_build.SUFFIX[dtype]}"
 
 
 def tma_rows(t: torch.Tensor, heads: int = 1, row=None) -> torch.Tensor:
@@ -163,39 +157,8 @@ def _launch(q, k, v, heads):
     cq, cv = q.shape[-1] // heads, v.shape[-1] // heads
     out = torch.empty((*q.shape[:-1], heads * cv), dtype=v.dtype, device=v.device)
     if out.numel():
-        name = entry_point(v.dtype, nk)
-        err = _build.kernel(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, heads, nq, nk,
-                                  cq, cv, *rows, _build.stream_handle(q.device))
-        _build.check(err, name)
-        LAUNCHES["pooled_attention"] += 1
-        FEWER_QUERIES["pooled_attention"] += nq < nk
-        MORE_QUERIES["pooled_attention"] += nq > nk
+        _build.launch(entry_point(v.dtype, nk), _COUNTED[(nq > nk) - (nq < nk)], q.device, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), out.data_ptr(), b, heads, nq, nk, cq, cv, *rows)
     if cv == c:
         return out
     return out.unflatten(-1, (heads, cv))[..., :c].flatten(-2)
-
-
-def plain_vjp(plain, inputs, grad_out):
-    """Gradients of ``plain(*inputs)`` w.r.t. the inputs that need one, for
-    the backward of a kernel's autograd.Function: the forward is recomputed
-    through the plain version on detached copies, so nothing but the inputs
-    was saved.  Gradients come back contiguous, in the inputs' layout."""
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(t.requires_grad) for t in inputs]
-        out = plain(*leaves)
-        wanted = [t for t in leaves if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, grad_out))
-    return tuple(next(grads).contiguous() if t.requires_grad else None for t in leaves)
-
-
-class _PooledAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, heads=1):
-        ctx.save_for_backward(q, k, v)
-        ctx.heads = heads
-        return _launch(q, k, v, heads)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        return (*plain_vjp(lambda a, b, c: pooled_attention_plain(a, b, c, ctx.heads), ctx.saved_tensors,
-                           grad_out), None)

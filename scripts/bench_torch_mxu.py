@@ -178,7 +178,7 @@ def main():
         probe = Probe(args.batch, gen)
         probe.time(args.iters, probe.check(), card)
     counts = launches()
-    print("launches: " + ", ".join(f"{k} {counts[k]}" for k in ops.LAUNCHES))
+    print("launches: " + ", ".join(f"{k} {n}" for k, n in counts.items() if k.startswith("probe_")))
 
 
 if __name__ == "__main__":

@@ -5,9 +5,10 @@ autograd Functions recompute through the plain versions).
 
 f32, tolerance 1e-5 of max|reference gradient|: the same f32 sums in
 another order.  On the CPU the wrappers run their plain versions under
-plain autograd; the autograd Functions that wrap the CUDA kernels are
-driven here with the launch replaced by the plain version, which checks
-their backward (recompute, gradient routing and layout) without a card.
+plain autograd; the one autograd Function that wraps the CUDA kernels
+(``_build.PlainBackward``) is driven here with each wrapper's launch replaced
+by its plain version, which checks its backward (recompute, gradient routing
+and layout) without a card.
 """
 
 import jax
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from dfc_sa_unet_tpu.ops import pallas_attention as jpa
-from dfc_sa_unet_torch.ops import mha, pooled_attention as pa
+from dfc_sa_unet_torch.ops import _build, mha, pooled_attention as pa
 
 torch.set_num_threads(2)
 TOL = 1e-5
@@ -39,10 +40,22 @@ def _close(got, want):
 
 @pytest.fixture
 def plain_launch(monkeypatch):
-    """The Functions' forward goes to the plain versions instead of a CUDA launch."""
+    """The Function's forward goes to the plain versions instead of a CUDA launch."""
     monkeypatch.setattr(pa, "_launch", pa.pooled_attention_plain)
     monkeypatch.setattr(mha, "_launch_packed", mha.fused_mha_plain)
     monkeypatch.setattr(mha, "_launch_sep", mha.fused_mha_sep_plain)
+
+
+def _pooled(q, k, v):
+    return _build.PlainBackward.apply(pa._launch, pa.pooled_attention_plain, (1,), q, k, v)
+
+
+def _packed(qkv, num_heads):
+    return _build.PlainBackward.apply(mha._launch_packed, mha.fused_mha_plain, (num_heads,), qkv)
+
+
+def _sep(q, k, v, num_heads):
+    return _build.PlainBackward.apply(mha._launch_sep, mha.fused_mha_sep_plain, (num_heads,), q, k, v)
 
 
 @pytest.mark.parametrize("p,c", [(4, 64), (8, 128), (5, 24)])  # N = 16, 64 and an odd 25
@@ -52,7 +65,7 @@ def test_pooled_attention_grad_matches_jax(p, c, through_function, plain_launch)
     want = jax.grad(lambda *a: jnp.sum(jpa.fused_pooled_attention(*a) * w), argnums=(0, 1, 2))(
         *(jnp.asarray(t) for t in (q, k, v)))
     leaves = _leaves((q, k, v))
-    fn = pa._PooledAttention.apply if through_function else pa.pooled_attention
+    fn = _pooled if through_function else pa.pooled_attention
     (fn(*leaves) * torch.from_numpy(w)).sum().backward()
     for leaf, ref in zip(leaves, want):
         assert leaf.grad.is_contiguous() and leaf.grad.shape == leaf.shape
@@ -65,7 +78,7 @@ def test_fused_mha_grad_matches_jax(n, e, heads, through_function, plain_launch)
     qkv, w = _np(n + e, (2, n, 3 * e), (2, n, e))
     want = jax.grad(lambda t: jnp.sum(jpa.fused_mha(t, heads) * w))(jnp.asarray(qkv))
     (leaf,) = _leaves((qkv,))
-    fn = mha._FusedMha.apply if through_function else mha.fused_mha
+    fn = _packed if through_function else mha.fused_mha
     (fn(leaf, heads) * torch.from_numpy(w)).sum().backward()
     assert leaf.grad.is_contiguous()
     _close(leaf.grad, want)
@@ -78,7 +91,7 @@ def test_fused_mha_sep_grad_matches_jax(n, e, heads, through_function, plain_lau
     want = jax.grad(lambda *a: jnp.sum(jpa.fused_mha_sep(*a, heads) * w), argnums=(0, 1, 2))(
         *(jnp.asarray(t) for t in (q, k, v)))
     leaves = _leaves((q, k, v))
-    fn = mha._FusedMhaSep.apply if through_function else mha.fused_mha_sep
+    fn = _sep if through_function else mha.fused_mha_sep
     (fn(*leaves, heads) * torch.from_numpy(w)).sum().backward()
     for leaf, ref in zip(leaves, want):
         assert leaf.grad.is_contiguous()
@@ -88,11 +101,11 @@ def test_fused_mha_sep_grad_matches_jax(n, e, heads, through_function, plain_lau
 def test_function_routes_gradients_only_where_needed(plain_launch):
     q, k, v = (torch.from_numpy(a) for a in _np(1, (1, 4, 4, 2), (1, 4, 4, 2), (1, 4, 4, 16)))
     v.requires_grad_(True)
-    pa._PooledAttention.apply(q, k, v).sum().backward()
+    _pooled(q, k, v).sum().backward()
     assert q.grad is None and k.grad is None and v.grad is not None
     # non-contiguous upstream gradients (a transposed sum) still come back contiguous
     q2, k2, v2 = _leaves(_np(2, (2, 9, 16), (2, 9, 16), (2, 9, 16)))
-    out = mha._FusedMhaSep.apply(q2, k2, v2, 2)
+    out = _sep(q2, k2, v2, 2)
     (out.transpose(1, 2) * torch.arange(9.0)).sum().backward()
     assert all(t.grad.is_contiguous() for t in (q2, k2, v2))
 

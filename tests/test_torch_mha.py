@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from dfc_sa_unet_tpu.ops import pallas_attention as jpa
-from dfc_sa_unet_torch.ops import mha
+from dfc_sa_unet_torch.ops import launches, mha
 
 torch.set_num_threads(2)
 SIZES = [(2, 16, 32, 2), (1, 196, 768, 12), (2, 37, 48, 3)]  # B, N, E, heads
@@ -55,14 +55,14 @@ def test_separate_plain_matches_jax(b, n, e, nh, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cpu_wrappers_run_the_plain_versions(dtype):
     _, tx = _qkv(2, 2, 37, 48, dtype)
-    before = dict(mha.LAUNCHES)
+    before = launches()
     packed = mha.fused_mha(tx, 3)
     assert torch.equal(packed, mha.fused_mha_plain(tx, 3))
     q, k, v = (t.contiguous() for t in tx.chunk(3, dim=-1))
     sep = mha.fused_mha_sep(q, k, v, 3)
     assert torch.equal(sep, mha.fused_mha_sep_plain(q, k, v, 3))
     assert torch.equal(packed, sep)  # packed equals separate on split inputs
-    assert mha.LAUNCHES == before  # no kernel was launched on the CPU
+    assert launches() == before  # no kernel was launched on the CPU
 
 
 def test_scores_are_scaled_and_softmax_rows_sum_to_one():

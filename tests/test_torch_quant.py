@@ -6,9 +6,10 @@ to JAX's; ``range_tap``'s percentile is numpy's "linear" one also past 2^24
 elements, where ``torch.quantile`` refuses; ``Int8DFCEngine`` quantizes to
 JAX's s8 weights, calibrates JAX's scales (1e-5 relative: the fp forwards sum
 in another order) and, on JAX's scales, serves JAX's probabilities (1e-3) and
-masks (99.9% of pixels).  Then the mechanics of tests/test_quant.py: scale
-reuse and validation, "timing" scales, level selection and the self-check
-(clean, broken, multi-channel, held-out, without calibration).
+masks (99.9% of pixels); without int8 levels it is the fp engine bit for bit.
+Then the mechanics of tests/test_quant.py: scale reuse and validation,
+"timing" scales, level selection and the self-check (clean, broken,
+multi-channel, held-out, without calibration).
 
 The self-check's model is the seeded one with BatchNorm statistics fitted to
 the batch (``calibrate_batch_stats_``) and its output bias set so that 5% of
@@ -267,6 +268,19 @@ def test_range_taps_leave_the_fp_forward_unchanged(segmenter):
     assert sorted(ranges) == sorted(f"{n}.{t}" for n in BLOCKS for t in ("x", "c2", "c3"))
     assert all(float(v) > 0 for v in ranges.values())
     np.testing.assert_allclose(served.numpy(), module.numpy(), atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_engine_without_int8_levels_is_the_fp_engine(segmenter, dtype):
+    """No int8 level, so no scales and no s8 weight: every step of every block is DFCEngine's own, and
+    the logits are its bits."""
+    model, x, _ = segmenter
+    kernels = {"tail_kernel_levels": "auto", "conv_kernel_levels": "auto"}
+    with torch.inference_mode():
+        fp = DFCEngine(CFG, model, dtype=dtype, device="cpu", **kernels)
+        q = Int8DFCEngine(CFG, model, dtype=dtype, device="cpu", int8_levels=[], **kernels)
+        assert q.act_scales == {} and q.qblocks == {} and q.tail_kernel_levels == fp.tail_kernel_levels
+        assert torch.equal(q(x), fp(x))
 
 
 @pytest.mark.slow
