@@ -46,8 +46,12 @@ any failure exits non-zero:
    same ViT-B, DecoderCup), seeded weights with fitted BatchNorm
    statistics: one B=128 uint8 batch through the Predictor in f32 and
    bf16.  ViT-seg must launch the fused_mha kernel 12 times per forward
-   and TransUNet the fused_mha_sep kernel 12 times; f32 on the card must
-   agree with the same weights on the CPU, and bf16 with f32;
+   and TransUNet the fused_mha_sep kernel 12 times, and the LayerNorm
+   kernel 24 and 25 times (``LN_LAUNCHES``); f32 on the card must
+   agree with the same weights on the CPU, and bf16 with f32; then
+   SegFormer-B5 (seeded weights, bf16) on two 224x224 tiles must launch
+   the pooled attention 52 times (49 with more queries than keys), the
+   bias pass 370 times and the LayerNorm kernel 161 times;
 7. time each kernel, its plain version, a library yardstick and every
    serving path in bf16 at B=128; a kernel's bound is the largest of its
    bytes over the memory rate, its operations over the tensor-core peak
@@ -74,7 +78,16 @@ any failure exits non-zero:
    at B=128 and in f32 (TransUNet at B=128, the flagship at phase 8's B=2);
    every path through the layers of nn/layers.py launches it, and each
    phase holds its count (``BIAS_LAUNCHES`` a forward, at least one a
-   training step; 0 on the engines' paths);
+   training step; 0 on the engines' paths); the LayerNorms of a
+   SegFormer-B5 request (ops/layer_norm.py, scripts/bench_torch_layer_norm.py:
+   161 launches), each shape held to the plain version after a launch on
+   a NaN-filled output (bf16: within one ulp, at most 1% of elements
+   differing, no further from an f64 LayerNorm than the plain version plus
+   one ulp; f32: TOL), then timed in turns with the plain version's three
+   passes from CUDA graphs (``layer_norm``, shape by shape in ``levels``), and held to the
+   same gates at TransUNet's and ViT-seg's shapes at B=128 in bf16 and f32
+   and at SegFormer's in f32; a forward without autograd launches it once
+   a LayerNorm (``LN_LAUNCHES``), a training step never;
 8. train at full width through the port's Trainer (train_epoch and
    validate_epoch) on synthetic ellipses made in memory, bce_dice 0.5/0.5
    and SGD as configs/config_dfc-sa-res-block.yaml: the flagship for 16
@@ -353,6 +366,14 @@ BIAS_LAUNCHES = {"DFC-SA-Res-Block": 64, "VisionTransformerSegmentation": 54, "T
                  "UNet_FullResAttention": 64, "UNet_EncoderOnlyDFC": 40, "UNet_DecoderOnlyDFC": 34,
                  "UNet_BothStandardConv": 10}
 INT8_BIAS_LAUNCHES = {"VisionTransformerSegmentation": 0, "TransformerUNet": 2}
+# the LayerNorm kernel's launches (ops/layer_norm.py) of one forward without autograd of each model's module, by
+# factory name: every LayerNorm of nn/layers.py, one call each (a forward on the CPU counts the same calls); a
+# training step runs torch's ops and launches none, and so do the engines (the int8 transformers keep their own
+# f32 LayerNorm)
+LN_LAUNCHES = {"SegFormer": 161, "TransformerUNet": 25, "VisionTransformerSegmentation": 24,
+               **dict.fromkeys(("DFC-SA-Res-Block", "UNet", "UNet_Baseline", "UNet_AttentionOnly", "UNet_AdditionFusion",
+                                "UNet_ConcatFusion", "UNet_FullResAttention", "UNet_EncoderOnlyDFC", "UNet_DecoderOnlyDFC",
+                                "UNet_BothStandardConv"), 0)}
 DFC_ZOO_F32_BATCH = 8
 DFC_ZOO_CPU_IMAGES = 2
 # phase 11: (model, image size, batch); the full-resolution model's backward recomputes through
@@ -436,8 +457,10 @@ ROWS_F32_TOL = 1e-5
 # pair sharing the card, each rank a band of half the rows, against one process: label -> (config, image side,
 # launches of one forward); the transformers' configs are phase 6's, the full-resolution model's phase 10's
 ROWS17_MODELS = {
-    "ViT-B/16": (ZOO["ViT-seg"][0], IMG, {"fused_mha": 12, "bias_add": BIAS_LAUNCHES["VisionTransformerSegmentation"]}),
-    "R50-ViT-B/16": (ZOO["TransUNet"][0], IMG, {"fused_mha_sep": 12, "bias_add": BIAS_LAUNCHES["TransformerUNet"]}),
+    "ViT-B/16": (ZOO["ViT-seg"][0], IMG, {"fused_mha": 12, "bias_add": BIAS_LAUNCHES["VisionTransformerSegmentation"],
+                                          "layer_norm": LN_LAUNCHES["VisionTransformerSegmentation"]}),
+    "R50-ViT-B/16": (ZOO["TransUNet"][0], IMG, {"fused_mha_sep": 12, "bias_add": BIAS_LAUNCHES["TransformerUNet"],
+                                                "layer_norm": LN_LAUNCHES["TransformerUNet"]}),
     "UNet_FullResAttention": ({"model": {"name": "UNet_FullResAttention", **DFC_WIDTHS}}, 64,
                               {"pooled_attention": 9, "bias_add": BIAS_LAUNCHES["UNet_FullResAttention"]}),
     "UNet bilinear": ({"model": {"name": "UNet", "bilinear": True}}, IMG, {"bias_add": BIAS_LAUNCHES["UNet"]}),
@@ -1663,6 +1686,7 @@ def main():
     from scripts import bench_torch_conv3x3 as conv_bench
     from scripts import bench_torch_dfc_tail as tail_bench
     from scripts import bench_torch_int8 as int8_bench
+    from scripts import bench_torch_layer_norm as ln_bench
     from scripts import bench_torch_mxu as mxu
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1740,7 +1764,7 @@ def main():
 
     max_err = {"pooled_attention": 0.0, "dfc_tail": 0.0, "conv3x3_bn_relu": 0.0, "fused_mha": 0.0,
                "fused_mha_sep": 0.0, "conv3x3_bias_stats": 0.0, "probe_matmul": 0.0, "probe_conv_cat": 0.0,
-               "probe_conv_9dot": 0.0, "conv3x3_s8": 0.0, "lsa_epilogue": 0.0, "bias_add": 0.0}
+               "probe_conv_9dot": 0.0, "conv3x3_s8": 0.0, "lsa_epilogue": 0.0, "bias_add": 0.0, "layer_norm": 0.0}
     bad = []
 
     def check(name, kernel, plain, args, label, poison=(), floor=1.0):
@@ -2023,7 +2047,8 @@ def main():
                 zoo_probs[dn] = pred.predict_probs(batch)
             delta = {k: v - before[k] for k, v in launches().items()}
             print(f"    {label} {dn}: probs {zoo_probs[dn].shape}, launches {delta}", flush=True)
-            want = {**none, kernel_name: LAYERS, "bias_add": BIAS_LAUNCHES[cfg["model"]["name"]]}
+            want = {**none, kernel_name: LAYERS, "bias_add": BIAS_LAUNCHES[cfg["model"]["name"]],
+                    "layer_norm": LN_LAUNCHES[cfg["model"]["name"]]}
             if delta != want:
                 fail(f"{label} forward launched {delta}, expected {want}")
             if zoo_probs[dn].shape != (BATCH, IMG, IMG) or not np.isfinite(zoo_probs[dn]).all():
@@ -2049,9 +2074,24 @@ def main():
         if not (d_bf16.max() <= tol_bf16["max"] and d_bf16.mean() <= tol_bf16["mean"]):
             fail(f"{label}: bf16 and f32 disagree on the card")
         del cpu_fwd, fwd, zoo_weights
+    # SegFormer-B5 at published widths, seeded weights, bf16, two tiles: the launches of one forward (the counts
+    # do not depend on the tile's size; phase 7 times a 1024x1024 request's attention, biases and LayerNorms)
+    segformer = init_random_(create_model({"model": {"name": "SegFormer"}}, dtype=torch.bfloat16, device="cpu"),
+                             torch.Generator().manual_seed(seed)).to(dev).eval()
+    before = launches()
+    with torch.inference_mode():
+        seg_logits = segformer(normalize(torch.from_numpy(batch[:2]).to(dev), torch.bfloat16).permute(0, 3, 1, 2)
+                               .contiguous(memory_format=torch.channels_last))
+    delta = {k: v - before[k] for k, v in launches().items()}
+    want = {**none, "pooled_attention": 52, "pooled_attention.more_queries": 49, "bias_add": 370,
+            "layer_norm": LN_LAUNCHES["SegFormer"]}
+    print(f"    SegFormer-B5 bf16, 2 tiles of {IMG}x{IMG}: logits {tuple(seg_logits.shape)}, launches {delta}", flush=True)
+    if delta != want or not torch.isfinite(seg_logits).all():
+        fail(f"SegFormer-B5 forward launched {delta}, expected {want}, or gave non-finite logits")
+    del segformer, seg_logits
     zoo_launches = launches()  # the transformers' main path ends here
     print(f"    transformer main-path launches: {zoo_launches}", flush=True)
-    if min(zoo_launches[k] for k in ("fused_mha", "fused_mha_sep", "bias_add")) < 1:
+    if min(zoo_launches[k] for k in ("fused_mha", "fused_mha_sep", "bias_add", "layer_norm")) < 1:
         fail(f"a kernel of the transformers' main path never launched: {zoo_launches}")
     main_launches = {k: main_launches[k] + zoo_launches[k] for k in main_launches}
 
@@ -2187,6 +2227,34 @@ def main():
                     bad.append(f"bias_add {model} {dtype} {r['label']} {r['shape']}")
             print(f"    bias_add at {model}'s {len(held)} shapes, {str(dtype).split('.')[-1]} B={b}: "
                   f"{sum(r['same_bits'] for r in held)} the same bits as torch's add_", flush=True)
+
+        # the LayerNorms of one SegFormer-B5 request (16 1024x1024 tiles): each shape held to the plain version
+        # (the bench's gates, after a launch on a NaN-filled output), then timed in turns with it from CUDA graphs
+        # (the device's time: most of the 161 launches take a few microseconds, less than the host's call), the
+        # median of 4, times its launches a request; the plain version (x cast to f32, torch's layer_norm, the
+        # cast back) is what the layer ran before the kernel, so it stands in the library column too
+        ln_levels = ln_bench.measure("segformer", ln_bench.graph_timer, 4, 10, gen)
+        for r in ln_levels:
+            n = r["launches"]
+            add("layer_norm", r["label"], n * r["ms"], n * r["plain_ms"], n * r["plain_ms"], n * r["bytes"], 0)
+        # and at the shapes the other paths give it: TransUNet and ViT-seg at B=128, bf16 and f32, SegFormer in f32
+        ln_held = {("segformer", torch.bfloat16): ln_levels}
+        for model, dtype in (("segformer", torch.float32), ("transunet", torch.bfloat16), ("transunet", torch.float32),
+                             ("vit_seg", torch.bfloat16), ("vit_seg", torch.float32)):
+            ln_held[model, dtype] = ln_bench.measure(model, None, 0, 0, gen, dtype)
+        for (model, dtype), held_rows in ln_held.items():
+            for r in held_rows:
+                max_err["layer_norm"] = max(max_err["layer_norm"], r["max_abs_err"])
+                print(f"    layer_norm {model} {str(dtype).split('.')[-1]} {r['label']} {tuple(r['shape'])} eps "
+                      f"{r['eps']:g}: {r['ulps']:.3g} ulps from the plain version, {r['differing']:.2e} of elements "
+                      f"differing, |y - f64| {r['err']:.3e} (plain {r['plain_err']:.3e}, ulp {r['ulp']:.3e}), output "
+                      f"on the NaN block {r['poisoned']}, ok {r['ok']}", flush=True)
+                if not r["ok"]:
+                    bad.append(f"layer_norm {model} {dtype} {r['label']} {r['shape']}")
+        ln_request = ln_bench.totals(ln_levels)
+        print(f"    layer_norm, a SegFormer-B5 request's {ln_request['launches']} launches: kernel "
+              f"{ln_request['ms']:.4f} ms  plain (three passes) {ln_request['plain_ms']:.4f} ms  bound "
+              f"{ln_request['bound_ms']:.4f} ms ({card})", flush=True)
 
         # one forward of either transformer launches its kernel LAYERS times at this shape
         head_dim = EMBED // HEADS
@@ -2521,7 +2589,8 @@ def main():
             with torch.inference_mode():
                 zoo_probs[dn] = pred.predict_probs(images[:n_img])
             delta = {k: v - before[k] for k, v in launches().items()}
-            if delta != {**none, "pooled_attention": per_fwd, "bias_add": BIAS_LAUNCHES[name]}:
+            if delta != {**none, "pooled_attention": per_fwd, "bias_add": BIAS_LAUNCHES[name],
+                         "layer_norm": LN_LAUNCHES[name]}:
                 fail(f"{name} {dn} forward launched {delta}, expected {per_fwd} of pooled_attention and "
                      f"{BIAS_LAUNCHES[name]} of bias_add")
             if zoo_probs[dn].shape != (n_img, size, size) or not np.isfinite(zoo_probs[dn]).all():
@@ -2845,9 +2914,11 @@ def main():
                # no Pallas kernel: XLA fuses the upsample, gamma and the residual add of the JAX engine's attention
                "lsa_epilogue": ("dfc_sa_unet_torch/csrc/lsa_epilogue.cu", "dfc_sa_unet_tpu/infer/engine.py:161"),
                # no Pallas kernel: XLA fuses each layer's bias add into the ops around it
-               "bias_add": ("dfc_sa_unet_torch/csrc/bias_add.cu", "dfc_sa_unet_tpu/nn/layers.py")}
+               "bias_add": ("dfc_sa_unet_torch/csrc/bias_add.cu", "dfc_sa_unet_tpu/nn/layers.py"),
+               # no Pallas kernel: XLA fuses the LayerNorm into the ops around it
+               "layer_norm": ("dfc_sa_unet_torch/csrc/layer_norm.cu", "dfc_sa_unet_tpu/nn/layers.py:322")}
     levels = {"dfc_tail": tail_levels, "conv3x3_bn_relu": conv_levels, "conv3x3_bias_stats": stats_levels,
-              "conv3x3_s8": s8_levels, "lsa_epilogue": lsa_levels, "bias_add": bias_levels}
+              "conv3x3_s8": s8_levels, "lsa_epilogue": lsa_levels, "bias_add": bias_levels, "layer_norm": ln_levels}
     kernels = []
     for name, r in rows.items():
         terms = {"bytes": r["bytes"] / HBM_BYTES_PER_S, "operations": r["ops"] / r["peak"],

@@ -20,6 +20,7 @@ from torch import nn
 from dfc_sa_unet_torch.ops.bias_add import bias_add
 from dfc_sa_unet_torch.ops.convt import conv_transpose_2x2
 from dfc_sa_unet_torch.ops.dropout import recomputing
+from dfc_sa_unet_torch.ops.layer_norm import layer_norm, layer_norm_plain
 from dfc_sa_unet_torch.parallel import rows
 
 
@@ -216,10 +217,14 @@ class GroupNorm(nn.GroupNorm):
 
 
 class LayerNorm(nn.LayerNorm):
-    """nn.LayerNorm over the last dimension, in f32, returning the input dtype."""
+    """nn.LayerNorm over the last dimension, in f32, returning the input dtype.  On a card one pass
+    of ``ops.layer_norm``'s kernel; where autograd needs the graph (grad enabled and x, the weight
+    or the bias requiring it), and on the CPU, torch's ops (``layer_norm_plain``)."""
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps).to(x.dtype)
+        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad or self.bias.requires_grad):
+            return layer_norm_plain(x, self.weight, self.bias, self.eps)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class Dense(nn.Linear):

@@ -35,9 +35,9 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# exported C functions: name -> (source stem, argtypes); every one returns
-# cudaGetLastError() as an int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# exported C functions: name -> (source stem, argtypes); every one returns a CUDA
+# error code as an int: cudaGetLastError() after the launch, or its refusal of the arguments
 SIGNATURES = {
     "pooled_attention_f32": ("pooled_attention", [_P] * 4 + [_I] * 9 + [_P]),
     "pooled_attention_long_f32": ("pooled_attention", [_P] * 4 + [_I] * 9 + [_P]),
@@ -67,13 +67,15 @@ SIGNATURES = {
     "lsa_epilogue_bf16": ("lsa_epilogue", [_P] * 4 + [_I] * 8 + [_P]),
     "bias_add_f32": ("bias_add", [_P, _P, _L, _I, _L, _P]),
     "bias_add_bf16": ("bias_add", [_P, _P, _L, _I, _L, _P]),
+    "layer_norm_f32": ("layer_norm", [_P] * 4 + [_L] + [_I] * 3 + [_F, _P]),
+    "layer_norm_bf16": ("layer_norm", [_P] * 4 + [_L] + [_I] * 3 + [_F, _P]),
 }
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}  # the entry points' dtype suffixes
 
 # {counted name: launches since the last reset}, which ops.launches() shows
 LAUNCHES = dict.fromkeys((
     "pooled_attention", "conv3x3_bn_relu", "dfc_tail", "fused_mha", "fused_mha_sep", "conv3x3_bias_stats",
-    "probe_matmul", "probe_conv_cat", "probe_conv_9dot", "conv3x3_s8", "lsa_epilogue", "bias_add",
+    "probe_matmul", "probe_conv_cat", "probe_conv_9dot", "conv3x3_s8", "lsa_epilogue", "bias_add", "layer_norm",
     "pooled_attention.fewer_queries", "pooled_attention.more_queries"), 0)
 
 _functions = None

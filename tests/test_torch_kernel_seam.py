@@ -1,6 +1,6 @@
 """The one seam through which the kernel wrappers of dfc_sa_unet_torch/ops call a kernel (ops/_build.py).
 
-* ``ops.launches()`` shows the one counter, ``_build.LAUNCHES``: the fourteen names below, each set
+* ``ops.launches()`` shows the one counter, ``_build.LAUNCHES``: the fifteen names below, each set
   to 0 by ``reset_launches()``.
 * Every wrapper's launch, driven on the CPU with the seam's device rules and its kernel lookup
   replaced (``on_cpu`` false, ``check_operands`` a no-op, ``kernel`` a recorder), calls an entry
@@ -23,6 +23,7 @@ from dfc_sa_unet_torch.ops.bias_add import bias_add
 from dfc_sa_unet_torch.ops.conv_bn_stats import conv3x3_bias_stats
 from dfc_sa_unet_torch.ops.conv_s8 import conv3x3_s8
 from dfc_sa_unet_torch.ops.dfc_tail import conv3x3_bn_relu, dfc_tail
+from dfc_sa_unet_torch.ops.layer_norm import layer_norm
 from dfc_sa_unet_torch.ops.lsa_epilogue import lsa_epilogue
 from dfc_sa_unet_torch.ops.mha import fused_mha, fused_mha_sep
 from dfc_sa_unet_torch.ops.mxu_probes import probe_conv_9dot, probe_conv_cat, probe_matmul
@@ -32,7 +33,7 @@ torch.set_num_threads(2)
 OPS = pathlib.Path(__file__).resolve().parent.parent / "dfc_sa_unet_torch" / "ops"
 COUNTED = ["pooled_attention", "conv3x3_bn_relu", "dfc_tail", "fused_mha", "fused_mha_sep", "conv3x3_bias_stats",
            "probe_matmul", "probe_conv_cat", "probe_conv_9dot", "conv3x3_s8", "lsa_epilogue", "bias_add",
-           "pooled_attention.fewer_queries", "pooled_attention.more_queries"]
+           "layer_norm", "pooled_attention.fewer_queries", "pooled_attention.more_queries"]
 BF, F32, S8 = torch.bfloat16, torch.float32, torch.int8
 
 
@@ -95,6 +96,8 @@ CALLS = [
     ("lsa_epilogue", lambda: lsa_epilogue(_t(2, 8, 8, 16, dtype=BF), _t(2, 4, 4, 16, dtype=BF), _t(1)),
      "lsa_epilogue_bf16", ["lsa_epilogue"]),
     ("bias_add", lambda: bias_add(_t(4, 6, 32, dtype=BF), _t(32)), "bias_add_bf16", ["bias_add"]),
+    ("layer_norm", lambda: layer_norm(_t(4, 6, 64, dtype=BF), _t(64), _t(64), 1e-6), "layer_norm_bf16",
+     ["layer_norm"]),
 ]
 
 
@@ -121,7 +124,8 @@ def test_each_wrapper_launches_through_the_seam(recorded, label, call, entry, co
     args = recorded[0][1]
     assert len(args) == len(argtypes), (entry, args)
     for arg, kind in zip(args, argtypes):
-        assert isinstance(arg, int) or (kind is ctypes.c_void_p and arg is None), (entry, args)
+        assert (isinstance(arg, int) or (kind is ctypes.c_void_p and arg is None)
+                or (kind is ctypes.c_float and isinstance(arg, float))), (entry, args)
     assert {k: v for k, v in launches().items() if v} == dict.fromkeys(counted, 1)
 
 
