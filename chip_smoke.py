@@ -51,7 +51,10 @@ any failure exits non-zero:
    agree with the same weights on the CPU, and bf16 with f32; then
    SegFormer-B5 (seeded weights, bf16) on two 224x224 tiles must launch
    the pooled attention 52 times (49 with more queries than keys), the
-   bias pass 370 times and the LayerNorm kernel 161 times;
+   bias pass 370 times and the LayerNorm kernel 161 times; then SAM ViT-B
+   (models/sam.py, bf16) on one 1024x1024 tile must launch the pooled
+   attention 12 times, each with relative-position tables, the bias pass
+   84 times and the LayerNorm kernel 36 times (``SAM_LAUNCHES``);
 7. time each kernel, its plain version, a library yardstick and every
    serving path in bf16 at B=128; a kernel's bound is the largest of its
    bytes over the memory rate, its operations over the tensor-core peak
@@ -70,7 +73,15 @@ any failure exits non-zero:
    against 1024 keys, heads of 64, k and v the halves of one projection),
    each held to its plain version on two images first, beside SDPA on the
    same heads and with its bound, and the 52 launches of a request summed
-   (``segformer``); the bias pass of a SegFormer-B5 request (ops/bias_add.py,
+   (``segformer``); SAM ViT-B's two launch shapes with relative-position
+   tables at B=16 (scripts/bench_torch_pooled_attention.py --sam: a global
+   launch of 4096 queries and keys, a windowed one of 16 x 25 windows of
+   196, 12 heads of 64), each held to its plain version on two images after
+   a launch on NaN tables, the plain version without the tables more than
+   10 times that limit away, then timed beside the same launch without
+   tables, SDPA with the bias as a float mask and the bound of
+   portbench/roofline/relpos_attention.py, and the 12 launches of a request
+   summed (``sam``); the bias pass of a SegFormer-B5 request (ops/bias_add.py,
    scripts/bench_torch_bias_add.py: 370 launches at 16 1024x1024 tiles),
    each biased output's shape held to torch's add_ bit for bit, then timed
    in place beside it (``bias_add``, shape by shape in ``levels``), and
@@ -383,6 +394,13 @@ DFC_ZOO_TRAINING = [("UNet_AttentionOnly", IMG, 64), ("UNet_FullResAttention", 6
 # SegFormer-B5 (models/segformer.py) at a 1024x1024 tile: (width, heads, reduction ratio, blocks) a stage
 SEGFORMER_STAGES = [(64, 1, 8, 3), (128, 2, 4, 6), (320, 5, 2, 40), (512, 8, 1, 3)]
 SEGFORMER_BATCH = 16  # the tiles of a request of the cell segformer_serve_b16_1024
+# SAM ViT-B (models/sam.py): the launches of one forward, whatever the batch.  The 12 encoder attentions take
+# the relpos kernel; the bias pass is the patch conv, the encoder's qkv, proj, lin1 and lin2 (4 x 12), the
+# decoder's 14 linears a two-way layer (x 2), the final attention's 4 and mask 0's hypernetwork MLP (3); the
+# LayerNorms are the encoder's 2 x 12, the neck's 2, the decoder's 4 a layer (x 2), its final one and the
+# upscaling's LayerNorm2d
+SAM_LAUNCHES = {"pooled_attention": 12, "pooled_attention.rel_pos": 12, "bias_add": 1 + 4 * 12 + 14 * 2 + 4 + 3,
+                "layer_norm": 2 * 12 + 2 + 4 * 2 + 1 + 1}
 FULLRES_SHAPES = [("down1", 64, 64), ("down2", 32, 128), ("down3", 16, 256), ("down4", 8, 512),
                   ("bottleneck", 4, 1024), ("up_conv4", 8, 512), ("up_conv3", 16, 256), ("up_conv2", 32, 128),
                   ("up_conv1", 64, 64)]
@@ -1688,6 +1706,7 @@ def main():
     from scripts import bench_torch_int8 as int8_bench
     from scripts import bench_torch_layer_norm as ln_bench
     from scripts import bench_torch_mxu as mxu
+    from scripts import bench_torch_pooled_attention as attn_bench
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
@@ -2089,6 +2108,20 @@ def main():
     if delta != want or not torch.isfinite(seg_logits).all():
         fail(f"SegFormer-B5 forward launched {delta}, expected {want}, or gave non-finite logits")
     del segformer, seg_logits
+    # SAM ViT-B at published widths, seeded weights, bf16, one 1024x1024 tile (its only input size): the launches
+    # of one forward (phase 7 holds its two attention launch shapes to the plain version and times them)
+    sam = init_random_(create_model({"model": {"name": "SAM"}}, dtype=torch.bfloat16, device="cpu"),
+                       torch.Generator().manual_seed(seed)).to(dev).eval()
+    sam_x = torch.randn(1, 3, 1024, 1024, generator=torch.Generator().manual_seed(seed)).to(dev, torch.bfloat16)
+    before = launches()
+    with torch.inference_mode():
+        sam_logits = sam(sam_x.contiguous(memory_format=torch.channels_last))
+    delta = {k: v - before[k] for k, v in launches().items()}
+    want = {**none, **SAM_LAUNCHES}
+    print(f"    SAM ViT-B bf16, 1 tile of 1024x1024: logits {tuple(sam_logits.shape)}, launches {delta}", flush=True)
+    if delta != want or not torch.isfinite(sam_logits).all():
+        fail(f"SAM ViT-B forward launched {delta}, expected {want}, or gave non-finite logits")
+    del sam, sam_x, sam_logits
     zoo_launches = launches()  # the transformers' main path ends here
     print(f"    transformer main-path launches: {zoo_launches}", flush=True)
     if min(zoo_launches[k] for k in ("fused_mha", "fused_mha_sep", "bias_add", "layer_norm")) < 1:
@@ -2346,6 +2379,20 @@ def main():
         print(f"    pooled_attention, SegFormer-B5's 52 launches a request: kernel {segformer_attn['ms']:.4f} ms  "
               f"SDPA {segformer_attn['library_ms']:.4f} ms  bound {segformer_attn['bound_ms']:.4f} ms ({card})",
               flush=True)
+
+        # SAM ViT-B's two launch shapes with relative-position tables at B=16 (scripts/bench_torch_pooled_attention.py
+        # --sam): each held to the plain version on two images' launches after a launch on NaN tables, and the
+        # plain version without the tables more than 10 times that limit away; kept beside row 1 in the kernels
+        # line with a request's 12 launches summed, SDPA with the bias as a float mask beside them
+        try:
+            sam_shapes = attn_bench.sam_launches(attn_ops, gen, 20, sm_mhz, card)
+        except RuntimeError as e:
+            fail(f"phase 7: {e}")
+        request = sam_shapes.pop("request")
+        max_err["pooled_attention"] = max(max_err["pooled_attention"], *(r["max_abs_err"] for r in sam_shapes.values()))
+        sam_attn = {"batch": attn_bench.SAM_BATCH, "shapes": sam_shapes, "ms": request["ms"],
+                    "no_tables_ms": request["no_tables_ms"], "library_ms": request["sdpa_ms"],
+                    "bound_ms": request["bound_ms"]}
 
         # the matrix-unit probes at their own shape (scripts/bench_torch_mxu.py): cuBLAS and cuDNN beside them
         mx = mxu.Probe(BATCH, gen)
@@ -2940,7 +2987,8 @@ def main():
                if name in ("dfc_tail", "conv3x3_bn_relu", "conv3x3_s8") else {}),
             # phase 17: the attention's launches with a band's queries against every key, and the MHA's on
             # the token maps gathered over the bands, among "launches"
-            **({"fewer_query_launches": families["pooled_attention.fewer_queries"], "flagship_large_batch": attn_big, "segformer": segformer_attn}
+            **({"fewer_query_launches": families["pooled_attention.fewer_queries"], "flagship_large_batch": attn_big,
+                "segformer": segformer_attn, "sam": sam_attn}
                if name == "pooled_attention" else {}),
             **({"gathered_token_launches": families[name]} if name in ("fused_mha", "fused_mha_sep") else {}),
         })

@@ -75,6 +75,27 @@
 // multiples of 8 (ops/pooled_attention.py::tma_rows) rather than keeping a
 // cp.async path here; no main-path shape needs it.
 //
+// Decomposed relative-position bias (SAM's image encoder, models/sam.py):
+// pooled_attention_relpos_kernel, the same body with REL set.  The keys lie on
+// a kh x kw grid (nk = kh kw), and each energy takes two table values of its
+// query row, e = (q k^T + rel_h[i][j / kw]) + rel_w[i][j % kw] in f32, added
+// before the masking of keys past nk and the chunk's row maximum; the rest of
+// the order is the one above.  The tables, [B][nq][heads][kh] and [...][kw]
+// in bf16, are staged once a tile: each consumer warpgroup copies its 64 rows'
+// two table rows into shared memory (256 bytes a row: rel_w's in the first
+// 128, rel_h's in the second, 4-byte words XOR-swizzled by the row's low three
+// bits so that the 8 rows of a warp's load fall in different banks), between
+// two of its named barriers.  Any even kw (REL 1): per chunk a thread divides
+// its first key by kw once and steps its (row, column) by 8 keys an element
+// pair; kw even, so a pair's two keys share a row and one 4-byte load gives
+// both rel_w values.  kw = 64 (REL 2, SAM's global layers): a chunk of 128 keys
+// is two rows of keys, one 4-byte load gives a query's two rel_h values, and a
+// thread's columns are the same in every chunk, so each rel_w pair it loads
+// serves two element pairs.
+// Heads of at most 64 channels of q and of v, each read as 64 (zeros past cq
+// and c: one instantiation a kw path), kh and kw at most 64; nq x nk values
+// are never written anywhere.
+//
 // f32 (the parity path, exact to 1e-5; TF32 would break it): two SIMT kernels,
 // picked by the wrapper (ops/pooled_attention.py) by N.
 //
@@ -397,6 +418,7 @@ constexpr int kTile = 64 * 128;     // a box of 64 rows x 128 bytes, one 1 KB-al
 // a row's reference maximum moves only when a chunk's maximum passes it by more than 2^kSlack in p
 // (log2 units): p stays below 256, and o and l are rescaled a few times a row instead of every chunk
 constexpr float kSlack = 8.f;
+constexpr int kRelRow = 256;  // bytes of a query row's staged tables (REL): rel_w in the first 128, rel_h in the second
 
 // CQP: q's and k's channels padded to a power of two >= 16 (the depth of a bf16 wgmma); CT: channels of v
 // a tile; NC: consumer warpgroups, each owning 64 query rows; SPLIT: the consumers take an image each
@@ -404,7 +426,7 @@ constexpr float kSlack = 8.f;
 // running free; CH: keys a chunk (64 or 128), the N of the energies' wgmma and one stage of the ring.
 // A q slot holds every consumer's row tile, a stage one chunk of keys and values (of each
 // consumer's image when SPLIT), each as [blocks of 64 channels][rows][128 bytes] in the 128-byte swizzle.
-template <int CQP, int CT, int NC, bool SPLIT, int CH>
+template <int CQP, int CT, int NC, bool SPLIT, int CH, int REL = 0>
 struct Shape {
   static constexpr int KB = (CQP + 63) / 64, VB = CT / 64, SUB = SPLIT ? NC : 1, KS = CQP / 16;
   static constexpr int kThreads = 128 * (NC + 1);  // and the producer warpgroup
@@ -416,18 +438,28 @@ struct Shape {
   static constexpr int kKBytes = SUB * KB * kBlock;
   static constexpr int kStageBytes = kKBytes + SUB * VB * kBlock;
   static constexpr int kBarBytes = 8 * 2 * (kMaxStages + kQSlots);
-  static constexpr int kFit = (kSmemLimit - 1024 - kQSlots * kQBytes - kBarBytes) / kStageBytes;
+  static constexpr int kRelBytes = REL ? NC * 64 * kRelRow : 0;  // the tables of the tile's query rows
+  static constexpr int kFit = (kSmemLimit - 1024 - kQSlots * kQBytes - kBarBytes - kRelBytes) / kStageBytes;
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
-  static constexpr int kSmem = 1024 + kQSlots * kQBytes + kStages * kStageBytes + kBarBytes;
+  static constexpr int kSmem = 1024 + kQSlots * kQBytes + kStages * kStageBytes + kBarBytes + kRelBytes;
   static constexpr int kRows = SPLIT ? 64 : NC * 64;  // query rows of a tile (of each image, SPLIT)
   static_assert(kStages >= 2 && kSmem <= kSmemLimit, "a chunk's keys are read while the last one's values are");
   static_assert((CT == 64 || CT == 128) && (CH == 64 || CH == 128), "the wgmma widths");
+  static_assert(!REL || (!SPLIT && CQP == 64 && CT == 64), "the tables take the shared-rows path at 64 channels");
+  static_assert(REL != 2 || CH == 128, "kw = 64: two table rows a chunk");
   static_assert((NC == 2 || NC == 3) && NC * kConsumerRegs + kProducerRegs <= 65536 / kThreads / 8 * 8 * (NC + 1),
                 "registers");
 };
 
 struct Maps {
   CUtensorMap q, k, v;
+};
+
+// the decomposed relative-position tables: h [b][nq][heads][kh], w [b][nq][heads][kw], bf16
+struct Rel {
+  const bf16* h;
+  const bf16* w;
+  int kh, kw;
 };
 
 __device__ __forceinline__ void named_arrive(int id, int threads) {
@@ -501,11 +533,12 @@ __device__ __forceinline__ float exp2_diff(float x, float y) { return dfc::exp2_
 //     all 1), p rounded to bf16 into the A fragments of the next p v (the accumulator layout of e is that
 //     fragment's layout).
 // After the last chunk one more issue adds p v; out = o / l, rounded to bf16, stored from registers.
-template <int CQP, int CT, int NC, bool SPLIT, int CH>
-__global__ void __launch_bounds__(128 * (NC + 1), 1)
-pooled_attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out, int b, int heads, int nq,
-                              int nk, int c) {
-  using S = Shape<CQP, CT, NC, SPLIT, CH>;
+// With REL the tables of `rel` add the decomposed bias to each chunk's energies (the header's note): REL 1 for
+// any even kw, REL 2 where kw = 64 (a chunk two rows of keys, a thread's columns the same in every chunk).
+template <int CQP, int CT, int NC, bool SPLIT, int CH, int REL>
+__device__ __forceinline__ void attention_body(const Maps& maps, bf16* __restrict__ out, int b, int heads, int nq,
+                                               int nk, int c, const Rel& rel) {
+  using S = Shape<CQP, CT, NC, SPLIT, CH, REL>;
   constexpr int ST = S::kStages, OR = CT / 2, ER = CH / 2, KK = CH / 16;  // registers of o and e; k-steps of p v
   extern __shared__ __align__(16) unsigned char smem_wg[];
   const uint32_t base = (dfc::smem_u32(smem_wg) + 1023u) & ~1023u;
@@ -517,6 +550,8 @@ pooled_attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restric
   auto empty = [&](int g) { return bars + 8 * (kMaxStages + g % ST); };
   auto q_full = [&](int i) { return bars + 8 * (2 * kMaxStages + i % kQSlots); };
   auto q_empty = [&](int i) { return bars + 8 * (2 * kMaxStages + kQSlots + i % kQSlots); };
+  // the staged tables (REL), as a generic pointer: [consumer warpgroup][64 rows][kRelRow bytes]
+  unsigned char* const tabs = smem_wg + (bars + S::kBarBytes - dfc::smem_u32(smem_wg));
 
   const int chunks = (nk + CH - 1) / CH, ctiles = (c + CT - 1) / CT, images = b * heads;
   const int rtiles = SPLIT ? 1 : (nq + S::kRows - 1) / S::kRows;
@@ -598,9 +633,91 @@ pooled_attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restric
       for (int kk = 0; kk < KK; ++kk) dfc::fence_regs(pa[kk]);
       if (lane == 0) mbar_arrive(empty(gg));
     };
+    // REL: this warpgroup's 64 query rows' tables (rows from row0w, of image z) into shared memory, between two
+    // barriers of the warpgroup (its reads of the last tile's tables done; the copy seen by all four warps).
+    // Thread t copies table t % 2 (rel_h, rel_w) of row t / 2, two values a 4-byte load where the table's rows
+    // are an even length (8 loads in flight), else one; rows past nq take zeros.
+    auto stage_tables = [&](int row0w, int z) {
+      named_sync(1 + cw, 128);
+      const int t = threadIdx.x % 128, r = t >> 1, which = t & 1, n = which ? rel.kw : rel.kh, i = row0w + r;
+      const int zb = z / heads, sw = (r & 7) << 2;
+      const bf16* src = (which ? rel.w : rel.h) + ((size_t)(zb * nq + (i < nq ? i : 0)) * heads + (z - zb * heads)) * n;
+      unsigned char* dst = tabs + (cw * 64 + r) * kRelRow + (which ? 0 : 128);
+      if (n % 2 == 0) {
+        const unsigned int* src2 = reinterpret_cast<const unsigned int*>(src);
+        for (int p0 = 0; p0 < n / 2; p0 += 8) {
+          unsigned int pair[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) pair[u] = p0 + u < n / 2 && i < nq ? __ldg(src2 + p0 + u) : 0u;
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            if (p0 + u < n / 2) *reinterpret_cast<unsigned int*>(dst + 4 * ((p0 + u) ^ sw)) = pair[u];
+        }
+      } else {
+        unsigned short* dst2 = reinterpret_cast<unsigned short*>(dst);
+        for (int col = 0; col < n; ++col)
+          dst2[2 * ((col >> 1) ^ sw) + (col & 1)] = i < nq ? __bfloat16_as_ushort(src[col]) : (unsigned short)0;
+      }
+      named_sync(1 + cw, 128);
+    };
+    // REL: chunk j's bias added to e, (e + rel_h) + rel_w, for this thread's rows 16 warp + lane/4 (+ 8); a key
+    // pair (2 t4 + 8x, + 1) shares its row, kw being even
+    auto add_bias = [&](int j) {
+      const unsigned char* ta = tabs + (cw * 64 + warp * 16 + lane / 4) * kRelRow;
+      const unsigned char* tb = ta + 8 * kRelRow;
+      auto word = [](const unsigned char* p) { return *reinterpret_cast<const uint32_t*>(p); };
+      const int sw = (lane / 4) << 2;  // the rows' low three bits (16 warp is a multiple of 8)
+      if constexpr (REL == 2) {
+        // keys 128 j + 8x + 2 t4 (+ 1): row 2j + x / 8 (one 4-byte word of rel_h holds both; rows past kh are
+        // keys past nk, masked after), column 8 (x % 8) + 2 t4 (+ 1), whose word 4 (x % 8) + t4 is swizzled to
+        // 4 ((x % 8) ^ lane / 4) + t4
+        const int hw = 128 + 4 * (j ^ sw), w0 = 4 * t4;
+        const uint32_t h2a = word(ta + hw), h2b = word(tb + hw);
+        const float ha[2] = {__uint_as_float(h2a << 16), __uint_as_float(h2a & 0xffff0000u)};
+        const float hb[2] = {__uint_as_float(h2b << 16), __uint_as_float(h2b & 0xffff0000u)};
+#pragma unroll
+        for (int xw = 0; xw < 8; ++xw) {
+          const int ww = 16 * (xw ^ (lane / 4)) + w0;
+          const uint32_t wa = word(ta + ww), wb = word(tb + ww);
+          const float wa0 = __uint_as_float(wa << 16), wa1 = __uint_as_float(wa & 0xffff0000u);
+          const float wb0 = __uint_as_float(wb << 16), wb1 = __uint_as_float(wb & 0xffff0000u);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int x = xw + 8 * half;
+            e[4 * x] = (e[4 * x] + ha[half]) + wa0;
+            e[4 * x + 1] = (e[4 * x + 1] + ha[half]) + wa1;
+            e[4 * x + 2] = (e[4 * x + 2] + hb[half]) + wb0;
+            e[4 * x + 3] = (e[4 * x + 3] + hb[half]) + wb1;
+          }
+        }
+        return;
+      }
+      const int j0 = j * CH + 2 * t4, kh1 = rel.kh - 1;
+      int r = j0 / rel.kw, cc = j0 - r * rel.kw;
+      const int dr = 8 / rel.kw, dc = 8 - dr * rel.kw;
+#pragma unroll
+      for (int x = 0; x < ER / 4; ++x) {
+        const int rr = r < kh1 ? r : kh1;  // keys past nk (masked after) read the last row
+        const int hw = 4 * ((rr >> 1) ^ sw) + 2 * (rr & 1) + 128, ww = 4 * ((cc >> 1) ^ sw);
+        const float ha = __uint_as_float((uint32_t)*reinterpret_cast<const unsigned short*>(ta + hw) << 16);
+        const float hb = __uint_as_float((uint32_t)*reinterpret_cast<const unsigned short*>(tb + hw) << 16);
+        const uint32_t wa = word(ta + ww), wb = word(tb + ww);
+        e[4 * x] = (e[4 * x] + ha) + __uint_as_float(wa << 16);
+        e[4 * x + 1] = (e[4 * x + 1] + ha) + __uint_as_float(wa & 0xffff0000u);
+        e[4 * x + 2] = (e[4 * x + 2] + hb) + __uint_as_float(wb << 16);
+        e[4 * x + 3] = (e[4 * x + 3] + hb) + __uint_as_float(wb & 0xffff0000u);
+        cc += dc;
+        r += dr;
+        if (cc >= rel.kw) {
+          cc -= rel.kw;
+          ++r;
+        }
+      }
+    };
     // chunk j's energies in e -> its p (f32, in place), the reference and l updated; whether a reference moved.
     // e[4x + y]: row 16 warp + lane/4 (+8 for y >= 2), key CH j + 8x + 2 t4 + (y & 1)
     auto softmax = [&](int j) {
+      if constexpr (REL != 0) add_bias(j);
       if (j == chunks - 1 && nk % CH) {
 #pragma unroll
         for (int x = 0; x < ER; ++x)
@@ -653,6 +770,7 @@ pooled_attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restric
     int g = 0;  // chunks consumed
     for (int t = blockIdx.x, i = 0; t < tiles; t += gridDim.x, ++i) {
       const int col0 = (t % ctiles) * CT, row0 = (t / ctiles % rtiles) * S::kRows, img = t / (ctiles * rtiles);
+      if constexpr (REL != 0) stage_tables(row0 + cw * 64, img);
       mbar_wait(q_full(i), (i / kQSlots) & 1);
 #pragma unroll
       for (int ks = 0; ks < S::KS; ++ks)
@@ -717,6 +835,20 @@ pooled_attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restric
   }
 }
 
+template <int CQP, int CT, int NC, bool SPLIT, int CH>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+pooled_attention_wgmma_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out, int b, int heads, int nq,
+                              int nk, int c) {
+  attention_body<CQP, CT, NC, SPLIT, CH, 0>(maps, out, b, heads, nq, nk, c, Rel{});
+}
+
+template <int CQP, int CT, int NC, int CH, int REL>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+pooled_attention_relpos_kernel(const __grid_constant__ Maps maps, bf16* __restrict__ out, int b, int heads, int nq,
+                               int nk, int c, const __grid_constant__ Rel rel) {
+  attention_body<CQP, CT, NC, false, CH, REL>(maps, out, b, heads, nq, nk, c, rel);
+}
+
 }  // namespace wg
 
 constexpr int kMaxDevices = 64;
@@ -733,11 +865,11 @@ inline bool head_map(CUtensorMap* map, const void* t, uint64_t cols, uint64_t he
                                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// row strides sq, sk, sv of 0: dense rows (heads x cq, heads x cq, heads x c)
-template <int CQP, int CT, int NC, bool SPLIT, int CH>
+// row strides sq, sk, sv of 0: dense rows (heads x cq, heads x cq, heads x c); REL 1 or 2: the relpos kernel on `rel`
+template <int CQP, int CT, int NC, bool SPLIT, int CH, int REL = 0>
 int launch_wg(const void* q, const void* k, const void* v, void* out, int b, int nq, int nk, int cq, int c,
-              void* stream, int heads = 1, int sq = 0, int sk = 0, int sv = 0) {
-  using S = wg::Shape<CQP, CT, NC, SPLIT, CH>;
+              void* stream, int heads = 1, int sq = 0, int sk = 0, int sv = 0, wg::Rel rel = {}) {
+  using S = wg::Shape<CQP, CT, NC, SPLIT, CH, REL>;
   wg::Maps maps;  // [b][rows][heads][channels], boxes of 64 channels x 64 (q) or CH (k, v) rows
   if (!head_map(&maps.q, q, cq, heads, nq, b, sq ? sq : heads * cq, 64) ||
       !head_map(&maps.k, k, cq, heads, nk, b, sk ? sk : heads * cq, CH) ||
@@ -755,16 +887,26 @@ int launch_wg(const void* q, const void* k, const void* v, void* out, int b, int
   int sms = sms_of[dev].load(std::memory_order_acquire);
   if (sms == 0) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(wg::pooled_attention_wgmma_kernel<CQP, CT, NC, SPLIT, CH>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+    if (err == cudaSuccess) {
+      if constexpr (REL != 0)
+        err = cudaFuncSetAttribute(wg::pooled_attention_relpos_kernel<CQP, CT, NC, CH, REL>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+      else
+        err = cudaFuncSetAttribute(wg::pooled_attention_wgmma_kernel<CQP, CT, NC, SPLIT, CH>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
     sms_of[dev].store(sms, std::memory_order_release);
   }
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  wg::pooled_attention_wgmma_kernel<CQP, CT, NC, SPLIT, CH><<<grid, S::kThreads, S::kSmem,
-                                                              static_cast<cudaStream_t>(stream)>>>(
-      maps, static_cast<bf16*>(out), b, heads, nq, nk, c);
+  if constexpr (REL != 0)
+    wg::pooled_attention_relpos_kernel<CQP, CT, NC, CH, REL><<<grid, S::kThreads, S::kSmem,
+                                                               static_cast<cudaStream_t>(stream)>>>(
+        maps, static_cast<bf16*>(out), b, heads, nq, nk, c, rel);
+  else
+    wg::pooled_attention_wgmma_kernel<CQP, CT, NC, SPLIT, CH><<<grid, S::kThreads, S::kSmem,
+                                                                static_cast<cudaStream_t>(stream)>>>(
+        maps, static_cast<bf16*>(out), b, heads, nq, nk, c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -820,4 +962,25 @@ extern "C" int pooled_attention_wgmma_bf16(const void* q, const void* k, const v
                   : launch_wg_cq<128, 2, false, 128, 16, 32, 64>(cqp, PA_ARGS);
   return launch_wg_cq<128, 2, false, 64, 128, 256>(cqp, PA_ARGS);
 #undef PA_ARGS
+}
+
+// the same with the decomposed relative-position tables rel_h [b][nq][heads][kh] and rel_w [b][nq][heads][kw]
+// (bf16, dense, 4-byte aligned; nk = kh kw, kh and kw at most 64, kw even) added to the energies; cq and c at
+// most 64.  Every call takes the shared-rows path at 64 channels of q, k and v (channels past cq and c read zero)
+// and chunks of 128 keys (two warpgroups, the tables staged a tile), whatever nq and nk; kw = 64 (SAM's global
+// layers) its own instantiation.
+extern "C" int pooled_attention_relpos_bf16(const void* q, const void* k, const void* v, void* out, const void* rel_h,
+                                            const void* rel_w, int b, int heads, int nq, int n, int cq, int c, int sq,
+                                            int sk, int sv, int kh, int kw, void* stream) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  const uintptr_t tables = reinterpret_cast<uintptr_t>(rel_h) | reinterpret_cast<uintptr_t>(rel_w);
+  if (b < 1 || heads < 1 || nq < 1 || n < 1 || n > 4096 || cq < 1 || cq > 64 || cq % 8 || c < 1 || c > 64 ||
+      c % 8 || sq < heads * cq || sk < heads * cq || sv < heads * c || (sq | sk | sv) % 8 || ptrs % 16 || !rel_h ||
+      !rel_w || tables % 4 || kh < 1 || kh > 64 || kw < 2 || kw > 64 || kw % 2 || kh * kw != n ||
+      !wgconv::encode_tiled())
+    return static_cast<int>(cudaErrorInvalidValue);
+  const wg::Rel rel{static_cast<const bf16*>(rel_h), static_cast<const bf16*>(rel_w), kh, kw};
+  return kw == 64 ? launch_wg<64, 64, 2, false, 128, 2>(q, k, v, out, b, nq, n, cq, c, stream, heads, sq, sk, sv, rel)
+                 : launch_wg<64, 64, 2, false, 128, 1>(q, k, v, out, b, nq, n, cq, c, stream, heads, sq, sk, sv, rel);
 }

@@ -22,8 +22,10 @@ config names any of the factory's twelve models: ``DFC-SA-Res-Block``,
 or ``TransformerUNet``; or ``SegFormer`` (its YAML:
 ``dfc_sa_unet_torch/configs/config_segformer_b5.yaml``; ``--tile_size 1024
 --overlap 256 --batch_size 16``, the source's windows at stride 768; tiles
-whose side is a multiple of 32).  ViT-seg and TransUNet take tiles of their
-own input size only (``--tile_size 224`` for the shipped configs);
+whose side is a multiple of 32); or ``SAM`` (``--tile_size 1024``, its one
+input size; every tile prompted with the config's ``model.box``).  ViT-seg and
+TransUNet take tiles of their own input size only (``--tile_size 224`` for the
+shipped configs);
 ``UNet_FullResAttention`` attends over every pixel of a tile, so it takes
 tiles up to 64x64 (``--tile_size 64``) and the attention wrapper raises for
 a larger one; ``--engine`` is the flagship's.  There is no ``--no_pallas``:

@@ -12,7 +12,9 @@ ablations (``UNet_Baseline``, ``UNet_AttentionOnly``,
 ``VisionTransformerSegmentation`` and ``TransformerUNet`` / ``TransUNet``;
 and one the JAX package lacks, ``SegFormer`` (models/segformer.py:
 ``embed_dims``, ``depths``, ``num_heads``, ``sr_ratios``, ``mlp_ratio`` and
-``decoder_dim``, MiT-B5's by default).  Any other name raises ValueError.
+``decoder_dim``, MiT-B5's by default) and ``SAM`` (models/sam.py: Segment Anything's
+image encoder, box prompt encoder and mask decoder, the keys of ``sam.VIT_B``, ViT-B's by
+default, one output mask).  Any other name raises ValueError.
 
 In JAX a module holds no weights, so the facade returns Flax variables beside
 the model.  A PyTorch module holds its own: here "variables" are the state
@@ -106,6 +108,13 @@ def create_model(config: Mapping[str, Any], dtype=None, use_pallas: bool = False
         model = SegFormer(in_channels=in_channels, num_classes=out_channels,
                           **{key: m.get(key, default) for key, default in B5.items()}, compute_dtype=dtype,
                           remat=bool(remat))
+    elif name == "SAM":
+        from dfc_sa_unet_torch.models.sam import SAM, VIT_B
+
+        if out_channels != 1:
+            raise ValueError(f"SAM serves one mask a box prompt: out_channels must be 1, not {out_channels}")
+        model = SAM(in_channels=in_channels, **{key: m.get(key, default) for key, default in VIT_B.items()},
+                    compute_dtype=dtype)
     elif name == "VisionTransformerSegmentation":
         from dfc_sa_unet_torch.models.vit_seg import VisionTransformerForSegmentation
 

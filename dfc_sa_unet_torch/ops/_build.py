@@ -42,6 +42,8 @@ SIGNATURES = {
     "pooled_attention_f32": ("pooled_attention", [_P] * 4 + [_I] * 9 + [_P]),
     "pooled_attention_long_f32": ("pooled_attention", [_P] * 4 + [_I] * 9 + [_P]),
     "pooled_attention_wgmma_bf16": ("pooled_attention", [_P] * 4 + [_I] * 9 + [_P]),
+    # the same with the decomposed relative-position tables after out, and kh, kw after the row strides
+    "pooled_attention_relpos_bf16": ("pooled_attention", [_P] * 6 + [_I] * 11 + [_P]),
     "conv3x3_bn_relu_f32": ("dfc_tail", [_P] * 4 + [_I] * 5 + [_P]),
     "conv3x3_bn_relu_bf16": ("dfc_tail", [_P] * 4 + [_I] * 7 + [_P]),
     "dfc_tail_f32": ("dfc_tail", [_P] * 10 + [_I] * 5 + [_P]),
@@ -76,7 +78,7 @@ SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}  # the entry points' dty
 LAUNCHES = dict.fromkeys((
     "pooled_attention", "conv3x3_bn_relu", "dfc_tail", "fused_mha", "fused_mha_sep", "conv3x3_bias_stats",
     "probe_matmul", "probe_conv_cat", "probe_conv_9dot", "conv3x3_s8", "lsa_epilogue", "bias_add", "layer_norm",
-    "pooled_attention.fewer_queries", "pooled_attention.more_queries"), 0)
+    "pooled_attention.fewer_queries", "pooled_attention.more_queries", "pooled_attention.rel_pos"), 0)
 
 _functions = None
 _loaded_from = None  # the directory the loaded libraries came from
@@ -167,9 +169,10 @@ def stream_handle(device) -> int:
 
 
 def launches() -> dict:
-    """{kernel name: launches since the last reset}, and two parts of the pooled attention's own:
+    """{kernel name: launches since the last reset}, and three parts of the pooled attention's own:
     ``pooled_attention.fewer_queries`` and ``pooled_attention.more_queries``, its launches with fewer
-    queries than keys (a band's) and with more (SegFormer's)."""
+    queries than keys (a band's) and with more (SegFormer's), and ``pooled_attention.rel_pos``, those with
+    relative-position tables (SAM's)."""
     return dict(LAUNCHES)
 
 

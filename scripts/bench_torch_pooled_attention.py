@@ -2,7 +2,7 @@
 """The pooled-attention kernels beside SDPA and their bound, on one GPU.
 
     python3 scripts/bench_torch_pooled_attention.py [--root DIR] [--batch 128] [--large_batch 1024]
-        [--iters 20] [--seed 0] [--f32] [--configs]
+        [--iters 20] [--seed 0] [--f32] [--configs] [--sam]
 
 ``ops/pooled_attention.py::pooled_attention`` launches the kernel that
 ``entry_point`` names: in bf16 the wgmma kernel at every N; in f32 the 16-row
@@ -27,8 +27,16 @@ both SIMT kernels wherever both run (by moving the wrapper's threshold).
 ``--configs`` builds the bf16 kernel's other configurations from the
 checkout's source (csrc/pooled_attention.cu's templates: consumer warpgroups,
 an image each or one image's rows shared, keys a chunk) and times them at the
-shapes where the dispatch chooses among them.  Needs a CUDA card (and nvcc
-for ``--configs``).
+shapes where the dispatch chooses among them.  ``--sam`` times, in place of
+the shapes above, SAM ViT-B's two launch shapes with relative-position tables
+(models/sam.py; a request of 16 1024x1024 images: a global launch of 4096
+queries and keys, 12 heads of 64, and a windowed one of 16 x 25 windows of
+196), each held to the plain version on two images after a launch on NaN
+tables (and the plain version without the tables held more than 10 times
+that limit away from it), beside the same launch without the tables, SDPA with the bias
+materialised as a float ``attn_mask`` (scale 1.0; q carries the folded 1/8),
+and the bound of portbench/roofline/relpos_attention.py; then a request's 12
+launches summed.  Needs a CUDA card (and nvcc for ``--configs``).
 """
 
 import argparse
@@ -62,6 +70,12 @@ CONFIGS = {
     (64, 8, 64): [(16, 64, 2, True, 64), (16, 64, 3, False, 128)],
 }
 CONFIG_BATCH = {4096: 128, 1024: 128, 64: 1024}
+# --sam: (label, images a launch, side, launches a request) of SAM ViT-B at 16 1024x1024 images a request; heads
+SAM_BATCH = 16
+SAM_SHAPES = [("global", SAM_BATCH, 64, 4), ("windowed", SAM_BATCH * 25, 14, 8)]
+SAM_HEADS = 12
+SAM_TOL = 2e-2  # the kernel against the plain version: max |kernel - plain| <= SAM_TOL max |plain|
+SAM_MOVED = 10  # the tables must move the plain version's output by more than SAM_MOVED times that limit
 
 
 def timed(fn, iters):
@@ -136,6 +150,73 @@ extern "C" int config_bf16(const void* q, const void* k, const void* v, void* ou
     return fn
 
 
+def sam_launches(ops, gen, iters, sm_mhz, card):
+    """SAM's two launch shapes with tables, and a request's 12 launches: {label: {...}, "request": {...}};
+    raises RuntimeError where the kernel is not within SAM_TOL of the plain version on two images' launches
+    (after a launch on NaN tables) or the tables do not move the output past SAM_MOVED times that limit."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from portbench.roofline import relpos_attention
+
+    rows, total = {}, dict.fromkeys(("ms", "no_tables_ms", "sdpa_ms", "bound_ms"), 0.0)
+    exps_per_s = SMS * EXP_PER_CLOCK * sm_mhz * 1e6
+    with torch.inference_mode():
+        for label, b, side, per_request in SAM_SHAPES:
+            n, e, heads = side * side, 64 * SAM_HEADS, SAM_HEADS
+            qkv = torch.randn(b, n, 3 * e, generator=gen, device="cuda").to(torch.bfloat16)
+            q = (qkv[..., :e].float() * 0.125).to(torch.bfloat16)
+            k, v = qkv[..., e:2 * e], qkv[..., 2 * e:]
+            rel_h, rel_w = ((torch.randn(b, n, heads, side, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+                            for _ in range(2))
+            nan = float("nan")
+            ops.pooled_attention(q, k, v, heads, torch.full_like(rel_h, nan), torch.full_like(rel_w, nan))
+            two = tuple(t[:2 * b // SAM_BATCH] for t in (q, k, v, rel_h, rel_w))  # two images' launches
+            got = ops.pooled_attention(*two[:3], heads, *two[3:]).float()
+            want = ops.pooled_attention_plain(*two[:3], heads, *two[3:]).float()
+            without = ops.pooled_attention_plain(*two[:3], heads).float()
+            limit = SAM_TOL * want.abs().max().item()
+            err, moved = (got - want).abs().max().item(), (without - want).abs().max().item()
+            if not err <= limit:
+                raise RuntimeError(f"SAM {label}: the kernel with tables is {err} from the plain version "
+                                   f"(limit {limit})")
+            if not moved > SAM_MOVED * limit:
+                raise RuntimeError(f"SAM {label}: the tables move the output by {moved}, not past "
+                                   f"{SAM_MOVED} x {limit}")
+            del got, want, without, two
+            reps = max(3, iters // 4) if side == 64 else iters
+            ms = min(timed(lambda: ops.pooled_attention(q, k, v, heads, rel_h, rel_w), reps) for _ in range(3))
+            bare = min(timed(lambda: ops.pooled_attention(q, k, v, heads), reps) for _ in range(3))
+
+            def heads_first(t):
+                return t.unflatten(-1, (heads, 64)).transpose(1, 2)
+
+            qs, ks, vs = heads_first(q), heads_first(k), heads_first(v)
+            mask = (rel_h.transpose(1, 2)[..., :, None] + rel_w.transpose(1, 2)[..., None, :]).flatten(-2)
+            sdpa = min(timed(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=1.0), reps)
+                       for _ in range(3))
+            del mask
+            nbytes, nops, nexps = relpos_attention.work(b, n, n, 64, 64, heads, side, side)
+            terms = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": nops / PEAK_OPS[torch.bfloat16],
+                     "exponentials": nexps / exps_per_s}
+            by = max(terms, key=terms.get)
+            bound = terms[by] * 1e3
+            rows[label] = {"images": b, "tokens": n, "ms": ms, "no_tables_ms": bare, "sdpa_ms": sdpa,
+                           "bound_ms": bound, "bound_by": by, "roofline_pct": 100 * bound / ms, "max_abs_err": err,
+                           "limit": limit, "tables_move": moved, "launches_a_request": per_request}
+            for key in total:
+                total[key] += per_request * rows[label][key]
+            print(f"bfloat16 SAM {label:8s} B'={b:4d} N={n:5d} 12 heads of 64, tables {side}+{side}: "
+                  f"kernel {ms:.4f} ms  "
+                  f"without tables {bare:.4f} ms  SDPA with the bias as a mask {sdpa:.4f} ms  bound {bound:.4f} ms "
+                  f"({by}, {100 * bound / ms:.1f}%)  max_abs_err {err:.3e} (limit {limit:.3e}; the tables move "
+                  f"{moved:.3e})  ({card})", flush=True)
+            del q, k, v, qkv, rel_h, rel_w, qs, ks, vs
+    print(f"bfloat16 SAM's 12 launches a request: kernel {total['ms']:.4f} ms  without tables "
+          f"{total['no_tables_ms']:.4f} ms  SDPA {total['sdpa_ms']:.4f} ms  bound {total['bound_ms']:.4f} ms  "
+          f"({card})", flush=True)
+    rows["request"] = total
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -146,6 +227,7 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--f32", action="store_true", help="also time the f32 SIMT kernels")
     ap.add_argument("--configs", action="store_true", help="also time the bf16 kernel's other configurations")
+    ap.add_argument("--sam", action="store_true", help="time SAM's launches with tables instead of the shapes above")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: scripts/bench_torch_pooled_attention.py times kernels on a GPU")
@@ -166,10 +248,15 @@ def main():
     print(f"card: {card}; maximum SM clock {sm_mhz:.0f} MHz; torch {torch.__version__}; {root}; pooled attention, "
           f"B={args.batch}; bf16: {bf16_name}; f32: the 16-row kernel up to N = {ops.SHORT_TOKENS}", flush=True)
     kernel = bf16_name.replace("_bf16", "_kernel")
-    for inst, regs, spills in ptxas_lines(_build.BUILD_DIR / "pooled_attention.log", kernel):
-        print(f"ptxas {inst}: {regs}, {spills}", flush=True)
+    for name in (kernel, "pooled_attention_relpos_kernel"):
+        for inst, regs, spills in ptxas_lines(_build.BUILD_DIR / "pooled_attention.log", name):
+            print(f"ptxas {inst}: {regs}, {spills}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     result = {"root": root, "card": card, "bf16": bf16_name, "batch": args.batch}
+    if args.sam:
+        result["sam"] = sam_launches(ops, gen, args.iters, sm_mhz, card)
+        print(json.dumps(result), flush=True)
+        return
 
     def inputs(b, n, cq, c, dtype):
         return tuple(torch.randn(b, n, 1, ch, generator=gen, device="cuda").to(dtype) for ch in (cq, cq, c))

@@ -20,7 +20,9 @@ against every key (``nq < nk``, parallel/rows.py) must give the whole map's
 rows bit for bit: the chunks go by key index, never by query.  SegFormer's spatial-reduction
 attention takes more queries than keys (``nq > nk``): its heads of 64, the queries scaled by 1/8 as
 its folded scale leaves them, against keys cut by its ratios, held to the JAX package's attention
-core, which takes any two token counts.
+core, which takes any two token counts.  SAM's relative-position bias (the relpos instantiation) adds
+two table values to each f32 energy, rel_h then rel_w, before the chunk's maximum: held to the port's
+plain version with the same tables (the JAX package has no such bias).
 
 Tolerance: 8e-3 of max|reference|.  The two orders differ by bf16 roundings of
 p, which flip the output's last bit here and there: one ulp of the largest
@@ -50,11 +52,13 @@ def chunk_of(cq):
 TOL = 8e-3
 
 
-def kernel_order(q, k, v):
+def kernel_order(q, k, v, rel_h=None, rel_w=None):
     """q [B,h,w,Cq] (nq queries), k [B,p,p',Cq], v [B,p,p',C] (nk keys), bf16 -> [B,h,w,C] bf16: one pass
     over the keys in chunks of ``chunk_of(Cq)``, the online softmax of the kernel (a row's reference d moves to the
     chunk's maximum only when that passes it by more than SLACK), p rounded to bf16 relative to the
-    reference, the f32 sum of the unrounded p divided out last."""
+    reference, the f32 sum of the unrounded p divided out last.  With the relative-position tables rel_h
+    [B,nq,kh] and rel_w [B,nq,kw] (nk = kh kw, the relpos kernel) each chunk's f32 energies take
+    rel_h[i, j // kw], then rel_w[i, j % kw], before its maximum."""
     b, ph, pw, cq = q.shape
     c, nq, nk = v.shape[-1], ph * pw, k.shape[1] * k.shape[2]
     qf = q.reshape(b, nq, cq).float()
@@ -64,6 +68,10 @@ def kernel_order(q, k, v):
     chunk = chunk_of(cq)
     for j0 in range(0, nk, chunk):
         e = qf @ kf[:, j0:j0 + chunk].transpose(1, 2)
+        if rel_h is not None:
+            keys = torch.arange(j0, min(j0 + chunk, nk))
+            kw = rel_w.shape[-1]
+            e = (e + rel_h.float()[:, :, keys // kw]) + rel_w.float()[:, :, keys % kw]
         dc = e.amax(dim=-1, keepdim=True) * LOG2E  # an f32 product, as the kernel's
         up = dc - d > SLACK
         alpha = torch.where(up, torch.exp2(d - dc), torch.ones_like(d))
@@ -134,6 +142,34 @@ def test_more_queries_than_keys_match_the_jax_core_and_keep_their_bits_in_any_ca
     np.testing.assert_allclose(got.float().numpy(), plain, rtol=0, atol=TOL * scale)
     for r0 in range(0, hq, 8):
         assert torch.equal(kernel_order(tq[:, r0:r0 + 8].contiguous(), tk, tv), got[:, r0:r0 + 8]), r0
+
+
+# (side, images): SAM's global launch (64x64 tokens: 32 chunks, a table row of 64 keys twice a chunk) at one
+# image and its windowed one (14x14 = 196 tokens: a chunk of 128 and one of 68, rows of 14 keys across chunk
+# ends), heads of 64, q at 1/8 as the folded scale leaves it, the tables at about half the energies' spread
+@pytest.mark.parametrize("side,b", [(64, 1), (14, 4)], ids=["global_N4096", "windowed_N196"])
+def test_relative_position_bias_in_the_kernel_order(side, b):
+    """The emulation with the bias added in the relpos kernel's order within the tolerance of the plain
+    version with the same tables (ops/pooled_attention.py), a band of query rows the whole call's rows bit for
+    bit, and the tables moving the output by far more than the tolerance."""
+    from dfc_sa_unet_torch.ops.pooled_attention import pooled_attention_plain
+
+    rng = np.random.default_rng(side * b)
+    n = side * side
+    q = (rng.standard_normal((b, side, side, 64)) * 0.125).astype(np.float32)
+    k, v = (rng.standard_normal((b, side, side, 64)).astype(np.float32) for _ in range(2))
+    rh, rw = ((rng.standard_normal((b, n, side)) * 0.5).astype(np.float32) for _ in range(2))
+    tq, tk, tv, th, tw = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, rh, rw))
+    got = kernel_order(tq, tk, tv, th, tw)
+    plain = pooled_attention_plain(tq.reshape(b, n, 64), tk.reshape(b, n, 64), tv.reshape(b, n, 64), 1,
+                                   th.unsqueeze(2), tw.unsqueeze(2)).float().reshape(b, side, side, 64)
+    scale = plain.abs().max().item()
+    assert (got.float() - plain).abs().max().item() <= TOL * scale
+    without = pooled_self_attention(tq, tk, tv).float()
+    assert (without - plain).abs().max().item() > 10 * TOL * scale
+    r0, r1 = side // 3, side // 3 + 5
+    band = kernel_order(tq[:, r0:r1].contiguous(), tk, tv, th[:, r0 * side:r1 * side], tw[:, r0 * side:r1 * side])
+    assert torch.equal(band, got[:, r0:r1])
 
 
 @pytest.mark.parametrize("spread", [0.25, 6.0], ids=["reference_moves_once", "reference_moves_often"])

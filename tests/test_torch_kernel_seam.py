@@ -1,6 +1,6 @@
 """The one seam through which the kernel wrappers of dfc_sa_unet_torch/ops call a kernel (ops/_build.py).
 
-* ``ops.launches()`` shows the one counter, ``_build.LAUNCHES``: the fifteen names below, each set
+* ``ops.launches()`` shows the one counter, ``_build.LAUNCHES``: the sixteen names below, each set
   to 0 by ``reset_launches()``.
 * Every wrapper's launch, driven on the CPU with the seam's device rules and its kernel lookup
   replaced (``on_cpu`` false, ``check_operands`` a no-op, ``kernel`` a recorder), calls an entry
@@ -33,7 +33,7 @@ torch.set_num_threads(2)
 OPS = pathlib.Path(__file__).resolve().parent.parent / "dfc_sa_unet_torch" / "ops"
 COUNTED = ["pooled_attention", "conv3x3_bn_relu", "dfc_tail", "fused_mha", "fused_mha_sep", "conv3x3_bias_stats",
            "probe_matmul", "probe_conv_cat", "probe_conv_9dot", "conv3x3_s8", "lsa_epilogue", "bias_add",
-           "layer_norm", "pooled_attention.fewer_queries", "pooled_attention.more_queries"]
+           "layer_norm", "pooled_attention.fewer_queries", "pooled_attention.more_queries", "pooled_attention.rel_pos"]
 BF, F32, S8 = torch.bfloat16, torch.float32, torch.int8
 
 
@@ -71,6 +71,10 @@ CALLS = [
     ("attention_bf16_more_queries", lambda: pooled_attention(_t(2, 64, 2 * 12, dtype=BF), _t(2, 8, 2 * 12, dtype=BF),
                                                              _t(2, 8, 2 * 20, dtype=BF), 2),
      "pooled_attention_wgmma_bf16", ["pooled_attention", "pooled_attention.more_queries"]),
+    ("attention_bf16_rel_pos", lambda: pooled_attention(_t(2, 16, 2 * 64, dtype=BF), _t(2, 16, 2 * 64, dtype=BF),
+                                                        _t(2, 16, 2 * 64, dtype=BF), 2, _t(2, 16, 2, 4, dtype=BF),
+                                                        _t(2, 16, 2, 4, dtype=BF)),
+     "pooled_attention_relpos_bf16", ["pooled_attention", "pooled_attention.rel_pos"]),
     ("attention_long_fewer_queries", lambda: pooled_attention(_t(1, 8, 16, 8), _t(1, 16, 16, 8), _t(1, 16, 16, 8)),
      "pooled_attention_long_f32", ["pooled_attention", "pooled_attention.fewer_queries"]),
     ("tail_f32", lambda: dfc_tail(*_tail_args(F32)), "dfc_tail_f32", ["dfc_tail"]),

@@ -111,18 +111,23 @@ def test_non_cpu_tensor_never_falls_back():
 
 
 def test_entry_point_per_dtype_and_token_count():
-    """bf16: the wgmma kernel for every N the wrapper takes; f32: the 16-row SIMT kernel
-    up to SHORT_TOKENS and the two-pass one above.  Every export of the source is reached."""
+    """bf16: the wgmma kernel for every N the wrapper takes, its relpos export with tables; f32: the 16-row
+    SIMT kernel up to SHORT_TOKENS and the two-pass one above, and no tables.  Every export of the source is
+    reached."""
     from dfc_sa_unet_torch.ops import _build
     from dfc_sa_unet_torch.ops import pooled_attention as ops
 
     bf16 = {ops.entry_point(torch.bfloat16, n) for n in range(1, ops.MAX_TOKENS + 1)}
     assert bf16 == {"pooled_attention_wgmma_bf16"}
+    rel = {ops.entry_point(torch.bfloat16, n, tables=True) for n in range(1, ops.MAX_TOKENS + 1)}
+    assert rel == {"pooled_attention_relpos_bf16"}
+    with pytest.raises(ValueError, match="bf16"):
+        ops.entry_point(torch.float32, 196, tables=True)
     f32 = [ops.entry_point(torch.float32, n) for n in range(1, ops.MAX_TOKENS + 1)]
     assert set(f32[:ops.SHORT_TOKENS]) == {"pooled_attention_f32"}
     assert set(f32[ops.SHORT_TOKENS:]) == {"pooled_attention_long_f32"}
     exports = {name for name, (stem, _) in _build.SIGNATURES.items() if stem == "pooled_attention"}
-    assert exports == bf16 | set(f32)
+    assert exports == bf16 | rel | set(f32)
 
 
 @pytest.mark.parametrize("channels,offset,padded", [(8, 0, False), (64, 0, False), (25, 0, True), (4, 0, True),
